@@ -1,6 +1,7 @@
 """Build and load the CUDA kernels of ``csrc/`` at first use.
 
-One nvcc call compiles every ``csrc/*.cu`` into one shared library with a
+Every ``csrc/*.cu`` is compiled by its own nvcc process, all started
+together, and one nvcc call links the objects into one shared library with a
 plain C interface, loaded with ctypes (no PyTorch headers, so the build takes
 seconds). The library lands in ``gyroflow_torch/build/``, named by a hash of
 the sources and flags, so an edited kernel rebuilds and an unchanged one
@@ -47,6 +48,13 @@ class SamplerArgs(ctypes.Structure):
                 ("src_rect", ctypes.c_int * 4)]
 
 
+class EwaArgs(ctypes.Structure):
+    """Mirror of ``EwaArgs`` (csrc/ewa.cu)."""
+    _fields_ = [("p", ctypes.c_float * 4), ("q", ctypes.c_float * 4),
+                ("bg", ctypes.c_float * 4), ("limit", ctypes.c_float),
+                ("src_rect", ctypes.c_int * 4)]
+
+
 def _sources():
     return sorted(CSRC_DIR.glob("*.cu")), sorted(CSRC_DIR.glob("*.cuh"))
 
@@ -87,16 +95,34 @@ def build(verbose: bool = False) -> Path:
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = out.with_name(f"{out.stem}.{os.getpid()}.tmp.so")
+    obj_dir = BUILD_DIR / f"obj.{os.getpid()}"
+    obj_dir.mkdir(exist_ok=True)
+    nvcc = find_nvcc()
     cus, _ = _sources()
-    cmd = [find_nvcc(), *NVCC_FLAGS, *(("-Xptxas", "-v") if verbose else ()),
-           "-o", str(tmp), *(str(p) for p in cus)]
+    compile_flags = [f for f in NVCC_FLAGS if f != "-shared"]
+    objs = [obj_dir / f"{p.stem}.o" for p in cus]
     t0 = time.perf_counter()
-    res = subprocess.run(cmd, capture_output=True, text=True)
-    build_seconds = time.perf_counter() - t0
-    build_log = res.stderr
-    if res.returncode != 0:
-        raise RuntimeError(f"nvcc failed with exit code {res.returncode}:\n"
-                           f"{' '.join(cmd)}\n{res.stderr[-6000:]}")
+    try:
+        # one nvcc per source, all started together, then one link
+        cmds = [[nvcc, *compile_flags, *(("-Xptxas", "-v") if verbose else ()),
+                 "-c", str(src), "-o", str(obj)] for src, obj in zip(cus, objs)]
+        procs = [subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+                 for cmd in cmds]
+        errs = [p.communicate()[1] for p in procs]
+        build_log = "".join(errs)
+        for cmd, p, err in zip(cmds, procs, errs):
+            if p.returncode != 0:
+                raise RuntimeError(f"nvcc failed with exit code {p.returncode}:\n"
+                                   f"{' '.join(cmd)}\n{err[-6000:]}")
+        link = [nvcc, *NVCC_FLAGS, "-o", str(tmp), *(str(o) for o in objs)]
+        res = subprocess.run(link, capture_output=True, text=True)
+        build_log += res.stderr
+        if res.returncode != 0:
+            raise RuntimeError(f"nvcc link failed with exit code {res.returncode}:\n"
+                               f"{' '.join(link)}\n{res.stderr[-6000:]}")
+    finally:
+        build_seconds = time.perf_counter() - t0
+        shutil.rmtree(obj_dir, ignore_errors=True)
     os.replace(tmp, out)          # atomic: a concurrent process never sees half a file
     return out
 
@@ -116,5 +142,7 @@ def lib() -> ctypes.CDLL:
             L.gf_sampler.restype = ci
             L.gf_sampler_set_lut.argtypes = [vp, ci]
             L.gf_sampler_set_lut.restype = ci
+            L.gf_ewa.argtypes = [vp, ci, ci, ci, ci, vp, vp, vp, vp, ci, ci, EwaArgs, vp, vp]
+            L.gf_ewa.restype = ci
             _lib = L
     return _lib

@@ -1386,10 +1386,13 @@ class StabilizationManager:
         (rint, clamp to max_pixel_value), uint8 planes with
         max_pixel_value 255 as uint8, everything else float32.
 
-        On a CUDA device the plane runs through the coords and sampler
-        kernels (remap.remap_plane_cuda); on the CPU through the plain torch
-        remap. plane_rects=True enables subsampled-plane processing (chroma
-        planes of planar YUV): geometry stays in luma coordinates while
+        On a CUDA device the plane runs through the coords kernel and the
+        sampler kernel, or for EWA (interpolation 10-13) the EWA kernel
+        (remap.remap_plane_cuda); on the CPU through the plain torch remap.
+        interpolation: 2 bilinear, 4 bicubic, 8 lanczos4, 10-13 EWA
+        (RobidouxSharp, Robidoux, Mitchell, CatmullRom). plane_rects=True
+        enables subsampled-plane processing (chroma planes of planar YUV):
+        geometry stays in luma coordinates while
         source/output rects map the plane buffer (stabilization/mod.rs:
         230-231). background_override replaces the RGBA background with this
         plane's converted color (rendering/mod.rs:506-516). There is no

@@ -10,10 +10,16 @@ Two entry points share one body (``_remap``):
   kernels are held against.
 - ``remap_plane_cuda``: torch ``coords_pre``, then the coords kernel
   (``cuda_coords.project``), torch ``coords_post_uv``, the sampler kernel
-  (``cuda_sampler.sample``), and the finish in torch. It is the counterpart of
-  ``remap_plane_pallas`` without the TPU's window ladder: one thread per
-  output pixel reads its matrix row and its taps directly, so there is no
-  window to overflow.
+  (``cuda_sampler.sample``, or ``cuda_ewa.sample`` for EWA), and the finish
+  in torch. It is the counterpart of ``remap_plane_pallas`` without the TPU's
+  window ladder: one thread per output pixel reads its matrix row and its
+  taps directly, so there is no window to overflow.
+
+EWA (interpolation 10-13) needs the finite-difference Jacobian of the
+source coordinates: both entry points stack the base eval and the two
++eps evals into one (3*oh, ow) projection call (``ewa_stack``), as
+remap_plane_pallas does (remap.py:783-802), and sample with the EWA stencil
+at the JAX package's top cap, ``EWA_CAP = 4`` (a 10x10 stencil).
 
 ``dyn`` is a KernelDynamics with host numpy leaves, as the manager builds it;
 the functions move it to the image's device themselves.
@@ -81,9 +87,7 @@ def _check_supported(cfg: KernelConfig):
         raise NotImplementedError("mesh / focal-plane correction " + _NOT_PORTED.format(10))
     if cfg.has(HAS_DIGITAL_LENS) or cfg.digital_lens:
         raise NotImplementedError(f"digital lens {cfg.digital_lens!r} " + _NOT_PORTED.format(2))
-    if cfg.interpolation > 8:
-        raise NotImplementedError("EWA interpolation " + _NOT_PORTED.format(11))
-    if cfg.interpolation not in INTERP_INFO:
+    if cfg.interpolation not in INTERP_INFO and cfg.interpolation not in EWA_BC:
         raise ValueError(f"unknown interpolation {cfg.interpolation}")
     dm.get_model(cfg.distortion_model)      # raises for models not ported
 
@@ -166,9 +170,14 @@ def _rint_index(a, lim: int):
     return torch.clamp(r, 0.0, float(lim)).to(torch.int32)
 
 
-def coords_pre(ox, oy, matrices, cfg: KernelConfig, dyn: KernelDynamics, out_c, out_f):
+def coords_pre(ox, oy, matrices, cfg: KernelConfig, dyn: KernelDynamics, out_c, out_f,
+               rs_idx=None):
     """Output-rect map, translation2d, lens-correction blend and the RS row
-    select (remap.py:187). Returns (x, y, idx)."""
+    select (remap.py:187). Returns (x, y, idx).
+
+    ``rs_idx`` overrides the row select and skips the centre-matrix probe:
+    the EWA same-row Jacobian evaluates the +eps evals on the base pixel's
+    row (KernelConfig.ewa_ref_jac)."""
     model = dm.get_model(cfg.distortion_model)
     lp = _lens_params(cfg, dyn)
     orx, ory, orw, orh = cfg.out_rect
@@ -194,6 +203,8 @@ def coords_pre(ox, oy, matrices, cfg: KernelConfig, dyn: KernelDynamics, out_c, 
         y = ny * (1.0 - amount) + y * amount
 
     # ---- rolling shutter row select (remap.py:231-252) ----
+    if rs_idx is not None:
+        return x, y, rs_idx
     matrix_count = matrices.shape[0]
     horizontal_rs = cfg.has(HORIZONTAL_RS)
     lim = cfg.width if horizontal_rs else cfg.height
@@ -237,10 +248,11 @@ def coords_post_uv(u, v, cfg: KernelConfig):
     return u, v
 
 
-def undistort_coord(ox, oy, matrices, cfg: KernelConfig, dyn: KernelDynamics, out_c, out_f):
+def undistort_coord(ox, oy, matrices, cfg: KernelConfig, dyn: KernelDynamics, out_c, out_f,
+                    rs_idx=None):
     """Output pixel -> source (u, v, valid) with the plain projection
-    (remap.py:294)."""
-    x, y, idx = coords_pre(ox, oy, matrices, cfg, dyn, out_c, out_f)
+    (remap.py:294); ``rs_idx`` as in coords_pre."""
+    x, y, idx = coords_pre(ox, oy, matrices, cfg, dyn, out_c, out_f, rs_idx=rs_idx)
     u, v, valid = rotate_and_distort(x, y, idx, matrices, cfg, dyn)
     u, v = coords_post_uv(u, v, cfg)
     return u, v, valid
@@ -310,6 +322,139 @@ def ewa_coeffs(interpolation: int):
     return p, q
 
 
+EWA_CAP = 4         # tap radius: the JAX package's top rung, (2*4+2)^2 taps
+EWA_EPS = 0.01      # finite-difference step of the Jacobian (remap.py:546)
+_I32_MAX_F = 2147483520.0   # largest float32 below 2**31
+
+
+def _floor_i32(a):
+    """floor(a) as int32, saturating like the float->int conversion of XLA and
+    CUDA (torch's CPU cast of an out-of-range float is undefined)."""
+    return torch.clamp(torch.floor(a), -2147483648.0, _I32_MAX_F).to(torch.int32)
+
+
+def _ceil_i32(a):
+    return torch.clamp(torch.ceil(a), -2147483648.0, _I32_MAX_F).to(torch.int32)
+
+
+def sample_ewa(img, u, v, jac, bg, src_rect, coeffs_p, coeffs_q, pixel_value_limit):
+    """EWA elliptical sampling (remap.py:374): the plain version of the EWA
+    kernel, and its spec.
+
+    img (H, W, C) float32; u, v (...) source coordinates; jac (..., 4) the
+    finite-difference Jacobian (du/dx, du/dy, dv/dx, dv/dy); bg (C,) tensor;
+    coeffs_p, coeffs_q the four float32 Keys-cubic coefficients of each
+    piece (``ewa_coeffs``). The reference bbox (affine_bbox) is masked inside
+    a fixed (2*EWA_CAP+2)^2 stencil; taps outside ``src_rect`` read bg.
+    Returns (..., C) float32."""
+    H, W, C = img.shape
+    flat = img.reshape(H * W, C)
+    srx, sry, srw, srh = src_rect
+    u = _guard_uv(u)
+    v = _guard_uv(v)
+    jx, jy, jz, jw = jac[..., 0], jac[..., 1], jac[..., 2], jac[..., 3]
+
+    # affine_bbox (remap.py:387-393)
+    tx = 2.0 * torch.clamp_min(torch.maximum(torch.abs(jx + jy), torch.abs(jx - jy)), 1.0)
+    ty = 2.0 * torch.clamp_min(torch.maximum(torch.abs(jz + jw), torch.abs(jz - jw)), 1.0)
+    x0 = _floor_i32(u - tx)
+    x1 = _ceil_i32(u + tx)
+    y0 = _floor_i32(v - ty)
+    y1 = _ceil_i32(v + ty)
+
+    # clamped_ellipse (remap.py:395-421)
+    f0 = torch.abs(jx * jw - jy * jz)
+    f = torch.clamp_min(f0 * f0, 0.1)
+    a = (jz * jz + jw * jw) / f
+    b = -2.0 * (jx * jz + jy * jw) / f
+    c = (jx * jx + jy * jy) / f
+    vx = c - a
+    vy = -b
+    lv = torch.sqrt(vx * vx + vy * vy)
+    v0 = torch.where(lv > 0.01, vx / torch.where(lv == 0.0, 1.0, lv), 1.0)
+    cc = torch.sqrt(torch.clamp_min(1.0 + v0, 0.0) / 2.0)
+    s_ = torch.sqrt(torch.clamp_min(1.0 - v0, 0.0) / 2.0)
+    a0 = a * cc * cc - b * cc * s_ + c * s_ * s_
+    c0 = a * s_ * s_ + b * cc * s_ + c * cc * cc
+    bt1 = b * (cc * cc - s_ * s_)
+    bt2 = 2.0 * (a - c) * cc * s_
+    b0 = bt1 + bt2
+    b0v2 = bt1 - bt2
+    flip = torch.abs(b0) > torch.abs(b0v2)
+    s_ = torch.where(flip, -s_, s_)
+    b0 = torch.where(flip, b0v2, b0)
+    a0 = torch.clamp_max(a0, 1.0)
+    c0 = torch.clamp_max(c0, 1.0)
+    sn = -s_
+    abc_x = a0 * cc * cc - b0 * cc * sn + c0 * sn * sn
+    abc_y = 2.0 * a0 * cc * sn + b0 * cc * cc - b0 * sn * sn - 2.0 * c0 * cc * sn
+    abc_z = a0 * sn * sn + b0 * cc * sn + c0 * cc * cc
+
+    pw, qw = [float(x) for x in coeffs_p], [float(x) for x in coeffs_q]
+
+    def bc2(x):
+        x2 = x * x
+        pr = pw[0] + pw[1] * x + pw[2] * x2 + pw[3] * x2 * x
+        qr = qw[0] + qw[1] * x + qw[2] * x2 + qw[3] * x2 * x
+        return torch.where(x < 1.0, pr, torch.where(x < 2.0, qr, 0.0))
+
+    base_x = _floor_i32(u) - EWA_CAP
+    base_y = _floor_i32(v) - EWA_CAP
+    taps = 2 * EWA_CAP + 2
+
+    # row of taps major, column minor (remap.py:439-463)
+    total = torch.zeros(u.shape + (C,), dtype=torch.float32, device=img.device)
+    sum_div = torch.zeros_like(u)
+    for typ in range(taps):
+        in_y = base_y + typ
+        fy = in_y.to(torch.float32) - v
+        fy2 = fy * abc_y
+        fy3 = fy * fy * abc_z
+        y_in_bbox = (in_y >= y0) & (in_y <= y1)
+        row_ok = (in_y >= sry) & (in_y < sry + srh)
+        row = torch.clamp(in_y, 0, H - 1) * W
+        for txp in range(taps):
+            in_x = base_x + txp
+            fx = in_x.to(torch.float32) - u
+            dr = fx * fx * abc_x + fx * fy2 + fy3
+            k = bc2(torch.sqrt(torch.clamp_min(dr, 0.0)))
+            k = torch.where(y_in_bbox & (in_x >= x0) & (in_x <= x1), k, 0.0)
+            in_rect = row_ok & (in_x >= srx) & (in_x < srx + srw)
+            px = flat[(row + torch.clamp(in_x, 0, W - 1)).long()]
+            px = torch.where(in_rect[..., None], px, bg)
+            total = total + k[..., None] * px
+            sum_div = sum_div + k
+    total = total / torch.where(sum_div == 0.0, 1.0, sum_div)[..., None]
+    return torch.clamp_max(total, pixel_value_limit)
+
+
+def ewa_stack(ox, oy, matrices, cfg: KernelConfig, dyn: KernelDynamics, out_c, out_f):
+    """coords_pre of the base eval and the +eps evals in x and in y, stacked
+    along rows into (3*oh, ow) x, y, idx for ONE projection call
+    (remap.py:783-794). By default the +eps evals reuse the base row;
+    ``cfg.ewa_ref_jac`` makes each re-probe its own."""
+    x0, y0, idx0 = coords_pre(ox, oy, matrices, cfg, dyn, out_c, out_f)
+    rs_idx = None if cfg.ewa_ref_jac else idx0
+    x1, y1, idx1 = coords_pre(ox + EWA_EPS, oy, matrices, cfg, dyn, out_c, out_f, rs_idx=rs_idx)
+    x2, y2, idx2 = coords_pre(ox, oy + EWA_EPS, matrices, cfg, dyn, out_c, out_f, rs_idx=rs_idx)
+    return torch.cat([x0, x1, x2]), torch.cat([y0, y1, y2]), torch.cat([idx0, idx1, idx2])
+
+
+def ewa_jacobian(u3, v3, valid3):
+    """Split the stacked evals (after coords_post_uv) into the base (u, v,
+    valid) and the Jacobian (oh, ow, 4) = (du/dx, du/dy, dv/dx, dv/dy); an
+    invalid +eps eval counts as source point 0 (remap.py:842-845)."""
+    u, ux, uy = u3.chunk(3)
+    v, vx, vy = v3.chunk(3)
+    valid, valid_x, valid_y = valid3.chunk(3)
+    dxu = torch.where(valid_x, ux, 0.0) - u
+    dxv = torch.where(valid_x, vx, 0.0) - v
+    dyu = torch.where(valid_y, uy, 0.0) - u
+    dyv = torch.where(valid_y, vy, 0.0) - v
+    jac = torch.stack([dxu / EWA_EPS, dyu / EWA_EPS, dxv / EWA_EPS, dyv / EWA_EPS], dim=-1)
+    return u, v, valid, jac
+
+
 def _remap_colorrange(px, is_y: bool, max_pixel_value):
     """Full->limited range (remap.py:468; stabilize_spirv drawing.rs:71-74)."""
     px = px * (0.85882352 if is_y else 0.87843137)
@@ -331,11 +476,18 @@ def _host_scalar(a) -> float:
     return float(np.asarray(a, np.float32).reshape(-1)[0])
 
 
+def _ewa_coeffs_of(dyn: KernelDynamics):
+    """(p, q): the float32 EWA coefficients of host dynamics as Python floats."""
+    return tuple(tuple(float(x) for x in np.asarray(c, np.float32).reshape(4))
+                 for c in (dyn.ewa_coeffs_p, dyn.ewa_coeffs_q))
+
+
 def _remap(img, matrices, cfg: KernelConfig, dyn_t: KernelDynamics, project, sample):
     """Shared body of remap_plane / remap_plane_cuda (remap.py:511, :662).
 
     dyn_t: tensor leaves on img's device. project(x, y, idx) -> (u, v, valid);
-    sample(u, v, valid) -> (oh, ow, C)."""
+    sample(u, v, valid, jac) -> (oh, ow, C), where jac is the (oh, ow, 4)
+    Jacobian for EWA and None otherwise."""
     dev = img.device
     C = img.shape[-1]
     bg = (dyn_t.background * dyn_t.max_pixel_value)[:C]
@@ -352,9 +504,13 @@ def _remap(img, matrices, cfg: KernelConfig, dyn_t: KernelDynamics, project, sam
     out_c = (float(cfg.output_width) / 2.0, float(cfg.output_height) / 2.0)
     out_f = (dyn_t.f[0] / dyn_t.fov / factor, dyn_t.f[1] / dyn_t.fov / factor)
 
-    x, y, idx = coords_pre(ox, oy, matrices, cfg, dyn_t, out_c, out_f)
+    is_ewa = cfg.interpolation in EWA_BC
+    x, y, idx = (ewa_stack if is_ewa else coords_pre)(ox, oy, matrices, cfg, dyn_t, out_c, out_f)
     u, v, valid = project(x, y, idx)
     u, v = coords_post_uv(u, v, cfg)
+    jac = None
+    if is_ewa:
+        u, v, valid, jac = ewa_jacobian(u, v, valid)
 
     if cfg.background_mode == 3:
         # margin with feather (remap.py:968-987): two samples, blended
@@ -373,12 +529,12 @@ def _remap(img, matrices, cfg: KernelConfig, dyn_t: KernelDynamics, project, sam
         frame_w, frame_h = (fw, fh) if cfg.input_rotation == 0.0 else _rotated_frame_size(cfg)
         srx, sry, srw, srh = cfg.src_rect
         c1 = sample(map_coord(u, 0.0, frame_w, float(srx), float(srx + srw)),
-                    map_coord(v, 0.0, frame_h, float(sry), float(sry + srh)), valid)
+                    map_coord(v, 0.0, frame_h, float(sry), float(sry + srh)), valid, jac)
         c2 = sample(map_coord(pt2u, 0.0, frame_w, float(srx), float(srx + srw)),
-                    map_coord(pt2v, 0.0, frame_h, float(sry), float(sry + srh)), valid)
+                    map_coord(pt2v, 0.0, frame_h, float(sry), float(sry + srh)), valid, jac)
         pixel = c1 * alpha[..., None] + c2 * (1.0 - alpha[..., None])
     else:
-        pixel = sample(u, v, valid)
+        pixel = sample(u, v, valid, jac)
 
     pixel = torch.where(valid[..., None], pixel, bg)
 
@@ -416,11 +572,14 @@ def remap_plane(img, matrices, cfg: KernelConfig, dyn: KernelDynamics, mesh=None
     dyn_t = dyn_to_torch(dyn, img.device)
     bg = (dyn_t.background * dyn_t.max_pixel_value)[:img.shape[-1]]
     limit = _host_scalar(dyn.pixel_value_limit)
+    coeffs_p, coeffs_q = _ewa_coeffs_of(dyn)
 
     def project(x, y, idx):
         return rotate_and_distort(x, y, idx, matrices, cfg, dyn_t)
 
-    def sample(u, v, valid):
+    def sample(u, v, valid, jac):
+        if jac is not None:
+            return sample_ewa(imgf, u, v, jac, bg, cfg.src_rect, coeffs_p, coeffs_q, limit)
         return sample_input(imgf, u, v, bg, cfg.src_rect, cfg.interpolation, limit)
 
     out = _remap(img, matrices, cfg, dyn_t, project, sample)
@@ -429,25 +588,30 @@ def remap_plane(img, matrices, cfg: KernelConfig, dyn: KernelDynamics, mesh=None
 
 def remap_plane_cuda(img, matrices, cfg: KernelConfig, dyn: KernelDynamics, mesh=None,
                      drawing=None, out_dtype: str = "f32"):
-    """Remap one plane through the coords and sampler kernels.
+    """Remap one plane through the coords kernel and the sampler (or EWA)
+    kernel.
 
     Counterpart of remap_plane_pallas (remap.py:662) on one thread per output
-    pixel. ``img`` keeps its native dtype (uint8, uint16 or float32): the
-    sampler reads it directly. On CPU tensors the kernel wrappers run their
-    plain versions."""
-    from . import cuda_coords, cuda_sampler
+    pixel: one coords launch per plane (EWA stacks its three evals into it)
+    and one sampling launch per sample (two in background mode 3). ``img``
+    keeps its native dtype (uint8, uint16 or float32): the samplers read it
+    directly. On CPU tensors the kernel wrappers run their plain versions."""
+    from . import cuda_coords, cuda_ewa, cuda_sampler
 
     matrices = _prepare(img, matrices, cfg, mesh, drawing)
     C = img.shape[-1]
     bg = tuple(float(b) for b in
                (np.asarray(dyn.background, np.float32) * np.float32(dyn.max_pixel_value))[:C])
     limit = _host_scalar(dyn.pixel_value_limit)
+    coeffs = _ewa_coeffs_of(dyn)
     dyn_t = dyn_to_torch(dyn, img.device)
 
     def project(x, y, idx):
         return cuda_coords.project(x, y, idx, matrices, cfg, dyn)
 
-    def sample(u, v, valid):
+    def sample(u, v, valid, jac):
+        if jac is not None:
+            return cuda_ewa.sample(img, u, v, jac, valid, bg, cfg.src_rect, coeffs, limit)
         return cuda_sampler.sample(img, u, v, valid, bg, cfg.src_rect,
                                    cfg.interpolation, limit)
 

@@ -17,7 +17,7 @@ import numpy as np
 import pytest
 import torch
 
-from gyroflow_torch.ops import cuda_coords, cuda_sampler
+from gyroflow_torch.ops import cuda_coords, cuda_ewa, cuda_sampler
 from gyroflow_torch.ops import remap
 from gyroflow_torch.ops.kernel_params import (ANY_UNDERWATER, HAS_IBIS_DATA, HAS_MESH_DATA,
                                               HAS_OUTPUT_RECT, HAS_SOURCE_RECT, KernelConfig,
@@ -52,10 +52,12 @@ def _mats(fov, ibis=False):
     return np.asarray(rows, np.float32)
 
 
-def _case(plane="Y", flags=0, background_mode=0, fov=1.05, interpolation=8, lrc=1.0):
+def _case(plane="Y", flags=0, background_mode=0, fov=1.05, interpolation=8, lrc=1.0,
+          ewa_ref_jac=False):
     cfg = KernelConfig(width=W, height=H, output_width=W, output_height=H,
                        interpolation=interpolation, background_mode=background_mode,
-                       flags=flags | (ANY_UNDERWATER if lrc != 1.0 else 0))
+                       flags=flags | (ANY_UNDERWATER if lrc != 1.0 else 0),
+                       ewa_ref_jac=ewa_ref_jac)
     c = 1
     if plane == "UV":
         cfg = cfg._replace(plane_index=1, source_rect=(0, 0, W // 2, H // 2),
@@ -66,6 +68,10 @@ def _case(plane="Y", flags=0, background_mode=0, fov=1.05, interpolation=8, lrc=
                               background=(0.1, 0.5, 0.2, 1.0), background_margin=0.1,
                               background_margin_feather=0.05, light_refraction_coefficient=lrc,
                               max_pixel_value=1023.0, pixel_value_limit=1023.0)
+    if interpolation in remap.EWA_BC:
+        p, q = remap.ewa_coeffs(interpolation)
+        dyn = dyn._replace(ewa_coeffs_p=np.asarray(p, np.float32),
+                           ewa_coeffs_q=np.asarray(q, np.float32))
     ow, oh = cfg.out_buffer
     rng = np.random.default_rng(0)
     img = rng.integers(0, 1024, (oh, ow, c)).astype(np.uint16)
@@ -139,3 +145,60 @@ def test_kernels_raise_instead_of_falling_back(dev):
     with pytest.raises(TypeError):
         cuda_sampler.sample(torch.zeros(8, 8, 1, dtype=torch.int32, device=dev), x, y,
                             x > 0, (0.0,), (0, 0, 8, 8), 8, 1.0)
+    with pytest.raises(TypeError):
+        cuda_ewa.sample(torch.zeros(8, 8, 1, dtype=torch.int32, device=dev), x, y,
+                        torch.zeros(x.shape + (4,), device=dev), x > 0, (0.0,), (0, 0, 8, 8),
+                        remap.ewa_coeffs(11), 1.0)
+
+
+def _ewa_inputs(dev, dtype, c, seed):
+    """Noisy content, u/v across the plane's edges, and Jacobians that mix
+    magnification, |J| ~ 3 minification and near-singular matrices."""
+    rng = np.random.default_rng(seed)
+    img = torch.from_numpy(rng.uniform(0, 250, (70, 90, c)).astype(np.float32)).to(dtype).to(dev)
+    u = rng.uniform(-6, 96, (40, 64)).astype(np.float32)
+    v = rng.uniform(-6, 76, (40, 64)).astype(np.float32)
+    jac = np.asarray([1.0, 0.0, 0.0, 1.0]) + rng.normal(0.0, 0.35, (40, 64, 4))
+    jac[:10] *= 3.0
+    a, b = rng.normal(0.0, 1.5, (2, 10, 64))
+    jac[10:20] = np.stack([a, b, 0.7 * a, 0.7 * b], -1) + rng.normal(0.0, 1e-3, (10, 64, 4))
+    valid = rng.uniform(size=(40, 64)) > 0.2
+    bg = tuple(float(b) for b in rng.uniform(0, 250, c))
+    t = [torch.from_numpy(a).to(dev) for a in (u, v, jac.astype(np.float32), valid)]
+    return (img, *t, bg)
+
+
+@pytest.mark.parametrize("dtype,c,interpolation", [
+    *[(dt, c, 11) for dt in (torch.uint8, torch.uint16, torch.float32) for c in (1, 2, 4)],
+    (torch.uint16, 1, 10), (torch.uint16, 1, 12), (torch.uint16, 1, 13)])
+def test_ewa_kernel_vs_plain(dev, dtype, c, interpolation):
+    img, u, v, jac, valid, bg = _ewa_inputs(dev, dtype, c, seed=c * 10 + interpolation)
+    rect = (3, 2, 81, 64)
+    coeffs = tuple(tuple(float(x) for x in np.asarray(k, np.float32))
+                   for k in remap.ewa_coeffs(interpolation))
+    n0 = cuda_ewa.sample.launches
+    k = cuda_ewa.sample(img, u, v, jac, valid, bg, rect, coeffs, 240.0)
+    p = cuda_ewa.sample_plain(img, u, v, jac, valid, bg, rect, coeffs, 240.0)
+    torch.cuda.synchronize()
+    assert cuda_ewa.sample.launches == n0 + 1
+    assert k.shape == (40, 64, c) and k.dtype == torch.float32
+    assert bool(torch.isfinite(k).all())
+    assert float((k - p).abs().max()) <= 1e-3
+
+
+@pytest.mark.parametrize("ref_jac", [False, True])
+@pytest.mark.parametrize("bg_mode", [0, 1, 2, 3])
+@pytest.mark.parametrize("plane", ["Y", "UV"])
+def test_remap_plane_cuda_ewa_vs_plain(dev, plane, bg_mode, ref_jac):
+    cfg, dyn, mats, img = _case(plane, background_mode=bg_mode, interpolation=11,
+                                ewa_ref_jac=ref_jac)
+    timg = torch.from_numpy(img).to(dev)
+    m = torch.from_numpy(mats).to(dev)
+    n_coords, n_ewa = cuda_coords.project.launches, cuda_ewa.sample.launches
+    got = remap.remap_plane_cuda(timg, m, cfg, dyn, out_dtype="uint16")
+    # one stacked coords launch per plane; one EWA launch per sample
+    assert cuda_coords.project.launches == n_coords + 1
+    assert cuda_ewa.sample.launches == n_ewa + (2 if bg_mode == 3 else 1)
+    want = remap.remap_plane(timg, m, cfg, dyn, out_dtype="uint16")
+    assert got.dtype == torch.uint16 and got.device.type == "cuda"
+    assert torch.equal(got, want)

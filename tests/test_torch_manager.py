@@ -122,6 +122,23 @@ def test_process_pixels_matches_jax(managers, plane, use_pallas):
         assert d.max() <= 1
 
 
+@pytest.mark.parametrize("plane", ["Y", "UV"])
+def test_process_pixels_ewa_matches_jax(managers, plane):
+    """EWA (interpolation 11, Robidoux) through both managers: the port's
+    plain torch path vs the JAX manager's XLA path, uint16 out."""
+    tm, jm = managers
+    img = _planes()[plane]
+    pi = 0 if plane == "Y" else 1
+    got, info = tm.process_pixels(TS_US[0], img, interpolation=11, plane_index=pi,
+                                  max_pixel_value=1023.0, plane_rects=True)
+    want, _ = jm.process_pixels(TS_US[0], img, interpolation=11, use_pallas=False,
+                                plane_index=pi, max_pixel_value=1023.0, plane_rects=True)
+    want = np.asarray(want)
+    assert got.dtype == torch.uint16 and info["backend"] == "torch-cpu"
+    assert tuple(got.shape) == want.shape == img.shape
+    assert np.abs(got.numpy().astype(np.int32) - want.astype(np.int32)).max() <= 1
+
+
 def test_window_entry_is_not_ported(managers):
     tm, _ = managers
     with pytest.raises(NotImplementedError, match="ROADMAP"):

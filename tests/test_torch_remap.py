@@ -156,12 +156,17 @@ class TestRemapPlane:
         assert got.dtype == np.uint16 and got.shape == want.shape
         assert np.abs(got.astype(np.int32) - want.astype(np.int32)).max() <= U16_TOL
 
-    @pytest.mark.parametrize("interpolation", [2, 4, 8])
+    @pytest.mark.parametrize("interpolation", [2, 4, 8, 11])
     @pytest.mark.parametrize("plane", ["Y", "UV"])
     def test_cuda_path_matches_plain_on_cpu(self, plane, interpolation):
         """remap_plane_cuda on CPU tensors (wrappers' plain versions) is the
-        same computation as remap_plane: bit-identical."""
+        same computation as remap_plane: bit-identical. For EWA the cuda path
+        stacks its three coordinate evals into one projection call."""
         _, _, pcfg, pdyn, mats, img = make_case(plane, interpolation=interpolation)
+        if interpolation in tremap.EWA_BC:
+            p, q = tremap.ewa_coeffs(interpolation)
+            pdyn = pdyn._replace(ewa_coeffs_p=np.asarray(p, np.float32),
+                                 ewa_coeffs_q=np.asarray(q, np.float32))
         img16 = np.rint(img).astype(np.uint16)
         a = port_remap(pcfg, pdyn, mats, img16, out_dtype="uint16")
         b = port_remap(pcfg, pdyn, mats, img16, out_dtype="uint16", cuda_path=True)
@@ -197,11 +202,6 @@ class TestRemapPlane:
 
 
 class TestNotPorted:
-    def test_ewa_raises(self):
-        _, _, pcfg, pdyn, mats, img = make_case("Y", interpolation=11)
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            port_remap(pcfg, pdyn, mats, img)
-
     def test_other_model_raises(self):
         _, _, pcfg, pdyn, mats, img = make_case("Y")
         with pytest.raises(NotImplementedError, match="ROADMAP"):
