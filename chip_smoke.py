@@ -14,26 +14,48 @@ exits non-zero without the final line):
 3b. EWA (interpolation 11): the stacked coords launch of the base and both
    finite-difference evals (3*oh rows) and the EWA kernel, each against its
    plain version at the same shapes;
+3c. the fused projection + sampling kernel (remap_plane_cuda(fused=True))
+   and the self-contained coords kernel (cuda_coords.project_gen), each
+   against its plain version at the same shapes;
 4. the main path: StabilizationManager on cuda:0, 3840x2160 at 30 fps, a
    seeded synthetic .gcsv, a fisheye lens, 8 ms rolling shutter; 3 frames of
    Y and UV through process_pixels (lanczos4, uint16 in and out), held within
    1 code of the plain torch path; the kernels' launch counters must show the
-   path went through them;
+   path went through them, and no plain version may run while a path is
+   driven (4-4d);
 4b. the EWA path: the same 3 frames with interpolation 11, held within 1
    code of the plain torch path, one coords and one EWA launch per plane;
+4c. the fused path: the 3 frames' planes through remap_plane_cuda(fused=True),
+   held within 1 code of the split kernels, one fused launch per plane and
+   no coords or sampler launch;
+4d. the self-contained coords path: the 3 frames' planes through
+   cuda_coords.project_gen, held within 0.05 px (valid identical) of
+   coords_pre + the coords kernel, one launch per plane;
 5. times: each kernel and its plain version (CUDA events, median of 10) and
    ms per frame (Y+UV) through process_pixels, kernel path vs plain path;
 5b. the same for EWA (the plain EWA runs 100 eager taps per pixel: 3 reps);
-6. where one EWA frame's device time goes (torch.profiler, by kernel).
+5c. the fused kernel against the split coords + sampler kernels, and
+   project_gen against the eager output grid + coords_pre + the coords
+   kernel (CUDA events), then the eager stage's and project_gen's device
+   busy time (torch.profiler);
+6. where a lanczos4 and an EWA frame's device time goes (torch.profiler, by
+   kernel).
+
+Each kernel's bound (the least time the card could take for the same work)
+is the larger of its bytes (each input read once, each output written once)
+over 3.35 TB/s and its FP32 operations (counted from the kernel source, at
+this run's inputs: taps only for valid pixels, EWA taps only inside each
+pixel's bbox) over 67 TFLOP/s, the H100 SXM's published peaks.
 
 Second-to-last lines: the card's name and power limit, then one JSON object
 with the kernels; last line: {"ok": true, "device": {...}}. Needs one card and
 nvcc; a copy of the kernel library is built under gyroflow_torch/build/.
-About 40 s on an H100, the kernels' build (one nvcc per source, run
-together, ~8 s) included.
+About 50 s on an H100, the kernels' build (one nvcc per source, run
+together, ~10 s) included.
 """
 from __future__ import annotations
 
+import contextlib
 import json
 import math
 import statistics
@@ -54,6 +76,34 @@ COORDS_TOL_PX = 0.05        # |du|, |dv| over valid pixels
 SAMPLER_TOL = 0.01          # 10-bit codes, same u/v into both
 FRAME_TOL_CODES = 1         # uint16 output, kernel path vs plain path
 EWA_INTERP = 11             # Robidoux
+
+# H100 SXM published peaks (NVIDIA data sheet): HBM bandwidth, FP32 rate
+PEAK_BYTES_S = 3.35e12
+PEAK_FP32_S = 67e12
+# FP32 operations per pixel, counted from csrc/ (adds, multiplies,
+# divisions, square roots, compares and min/max; integer index math not
+# counted). project_point (lens.cuh, fisheye, no IBIS/underwater): 3x3
+# projection 15, validity 8, x/z y/z r 6, Cephes arctangent 19, theta powers
+# 4, theta_d 9, scale selects 5, scale/f/c/stretch 11.
+PROJECT_OPS = 77
+POST_OPS = 16               # fused: source-rect map 8, guard 6, tap offset 2
+GEN_PRE_OPS = 18            # gen: position 3, out-rect map 8, t2d 2, rint index 4, select 1
+
+
+def sampler_ops(C, taps=8):
+    """FP32 operations of one valid pixel's separable tap loop (taps.cuh):
+    a multiply and an add per tap and channel, two per row and channel, the
+    clamp, the guard and offset (8) and the phase (2)."""
+    return taps * taps * 2 * C + taps * 2 * C + C + 10
+
+
+def bound(parts):
+    """(bound_ms, bound_by) of launches run one after the other; parts is a
+    list of (bytes, operations), one per launch."""
+    t_bytes = sum(b / PEAK_BYTES_S for b, _ in parts)
+    t_ops = sum(o / PEAK_FP32_S for _, o in parts)
+    total = sum(max(b / PEAK_BYTES_S, o / PEAK_FP32_S) for b, o in parts)
+    return total * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
 
 
 def check(cond, msg):
@@ -92,7 +142,10 @@ def smooth_plane(rng, h, w, c):
 # mangled names of the kernels the driven paths launch (uint16, C=1/2)
 MAIN_PATH_KERNELS = {"coords": "coords_kernel", "sampler<u16,C1,8>": "sampler_kernelItLi1ELi8E",
                      "sampler<u16,C2,8>": "sampler_kernelItLi2ELi8E",
-                     "ewa<u16,C1>": "ewa_kernelItLi1EE", "ewa<u16,C2>": "ewa_kernelItLi2EE"}
+                     "ewa<u16,C1>": "ewa_kernelItLi1EE", "ewa<u16,C2>": "ewa_kernelItLi2EE",
+                     "fused<u16,C1,8>": "fused_kernelItLi1ELi8E",
+                     "fused<u16,C2,8>": "fused_kernelItLi2ELi8E",
+                     "coords_gen": "coords_gen_kernel"}
 
 
 def ptxas_summary(log):
@@ -104,6 +157,25 @@ def ptxas_summary(log):
         elif current and ("spill" in ln or "registers" in ln):
             out[current] = (out.get(current, "") + " " + ln.split(":")[-1].strip()).strip()
     return out
+
+
+def ewa_bbox_taps(u, v, jac, valid):
+    """(taps, rows) of ewa.cu's 10x10 stencil that lie inside each valid
+    pixel's reference bbox (affine_bbox), summed over the plane."""
+    import torch
+    from gyroflow_torch.ops import remap
+    u, v = remap._guard_uv(u), remap._guard_uv(v)
+    jx, jy, jz, jw = jac.unbind(-1)
+    tx = 2.0 * torch.clamp_min(torch.maximum((jx + jy).abs(), (jx - jy).abs()), 1.0)
+    ty = 2.0 * torch.clamp_min(torch.maximum((jz + jw).abs(), (jz - jw).abs()), 1.0)
+    cap = remap.EWA_CAP
+    bx, by = torch.floor(u) - cap, torch.floor(v) - cap
+    span = 2 * cap + 1
+    cols = (torch.minimum(torch.ceil(u + tx), bx + span)
+            - torch.maximum(torch.floor(u - tx), bx) + 1).clamp_min(0)
+    rows = (torch.minimum(torch.ceil(v + ty), by + span)
+            - torch.maximum(torch.floor(v - ty), by) + 1).clamp_min(0)
+    return int((cols * rows)[valid].double().sum()), int(rows[valid].double().sum())
 
 
 def cuda_ms(fn, reps=10, warm=2):
@@ -125,6 +197,7 @@ def cuda_ms(fn, reps=10, warm=2):
 
 
 def main() -> int:
+    t_start = time.perf_counter()
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -138,7 +211,7 @@ def main() -> int:
     from gyroflow_torch import _build
     from gyroflow_torch.core.lens_profile import CameraParams, Dimensions, LensProfile
     from gyroflow_torch.core.manager import StabilizationManager
-    from gyroflow_torch.ops import cuda_coords, cuda_ewa, cuda_sampler, remap
+    from gyroflow_torch.ops import cuda_coords, cuda_ewa, cuda_fused, cuda_sampler, remap
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -202,35 +275,52 @@ def main() -> int:
 
     from gyroflow_torch.ops.kernel_params import dyn_to_torch
 
-    def coords_inputs(name, interpolation):
-        """x, y, idx of the plane as remap_plane_cuda builds them (3*oh rows
-        for EWA)."""
-        cfg, dyn, mats = plane_setup(500_000, name, interpolation)
-        dyn_t = dyn_to_torch(dyn, dev)
+    def out_cf(cfg, dyn_t):
+        """(out_c, out_f) as remap._remap builds them."""
+        factor = torch.clamp_min(1.0 - dyn_t.lens_correction_amount, 0.001)
+        return ((cfg.output_width / 2.0, cfg.output_height / 2.0),
+                (dyn_t.f[0] / dyn_t.fov / factor, dyn_t.f[1] / dyn_t.fov / factor))
+
+    def grid_and_pre(cfg, dyn_t, mats, cf, ewa=False):
+        """The plane's output grid, then coords_pre (or the EWA stack) on
+        it, as remap_plane_cuda runs them: x, y, idx. dyn_t and cf = (out_c,
+        out_f) come from the caller (the render's finish needs them too)."""
         ow, oh = cfg.out_buffer
         oy, ox = torch.meshgrid(torch.arange(oh, dtype=torch.float32, device=dev),
                                 torch.arange(ow, dtype=torch.float32, device=dev),
                                 indexing="ij")
-        factor = torch.clamp_min(1.0 - dyn_t.lens_correction_amount, 0.001)
-        out_c = (cfg.output_width / 2.0, cfg.output_height / 2.0)
-        out_f = (dyn_t.f[0] / dyn_t.fov / factor, dyn_t.f[1] / dyn_t.fov / factor)
-        pre = remap.ewa_stack if interpolation in remap.EWA_BC else remap.coords_pre
-        return (*pre(ox, oy, mats, cfg, dyn_t, out_c, out_f), mats, cfg, dyn)
+        pre = remap.ewa_stack if ewa else remap.coords_pre
+        return pre(ox, oy, mats, cfg, dyn_t, *cf)
 
-    def check_coords(label, x, y, idx, mats, cfg, dyn):
-        uk, vk, valk = cuda_coords.project(x, y, idx, mats, cfg, dyn)
-        up, vp, valp = cuda_coords.project_plain(x, y, idx, mats, cfg, dyn)
-        torch.cuda.synchronize()
+    def pre_coords(cfg, dyn, mats, ewa=False):
+        dyn_t = dyn_to_torch(dyn, dev)
+        return grid_and_pre(cfg, dyn_t, mats, out_cf(cfg, dyn_t), ewa)
+
+    def coords_inputs(name, interpolation):
+        """x, y, idx of the plane as remap_plane_cuda builds them (3*oh rows
+        for EWA)."""
+        cfg, dyn, mats = plane_setup(500_000, name, interpolation)
+        return (*pre_coords(cfg, dyn, mats, interpolation in remap.EWA_BC), mats, cfg, dyn)
+
+    def compare_uv(label, k, p, rows):
+        """Max |du|, |dv| over pixels valid in both, with identical masks."""
+        (uk, vk, valk), (up, vp, valp) = k, p
         n_valid_mismatch = int((valk != valp).sum())
         both = valk & valp
         du = float((uk - up).abs()[both].max())
         dv = float((vk - vp).abs()[both].max())
-        print(f"{label} ({x.shape[0]}x{x.shape[1]}, {mats.shape[0]} RS rows): max|du| {du:.3g} "
+        print(f"{label} ({uk.shape[0]}x{uk.shape[1]}, {rows} RS rows): max|du| {du:.3g} "
               f"max|dv| {dv:.3g} px (limit {COORDS_TOL_PX}); valid mismatches "
               f"{n_valid_mismatch} (limit 0); valid share {float(both.float().mean()):.4f}")
         check(n_valid_mismatch == 0, f"{label}: valid masks differ")
         check(du < COORDS_TOL_PX and dv < COORDS_TOL_PX, f"{label}: u/v differ")
-        return up, vp, valp, max(du, dv)
+        return max(du, dv)
+
+    def check_coords(label, x, y, idx, mats, cfg, dyn):
+        k = cuda_coords.project(x, y, idx, mats, cfg, dyn)
+        p = cuda_coords.project_plain(x, y, idx, mats, cfg, dyn)
+        torch.cuda.synchronize()
+        return (*p, compare_uv(label, k, p, mats.shape[0]))
 
     def plane_bg(dyn, img):
         return tuple(float(b) for b in
@@ -285,28 +375,85 @@ def main() -> int:
         errs["ewa"] = max(errs["ewa"], de)
         shapes[f"ewa {name}"] = (x, y, idx, mats, cfg, dyn, u, v, jac, valid, img, bg, coeffs)
 
+    # ---- 3c. fused kernel and self-contained coords kernel vs plain ---------
+    phase("fused projection + sampling kernel and self-contained coords kernel vs plain torch "
+          "on the card")
+    errs.update(fused=0.0, coords_gen=0.0)
+    for name in ("Y", "UV"):
+        x, y, idx, mats, cfg, dyn, u, v, valp, img, bg = shapes[name]
+        check(remap.use_fused(cfg, mats), f"fused: the {name} plane would take the split path")
+        fk = cuda_fused.remap_fused(img, x, y, idx, mats, cfg, dyn, bg, MAXV)
+        fp = cuda_fused.remap_fused_plain(img, x, y, idx, mats, cfg, dyn, bg, MAXV)
+        torch.cuda.synchronize()
+        df = float((fk - fp).abs().max())
+        check(bool(torch.isfinite(fk).all()), f"fused {name}: non-finite output")
+        print(f"fused   {name:2s} (plane {tuple(img.shape)} uint16 -> {tuple(fk.shape)}): "
+              f"max|d| {df:.3g} codes (limit {SAMPLER_TOL})")
+        check(df < SAMPLER_TOL, f"fused {name}: output differs")
+        errs["fused"] = max(errs["fused"], df)
+        dyn_t = dyn_to_torch(dyn, dev)
+        cf = out_cf(cfg, dyn_t)
+        oh = cfg.out_buffer[1]
+        gk = cuda_coords.project_gen(cfg, dyn, mats, oh, 0, *cf)
+        gp = cuda_coords.project_gen_plain(cfg, dyn, mats, oh, 0, *cf)
+        torch.cuda.synchronize()
+        errs["coords_gen"] = max(errs["coords_gen"],
+                                 compare_uv(f"gen     {name:2s}", gk, gp, mats.shape[0]))
+        shapes[f"gen {name}"] = (cfg, dyn, mats, dyn_t, cf)
+
     ts_list = [int(round((i + 5) * 1e6 / FPS)) for i in range(FRAMES)]
     counters = {"coords": cuda_coords.project, "sampler": cuda_sampler.sample,
-                "ewa": cuda_ewa.sample}
+                "ewa": cuda_ewa.sample, "fused": cuda_fused.remap_fused,
+                "coords_gen": cuda_coords.project_gen}
+    plain_versions = ((cuda_coords, "project_plain"), (cuda_coords, "project_gen_plain"),
+                      (cuda_sampler, "sample_plain"), (cuda_ewa, "sample_plain"),
+                      (cuda_fused, "remap_fused_plain"))
 
-    def drive(interpolation, expected):
-        """3 frames of Y and UV through process_pixels, every launch count
-        set to 0 just before and read just after; each plane held against
-        the plain torch path."""
+    @contextlib.contextmanager
+    def driven(label, expected):
+        """Every launch count set to 0 on entry and read on exit, and the
+        wrappers' plain versions replaced by functions that count and raise
+        in between: a CUDA tensor must never reach a plain version."""
         for fn in counters.values():
             fn.launches = 0
-        outs = []
-        for ts in ts_list:
-            for name in ("Y", "UV"):
-                pi, host = planes[name]
-                out, info = mgr.process_pixels(ts, host, interpolation=interpolation,
-                                               plane_index=pi, max_pixel_value=MAXV,
-                                               plane_rects=True)
-                outs.append((ts, name, out, info))
+        plain_calls = []
+
+        def refuse(*a, **k):
+            plain_calls.append(a)
+            raise AssertionError("a plain version was called on the card's tensors")
+
+        saved = [(mod, name, getattr(mod, name)) for mod, name in plain_versions]
+        for mod, name, _ in saved:
+            setattr(mod, name, refuse)
+        counts = {}
+        try:
+            yield counts
+        finally:
+            for mod, name, fn in saved:
+                setattr(mod, name, fn)
         torch.cuda.synchronize()
-        counts = {k: fn.launches for k, fn in counters.items()}
-        print(f"launch counts over {FRAMES} frames: {counts} (expected {expected})")
-        check(counts == expected, "the path did not launch each of its kernels once per plane")
+        counts.update({k: fn.launches for k, fn in counters.items()})
+        print(f"{label} launch counts over {FRAMES} frames: {counts} (expected {expected}); "
+              f"plain versions called: {len(plain_calls)} (expected 0)")
+        check(not plain_calls, f"{label}: a plain version ran on the card's tensors")
+        check(counts == expected, f"{label}: the path did not launch each of its kernels "
+                                  f"once per plane")
+
+    def expect(**kw):
+        return {k: kw.get(k, 0) for k in counters}
+
+    def drive(interpolation, expected):
+        """3 frames of Y and UV through process_pixels inside driven(); each
+        plane held against the plain torch path."""
+        outs = []
+        with driven("process_pixels", expected) as counts:
+            for ts in ts_list:
+                for name in ("Y", "UV"):
+                    pi, host = planes[name]
+                    out, info = mgr.process_pixels(ts, host, interpolation=interpolation,
+                                                   plane_index=pi, max_pixel_value=MAXV,
+                                                   plane_rects=True)
+                    outs.append((ts, name, out, info))
         for ts, name, out, info in outs:
             want_shape = (H, W, 1) if name == "Y" else (H // 2, W // 2, 2)
             check(tuple(out.shape) == want_shape, f"{name}: shape {tuple(out.shape)}")
@@ -325,11 +472,45 @@ def main() -> int:
 
     # ---- 4. the main path through the manager -------------------------------
     phase("main path: process_pixels, 3 frames of 4K 10-bit YUV420, lanczos4")
-    launches = drive(8, {"coords": 2 * FRAMES, "sampler": 2 * FRAMES, "ewa": 0})
+    launches = drive(8, expect(coords=2 * FRAMES, sampler=2 * FRAMES))
 
     # ---- 4b. the EWA path through the manager -------------------------------
     phase("EWA path: process_pixels, 3 frames of 4K 10-bit YUV420, interpolation 11")
-    launches_ewa = drive(EWA_INTERP, {"coords": 2 * FRAMES, "sampler": 0, "ewa": 2 * FRAMES})
+    launches_ewa = drive(EWA_INTERP, expect(coords=2 * FRAMES, ewa=2 * FRAMES))
+
+    # ---- 4c. the fused path ------------------------------------------------
+    phase("fused path: remap_plane_cuda(fused=True), the 3 frames' Y and UV planes, lanczos4")
+    outs = []
+    with driven("remap_plane_cuda(fused=True)", expect(fused=2 * FRAMES)) as launches_fused:
+        for ts in ts_list:
+            for name in ("Y", "UV"):
+                cfg, dyn, mats = plane_setup(ts, name, 8)
+                outs.append((ts, name, cfg, dyn, mats,
+                             remap.remap_plane_cuda(dev_planes[name], mats, cfg, dyn,
+                                                    out_dtype="uint16", fused=True)))
+    for ts, name, cfg, dyn, mats, out in outs:
+        split = remap.remap_plane_cuda(dev_planes[name], mats, cfg, dyn, out_dtype="uint16")
+        d = int((out.to(torch.int32) - split.to(torch.int32)).abs().max())
+        n_diff = int((out != split).sum())
+        print(f"fused frame ts {ts} us {name:2s}: {tuple(out.shape)} {out.dtype}; vs split kernels "
+              f"max|d| {d} codes over {n_diff} px (limit {FRAME_TOL_CODES})")
+        check(out.dtype == torch.uint16 and d <= FRAME_TOL_CODES,
+              f"fused {name} at {ts}: differs from the split path")
+
+    # ---- 4d. the self-contained coords path ---------------------------------
+    phase("self-contained coords path: cuda_coords.project_gen, the 3 frames' Y and UV planes")
+    outs = []
+    with driven("project_gen", expect(coords_gen=2 * FRAMES)) as launches_gen:
+        for ts in ts_list:
+            for name in ("Y", "UV"):
+                cfg, dyn, mats = plane_setup(ts, name, 8)
+                cf = out_cf(cfg, dyn_to_torch(dyn, dev))
+                outs.append((ts, name, cfg, dyn, mats,
+                             cuda_coords.project_gen(cfg, dyn, mats, cfg.out_buffer[1], 0, *cf)))
+    for ts, name, cfg, dyn, mats, got in outs:
+        x, y, idx = pre_coords(cfg, dyn, mats)
+        compare_uv(f"gen frame ts {ts} us {name:2s} vs coords_pre + coords kernel", got,
+                   cuda_coords.project(x, y, idx, mats, cfg, dyn), mats.shape[0])
     check("jax" not in sys.modules, "jax was imported")
     print("jax in sys.modules: False")
 
@@ -404,58 +585,165 @@ def main() -> int:
     ep2 = per_frame_ms(frame_plain, 3, EWA_INTERP)
     print(f"process_pixels EWA Y+UV per frame (host clock, median; plain, kernel, kernel, plain): "
           f"{ep1:.3f}, {ek1:.3f}, {ek2:.3f}, {ep2:.3f} ms")
-    report.update(frame_ms={"kernel": [fk1, fk2], "plain": [fp1, fp2]},
-                  ewa_frame_ms={"kernel": [ek1, ek2], "plain": [ep1, ep2]},
-                  launches=launches, launches_ewa=launches_ewa, errs=errs, kernel_ms=times)
-
-    # ---- 6. where an EWA frame's device time goes ----------------------------
-    phase("profile: 3 new EWA frames (Y+UV) on the kernel path, device time by kernel")
     from torch.profiler import ProfilerActivity, profile
-    frame_kernel(ts_list[0], EWA_INTERP)
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        for i in range(FRAMES):
-            frame_kernel(int(round((i + 40) * 1e6 / FPS)), EWA_INTERP)
-        torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) * 1e3 / FRAMES
 
     def self_device_us(e):   # the attribute's name before torch 2.4
         return getattr(e, "self_device_time_total", None) or getattr(e, "self_cuda_time_total", 0)
 
-    # device-side events only: the aten ops' rows repeat their kernels' time
-    rows = [(e.key, self_device_us(e) / 1e3 / FRAMES, e.count / FRAMES)
-            for e in prof.key_averages()
-            if str(e.device_type).endswith("CUDA") and self_device_us(e) > 0]
-    rows.sort(key=lambda r: -r[1])
-    dev_ms = sum(r[1] for r in rows)
-    if rows:
-        print(f"per frame: wall {wall_ms:.3f} ms (profiler on), device busy {dev_ms:.3f} ms "
-              f"({100.0 * dev_ms / wall_ms:.1f}%) over {sum(r[2] for r in rows):.0f} kernels")
-    else:
-        print("device time per frame: not measured (no device events)")
-    for key, ms, n in rows[:10]:
-        print(f"  {ms:8.3f} ms/frame  {n:5.0f} launches/frame  {key[:100]}")
-    report["ewa_profile"] = {"wall_ms_per_frame": wall_ms, "device_ms_per_frame": dev_ms,
-                             "top": rows[:10]}
+    def device_rows(fn, n):
+        """fn(i) for i < n under torch.profiler: (wall ms per call, [(kernel,
+        device ms per call, launches per call)], longest first). Device-side
+        events only: the aten ops' rows repeat their kernels' time."""
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            for i in range(n):
+                fn(i)
+            torch.cuda.synchronize()
+            wall = (time.perf_counter() - t0) * 1e3 / n
+        rows = [(e.key, self_device_us(e) / 1e3 / n, e.count / n) for e in prof.key_averages()
+                if str(e.device_type).endswith("CUDA") and self_device_us(e) > 0]
+        return wall, sorted(rows, key=lambda r: -r[1])
+
+    # ---- 5c. fused and self-contained coords times ---------------------------
+    phase(f"fused and self-contained coords times on {smi}")
+    times.update(fused=[0.0, 0.0], coords_gen=[0.0, 0.0])
+    split_ms = {"coords + coords_post_uv + sampler": 0.0, "grid + coords_pre (eager)": 0.0,
+                "grid + coords_pre (eager) + coords kernel": 0.0}
+    for name in ("Y", "UV"):
+        x, y, idx, mats, cfg, dyn, u, v, valp, img, bg = shapes[name]
+        gcfg, gdyn, gmats, gdyn_t, cf = shapes[f"gen {name}"]
+        oh = gcfg.out_buffer[1]
+
+        def split_chain():
+            uu, vv, vl = cuda_coords.project(x, y, idx, mats, cfg, dyn)
+            uu, vv = remap.coords_post_uv(uu, vv, cfg)
+            return cuda_sampler.sample(img, uu, vv, vl, bg, cfg.src_rect, 8, MAXV)
+
+        def pre_and_coords():
+            return cuda_coords.project(*grid_and_pre(gcfg, gdyn_t, gmats, cf), gmats, gcfg,
+                                       gdyn)
+
+        fk = cuda_ms(lambda: cuda_fused.remap_fused(img, x, y, idx, mats, cfg, dyn, bg, MAXV))
+        fp = cuda_ms(lambda: cuda_fused.remap_fused_plain(img, x, y, idx, mats, cfg, dyn, bg,
+                                                          MAXV))
+        sc = cuda_ms(split_chain)
+        gk = cuda_ms(lambda: cuda_coords.project_gen(gcfg, gdyn, gmats, oh, 0, *cf))
+        gp = cuda_ms(lambda: cuda_coords.project_gen_plain(gcfg, gdyn, gmats, oh, 0, *cf))
+        pre = cuda_ms(lambda: grid_and_pre(gcfg, gdyn_t, gmats, cf))
+        pc = cuda_ms(pre_and_coords)
+        print(f"{name:2s} fused   kernel {fk:.4f} ms  plain {fp:.4f} ms; split chain (coords "
+              f"kernel, eager coords_post_uv, sampler kernel) {sc:.4f} ms")
+        print(f"{name:2s} gen     kernel {gk:.4f} ms  plain {gp:.4f} ms; eager grid + "
+              f"coords_pre {pre:.4f} ms, + coords kernel {pc:.4f} ms")
+        times["fused"][0] += fk
+        times["fused"][1] += fp
+        times["coords_gen"][0] += gk
+        times["coords_gen"][1] += gp
+        split_ms["coords + coords_post_uv + sampler"] += sc
+        split_ms["grid + coords_pre (eager)"] += pre
+        split_ms["grid + coords_pre (eager) + coords kernel"] += pc
+    print(f"Y+UV: fused kernel {times['fused'][0]:.4f} ms vs coords + sampler kernels "
+          f"{times['coords'][0] + times['sampler'][0]:.4f} ms (phase 5) and the split chain "
+          f"{split_ms['coords + coords_post_uv + sampler']:.4f} ms; project_gen "
+          f"{times['coords_gen'][0]:.4f} ms vs eager grid + coords_pre + coords kernel "
+          f"{split_ms['grid + coords_pre (eager) + coords kernel']:.4f} ms (grid + "
+          f"coords_pre alone {split_ms['grid + coords_pre (eager)']:.4f} ms)")
+    # device busy time of the eager grid + coords_pre (the span above also
+    # holds the host's launch gaps) and of project_gen, one call per plane
+    gen_planes = [shapes[f"gen {name}"] for name in ("Y", "UV")]
+    busy = {}
+    for label, fn in (("grid + coords_pre (eager)",
+                       lambda c, d, m, dt, cf: grid_and_pre(c, dt, m, cf)),
+                      ("project_gen", lambda c, d, m, dt, cf: cuda_coords.project_gen(
+                          c, d, m, c.out_buffer[1], 0, *cf))):
+        _, rows = device_rows(lambda i: [fn(*g) for g in gen_planes], 3)
+        busy[label] = (sum(r[1] for r in rows), sum(r[2] for r in rows))
+        print(f"{label} Y+UV under torch.profiler: device busy {busy[label][0]:.4f} ms over "
+              f"{busy[label][1]:.0f} kernels per frame")
+    split_ms["device busy"] = busy
+    report.update(frame_ms={"kernel": [fk1, fk2], "plain": [fp1, fp2]},
+                  ewa_frame_ms={"kernel": [ek1, ek2], "plain": [ep1, ep2]},
+                  launches=launches, launches_ewa=launches_ewa, launches_fused=launches_fused,
+                  launches_gen=launches_gen, errs=errs, kernel_ms=times, split_ms=split_ms)
+
+    # ---- 6. where a frame's device time goes -----------------------------------
+    for label, interpolation in (("lanczos4", 8), ("EWA", EWA_INTERP)):
+        phase(f"profile: {FRAMES} new {label} frames (Y+UV) on the kernel path, device time "
+              f"by kernel")
+        frame_kernel(ts_list[0], interpolation)
+        torch.cuda.synchronize()
+        wall_ms, rows = device_rows(
+            lambda i: frame_kernel(int(round((i + 40) * 1e6 / FPS)), interpolation), FRAMES)
+        dev_ms = sum(r[1] for r in rows)
+        if rows:
+            print(f"per frame: wall {wall_ms:.3f} ms (profiler on), device busy {dev_ms:.3f} ms "
+                  f"({100.0 * dev_ms / wall_ms:.1f}%) over {sum(r[2] for r in rows):.0f} kernels")
+        else:
+            print("device time per frame: not measured (no device events)")
+        for key, ms, n in rows[:10]:
+            print(f"  {ms:8.3f} ms/frame  {n:5.0f} launches/frame  {key[:100]}")
+        report[f"{label}_profile"] = {"wall_ms_per_frame": wall_ms,
+                                      "device_ms_per_frame": dev_ms, "top": rows[:10]}
+
+    # ---- bounds at this run's inputs (Y + UV launches of one frame) ----------
+    bounds = {k: [] for k in ("coords", "sampler", "ewa", "fused", "coords_gen")}
+    for name in ("Y", "UV"):
+        x, y, idx, mats, cfg, dyn, u, v, valp, img, bg = shapes[name]
+        n_px, n_valid, C = x.numel(), int(valp.sum()), img.shape[2]
+        table, plane = mats.numel() * 4, img.numel() * img.element_size()
+        tap_ops = n_valid * sampler_ops(C)
+        bounds["coords"].append((n_px * 21 + table, n_px * PROJECT_OPS))
+        bounds["sampler"].append((plane + n_px * (9 + 4 * C), tap_ops))
+        bounds["fused"].append((plane + table + n_px * (12 + 4 * C),
+                                n_px * PROJECT_OPS + n_valid * POST_OPS + tap_ops))
+        gcfg, gdyn, gmats, _, _ = shapes[f"gen {name}"]
+        bounds["coords_gen"].append((gmats.numel() * 4 + n_px * 9,
+                                     n_px * (GEN_PRE_OPS + 2 * PROJECT_OPS)))
+        _, _, _, _, _, _, u, v, jac, valid, img, _, _ = shapes[f"ewa {name}"]
+        taps, tap_rows = ewa_bbox_taps(u, v, jac, valid)
+        n_valid = int(valid.sum())
+        # setup 125 (guard, bbox, clamped ellipse), 4 per bbox row, and per
+        # bbox tap 18 plus a multiply-add per channel and the weight sum
+        # (zero-weight taps inside the bbox counted as full)
+        bounds["ewa"].append((plane + u.numel() * (25 + 4 * C),
+                              n_valid * 125 + tap_rows * 4 + taps * (18 + 2 * C + 1)))
+    bound_of = {k: bound(v) for k, v in bounds.items()}
+    for k, (b_ms, by) in bound_of.items():
+        ms = times[k][0]
+        print(f"bound {k:10s}: {b_ms:.4f} ms ({by}); kernel {ms:.4f} ms = "
+              f"{100.0 * b_ms / ms:.1f}% of the bound's speed")
+    print("library_ms: null for every kernel: no single PyTorch call computes these functions "
+          "(F.grid_sample samples at continuous coordinates: no 32-phase quantization, no "
+          "8-tap lanczos4, no per-tap source-rect background, no EWA)")
+
+    def entry(name, source, replaces, n_launch, key=None):
+        key = key or name
+        b_ms, by = bound_of[key]
+        return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
+                "launches": n_launch, "max_abs_err": errs[key], "ms": times[key][0],
+                "plain_ms": times[key][1], "bound_ms": b_ms, "bound_by": by,
+                "library_ms": None}
 
     kernels = [
-        {"name": "coords", "route": "cuda", "source": "gyroflow_torch/csrc/coords.cu",
-         "replaces": "gyroflow_tpu/ops/pallas_coords.py:68", "launches": launches["coords"],
-         "max_abs_err": errs["coords"], "ms": times["coords"][0], "plain_ms": times["coords"][1]},
-        {"name": "sampler", "route": "cuda", "source": "gyroflow_torch/csrc/sampler.cu",
-         "replaces": "gyroflow_tpu/ops/pallas_sampler.py:471", "launches": launches["sampler"],
-         "max_abs_err": errs["sampler"], "ms": times["sampler"][0],
-         "plain_ms": times["sampler"][1]},
-        {"name": "ewa", "route": "cuda", "source": "gyroflow_torch/csrc/ewa.cu",
-         "replaces": "gyroflow_tpu/ops/pallas_sampler.py:715", "launches": launches_ewa["ewa"],
-         "max_abs_err": errs["ewa"], "ms": times["ewa"][0], "plain_ms": times["ewa"][1]},
+        entry("coords", "gyroflow_torch/csrc/coords.cu", "gyroflow_tpu/ops/pallas_coords.py:68",
+              launches["coords"]),
+        entry("sampler", "gyroflow_torch/csrc/sampler.cu",
+              "gyroflow_tpu/ops/pallas_sampler.py:471", launches["sampler"]),
+        entry("ewa", "gyroflow_torch/csrc/ewa.cu", "gyroflow_tpu/ops/pallas_sampler.py:715",
+              launches_ewa["ewa"]),
+        entry("fused", "gyroflow_torch/csrc/fused.cu", "gyroflow_tpu/ops/pallas_fused.py:57",
+              launches_fused["fused"]),
+        entry("coords_gen", "gyroflow_torch/csrc/coords.cu",
+              "gyroflow_tpu/ops/pallas_coords.py:257", launches_gen["coords_gen"]),
     ]
     OUT_DIR.mkdir(exist_ok=True)
-    (OUT_DIR / "chip_smoke.json").write_text(json.dumps({**report, "kernels": kernels}, indent=1))
+    (OUT_DIR / "chip_smoke.json").write_text(json.dumps({**report, "bounds": bound_of,
+                                                         "kernels": kernels}, indent=1))
     tmp.cleanup()
-    print("kernel ms and plain_ms: one frame's Y+UV launches (Y 3840x2160x1 + UV 1920x1080x2); "
-          "coords and sampler from the lanczos4 path, ewa from the EWA path")
+    print(f"chip_smoke.py wall time {time.perf_counter() - t_start:.1f} s")
+    print("kernel ms, plain_ms and bound_ms: one frame's Y+UV launches (Y 3840x2160x1 + UV "
+          "1920x1080x2); coords, sampler, fused and coords_gen at lanczos4, ewa at "
+          "interpolation 11")
     print(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

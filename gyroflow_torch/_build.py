@@ -43,9 +43,25 @@ class CoordParams(ctypes.Structure):
 
 
 class SamplerArgs(ctypes.Structure):
-    """Mirror of ``SamplerArgs`` (csrc/sampler.cu)."""
+    """Mirror of ``gf::SamplerArgs`` (csrc/taps.cuh)."""
     _fields_ = [("bg", ctypes.c_float * 4), ("limit", ctypes.c_float),
                 ("src_rect", ctypes.c_int * 4)]
+
+
+class FusedArgs(ctypes.Structure):
+    """Mirror of ``FusedArgs`` (csrc/fused.cu)."""
+    _fields_ = [("s", SamplerArgs), ("rotate", ctypes.c_int), ("rot_cos", ctypes.c_float),
+                ("rot_sin", ctypes.c_float), ("rot_o", ctypes.c_float * 2),
+                ("rot_o2", ctypes.c_float * 2), ("bg_mode", ctypes.c_int),
+                ("frame_w", ctypes.c_float), ("frame_h", ctypes.c_float),
+                ("map_x", ctypes.c_float * 3), ("map_y", ctypes.c_float * 3)]
+
+
+class GenArgs(ctypes.Structure):
+    """Mirror of ``GenArgs`` (csrc/coords.cu)."""
+    _fields_ = [("oy0", ctypes.c_int), ("pos_d", ctypes.c_float * 2),
+                ("map_x", ctypes.c_float * 4), ("map_y", ctypes.c_float * 4),
+                ("t2d", ctypes.c_float * 2), ("lim", ctypes.c_float)]
 
 
 class EwaArgs(ctypes.Structure):
@@ -144,5 +160,12 @@ def lib() -> ctypes.CDLL:
             L.gf_sampler_set_lut.restype = ci
             L.gf_ewa.argtypes = [vp, ci, ci, ci, ci, vp, vp, vp, vp, ci, ci, EwaArgs, vp, vp]
             L.gf_ewa.restype = ci
+            L.gf_fused.argtypes = [vp, ci, ci, ci, ci, vp, vp, vp, vp, ci, CoordParams, ci,
+                                   ci, ci, ci, FusedArgs, vp, vp]
+            L.gf_fused.restype = ci
+            L.gf_fused_set_lut.argtypes = [vp, ci]
+            L.gf_fused_set_lut.restype = ci
+            L.gf_coords_gen.argtypes = [vp, ci, CoordParams, ci, GenArgs, ci, ci, vp, vp, vp, vp]
+            L.gf_coords_gen.restype = ci
             _lib = L
     return _lib

@@ -1,13 +1,12 @@
 """StabilizationManager — the public facade, on PyTorch.
 
 A copy of gyroflow_tpu.core.manager (port of gyroflow src/core/lib.rs:82+)
-whose host imports avoid jax: the framework-neutral host modules come from
-gyroflow_tpu, and the modules whose imports reach jax (zooming, frame
-transform, kernel params, ComputeParams, LensProfile.init) from this package.
-Rewritten for torch: the device (``torch.device``, CPU or ``cuda:N``), its
-listing, the per-frame matrix upload, and ``process_pixels``, which runs the
-CUDA kernels (remap.remap_plane_cuda) on a CUDA device and the plain torch
-remap on the CPU. ``process_pixels_window`` is not ported yet.
+that imports only this package: its host modules are this package's copies.
+Rewritten for torch: the device (``torch.device``: ``cuda:0`` unless the
+caller names another card or the CPU), its listing, the per-frame matrix
+upload, and ``process_pixels``, which runs the CUDA kernels
+(remap.remap_plane_cuda) on a CUDA device and the plain torch remap on the
+CPU. ``process_pixels_window`` is not ported yet.
 """
 from __future__ import annotations
 
@@ -19,20 +18,25 @@ from typing import Dict, Optional, Tuple
 import numpy as np
 import torch
 
-from gyroflow_tpu.core.gyro_source import GyroSource
-from gyroflow_tpu.core.keyframes import KeyframeManager, KeyframeType
-from gyroflow_tpu.core.params import BackgroundMode, ReadoutDirection, StabilizationParams, timestamp_at_frame
-from gyroflow_tpu.core.smoothing import Smoothing
-
+from .gyro_source import GyroSource
+from .keyframes import KeyframeManager, KeyframeType
 from .lens_profile import LensProfile
-from .params import ComputeParams
+from .params import (BackgroundMode, ComputeParams, ReadoutDirection, StabilizationParams,
+                     timestamp_at_frame)
+from .smoothing import Smoothing
 from .zooming import ZoomMethod, calculate_fovs
 
 log = logging.getLogger(__name__)
 
 
-def _default_device() -> torch.device:
-    return torch.device("cuda", 0) if torch.cuda.is_available() else torch.device("cpu")
+def _cuda_device(i: int) -> torch.device:
+    """cuda:i, or an error when there is no such card: the manager never
+    falls back to the CPU on its own (pass device="cpu" for that)."""
+    n = torch.cuda.device_count() if torch.cuda.is_available() else 0
+    if not 0 <= i < n:
+        raise RuntimeError(f"no CUDA device cuda:{i} ({n} visible); "
+                           f"pass device=\"cpu\" to run on the CPU")
+    return torch.device("cuda", i)
 
 
 class StabilizationManager:
@@ -50,8 +54,8 @@ class StabilizationManager:
         self.gpu_decoding = True          # lib.rs:134 "gpudecode" preference
         self.pose_estimator = None        # retained by autosync for overlays
         self.sync_lpf = 0.0               # lib.rs:1105 offset-search LPF
-        # lib.rs:1978 accelerator pick: cuda:0 when a card is present
-        self.device = torch.device(device) if device is not None else _default_device()
+        # lib.rs:1978 accelerator pick: cuda:0 unless the caller names a device
+        self.device = torch.device(device) if device is not None else _cuda_device(0)
         self._compute_params: Optional[ComputeParams] = None
         self._stab_cache: Dict[int, object] = {}     # ts_us -> FrameTransform
         # guards _stab_cache: frame_transform_at is called concurrently from
@@ -91,7 +95,7 @@ class StabilizationManager:
 
     def load_gyro_data(self, path: str, progress_cb=None):
         """lib.rs:172-269 (front-end subset; per-camera quirks grow with parsers)."""
-        from gyroflow_tpu.core.telemetry import parse_telemetry_file
+        from .telemetry import parse_telemetry_file
         fm = parse_telemetry_file(path, size=self.params.size, fps=self.params.fps,
                                   progress_cb=progress_cb)
         self._apply_camera_quirks(fm)
@@ -163,7 +167,7 @@ class StabilizationManager:
             # metadata; a native CTMD demuxer needs real footage to validate)
             tm = (fm.additional_data or {}).get("tag_map")
             if isinstance(tm, dict):
-                from gyroflow_tpu.core.telemetry import canon
+                from .telemetry import canon
                 sr = fm.additional_data.get("sample_rate") or 1000.0
                 off = canon.get_time_offset(fm, tm, sample_rate=float(sr),
                                             fps=self.params.fps)
@@ -179,8 +183,8 @@ class StabilizationManager:
         if self.lens.is_valid():
             return
         try:
-            from gyroflow_tpu.core.camera_identifier import CameraIdentifier
-            from gyroflow_tpu.core.lens_profile_database import LensProfileDatabase
+            from .camera_identifier import CameraIdentifier
+            from .lens_profile_database import LensProfileDatabase
             cid = CameraIdentifier.from_metadata(
                 fm, self.params.size[0], self.params.size[1], self.params.fps)
             if not cid.identifier:
@@ -200,7 +204,7 @@ class StabilizationManager:
         else:
             self.lens = LensProfile.load_from_file(path_or_json)
         try:
-            from gyroflow_tpu.core.lens_profile_database import LensProfileDatabase
+            from .lens_profile_database import LensProfileDatabase
             self.lens.resolve_interpolations(LensProfileDatabase())
         except Exception:
             self.lens.resolve_interpolations(None)
@@ -292,7 +296,7 @@ class StabilizationManager:
     def get_turn_speed(self, timestamp_ms: float) -> float:
         """Stabilization-roll turn rate in deg/s over a 60-frame lookback
         (controller.rs:1516-1546; feeds the automatic horizon-lock ramp UI)."""
-        from gyroflow_tpu.core import quaternion as quat
+        from . import quaternion as quat
         fps = self.params.fps or 30.0
         lookback_ms = 60.0 * 1000.0 / fps
         if timestamp_ms < lookback_ms:
@@ -313,7 +317,7 @@ class StabilizationManager:
 
     def get_x_angle(self, timestamp_ms: float) -> float:
         """Stabilization roll angle in degrees (controller.rs:1547-1555)."""
-        from gyroflow_tpu.core import quaternion as quat
+        from . import quaternion as quat
         org = self.gyro.org_quat_at_timestamp(timestamp_ms)
         smooth = self.gyro.smoothed_quat_at_timestamp(timestamp_ms)
         stab = quat.inverse(quat.multiply(smooth, quat.inverse(org)))
@@ -395,15 +399,15 @@ class StabilizationManager:
         """Apply the user's default.gyroflow preset when one exists
         (controller.rs:870-881: settings dir first, then the profile DB)."""
         import os
-        from gyroflow_tpu.core.lens_profile_database import default_db_paths
-        from gyroflow_tpu.core.settings import data_dir
+        from .lens_profile_database import default_db_paths
+        from .settings import data_dir
         candidates = [os.path.join(data_dir(), "lens_profiles",
                                    "default.gyroflow")]
         candidates += [os.path.join(p, "default.gyroflow")
                        for p in default_db_paths()]
         for path in candidates:
             if os.path.exists(path):
-                from gyroflow_tpu.core.project_file import import_gyroflow_data
+                from .project_file import import_gyroflow_data
                 with open(path) as fh:
                     import_gyroflow_data(self, fh.read(), blocking=False)
                 return True
@@ -413,8 +417,8 @@ class StabilizationManager:
     def merge_mp4(file_list, output_path: str) -> dict:
         """Join chaptered recordings (controller.rs:2179-2246 mp4_merge);
         inputs are natural-sorted like the reference's human_sort."""
-        from gyroflow_tpu.utils.merge import natural_sorted
-        from gyroflow_tpu.utils.mp4_merge import merge_mp4 as _merge
+        from ..utils.merge import natural_sorted
+        from ..utils.mp4_merge import merge_mp4 as _merge
         return _merge(natural_sorted(file_list), output_path)
 
     @staticmethod
@@ -422,7 +426,7 @@ class StabilizationManager:
         """Merge companion .gcsv chapter logs (controller.rs:2248-2353) in
         the same natural order as merge_mp4 — one human_sort feeds both in
         the reference, so the telemetry timeline matches the joined video."""
-        from gyroflow_tpu.utils.merge import merge_gcsv as _merge, natural_sorted
+        from ..utils.merge import merge_gcsv as _merge, natural_sorted
         return _merge(natural_sorted(file_list), output_path)
 
     def export_lens_profile(self, path: str):
@@ -506,7 +510,7 @@ class StabilizationManager:
         self.invalidate()
 
     def set_frame_readout_direction(self, v):
-        from gyroflow_tpu.core.params import ReadoutDirection
+        from .params import ReadoutDirection
         self.params.frame_readout_direction = \
             v if isinstance(v, ReadoutDirection) else ReadoutDirection.from_any(v)
         self.invalidate()
@@ -583,7 +587,7 @@ class StabilizationManager:
         self.invalidate_zooming()   # lib.rs routing
 
     def set_background_mode(self, v: int):
-        from gyroflow_tpu.core.params import BackgroundMode
+        from .params import BackgroundMode
         self.params.background_mode = \
             v if isinstance(v, BackgroundMode) else BackgroundMode(int(v))
         self.invalidate()
@@ -673,7 +677,7 @@ class StabilizationManager:
     def load_video_file(self, path: str, load_telemetry: bool = True):
         """Probe a video, init sizes, auto-load embedded telemetry + lens
         (lib.rs:1909-1976 load_video_file)."""
-        from gyroflow_tpu.render.video_io import probe_video
+        from ..render.video_io import probe_video
         info = probe_video(path)
         self.init_from_video_data(info.duration_ms, info.fps,
                                   info.frame_count, (info.width, info.height))
@@ -712,19 +716,18 @@ class StabilizationManager:
 
     def export_gyroflow_data(self, typ=None,
                              additional_data: Optional[dict] = None) -> str:
-        from gyroflow_tpu.core.project_file import GyroflowProjectType, export_gyroflow_data
+        from .project_file import GyroflowProjectType, export_gyroflow_data
         return export_gyroflow_data(self, typ or GyroflowProjectType.WithGyroData,
                                     additional_data=additional_data)
 
     def import_gyroflow_data(self, data: str, blocking: bool = True):
-        from gyroflow_tpu.core.project_file import import_gyroflow_data
+        from .project_file import import_gyroflow_data
         return import_gyroflow_data(self, data, blocking=blocking)
 
     def set_device(self, i: int):
-        """Pick the accelerator by index (lib.rs:1978): cuda:i, or the CPU
-        when there is no such card."""
-        n = torch.cuda.device_count() if torch.cuda.is_available() else 0
-        self.device = torch.device("cuda", i) if 0 <= i < n else torch.device("cpu")
+        """Pick the accelerator by index (lib.rs:1978): cuda:i. Raises when
+        there is no such card."""
+        self.device = _cuda_device(i)
         self._mats_dev.clear()
 
     def set_acc_rotation(self, pitch_deg: float, roll_deg: float,
@@ -736,7 +739,7 @@ class StabilizationManager:
         self.invalidate()
 
     def set_keyframe_easing(self, typ: KeyframeType, timestamp_us: int, easing):
-        from gyroflow_tpu.core.keyframes import Easing
+        from .keyframes import Easing
         self.keyframes.set_easing(
             typ, timestamp_us,
             easing if isinstance(easing, Easing) else Easing(easing))
@@ -776,7 +779,7 @@ class StabilizationManager:
     def clear(self):
         """Reset to a fresh manager state (lib.rs clear + InputFile reset,
         lib.rs:1205-1212)."""
-        from gyroflow_tpu.core.gyro_source import GyroSource
+        from .gyro_source import GyroSource
         self.gyro = GyroSource()
         self.keyframes.clear()
         self.params.trim_ranges = []
@@ -798,7 +801,7 @@ class StabilizationManager:
     def export_gyroflow_file(self, path: str, typ=None,
                              additional_data: Optional[dict] = None):
         """Write a .gyroflow project (lib.rs export_gyroflow_file)."""
-        from gyroflow_tpu.core.project_file import GyroflowProjectType, export_gyroflow_data
+        from .project_file import GyroflowProjectType, export_gyroflow_data
         typ = typ or GyroflowProjectType.WithGyroData
         with open(path, "w") as fh:
             fh.write(export_gyroflow_data(self, typ,
@@ -806,7 +809,7 @@ class StabilizationManager:
 
     def import_gyroflow_file(self, path: str, blocking: bool = True):
         """Load a .gyroflow project (lib.rs import_gyroflow_file)."""
-        from gyroflow_tpu.core.project_file import import_gyroflow_data
+        from .project_file import import_gyroflow_data
         with open(path) as fh:
             return import_gyroflow_data(self, fh.read(), blocking=blocking)
 
@@ -928,7 +931,7 @@ class StabilizationManager:
         """Fill a DrawCanvas with the debug overlays for this frame
         (lib.rs:835-876: yellow OF trails on input, green features).
         clear=False preserves caller-drawn pixels (user overlay canvases)."""
-        from gyroflow_tpu.core.drawing import COLOR_GREEN, COLOR_YELLOW, STAGE_ON_INPUT
+        from .drawing import COLOR_GREEN, COLOR_YELLOW, STAGE_ON_INPUT
         if clear:
             drawing.clear()
         p = self.params
@@ -946,7 +949,7 @@ class StabilizationManager:
         if p.zooming_debug_points_map:
             # adaptive-zoom polygon debug (lib.rs:869-887): normalized output
             # points mapped through the frame's fov into output pixels
-            from gyroflow_tpu.core.drawing import COLOR_RED, STAGE_ON_OUTPUT
+            from .drawing import COLOR_RED, STAGE_ON_OUTPUT
             keys = [k for k in sorted(p.zooming_debug_points_map)
                     if k >= timestamp_us - 1000]
             if keys:
@@ -973,7 +976,7 @@ class StabilizationManager:
             frame = int(floor(timestamp_us / 1e6 * p.get_scaled_fps() + 0.5))
             det = cal.all_matches.get(frame)
             if det is not None and det.points is not None:
-                from gyroflow_tpu.calibration.drawing import draw_chessboard_corners
+                from ..calibration.drawing import draw_chessboard_corners
                 draw_chessboard_corners(
                     cal.width, cal.height, drawing,
                     (cal.columns, cal.rows), det.points, True, y_inv)
@@ -1002,14 +1005,14 @@ class StabilizationManager:
 
     def extract_focal_lengths(self):
         """Per-frame focal lengths from telemetry lens params (lib.rs:416)."""
-        from gyroflow_tpu.core.focal_length_smoothing import extract_focal_lengths
+        from .focal_length_smoothing import extract_focal_lengths
         params = ComputeParams.from_manager(self)
         return extract_focal_lengths(params)
 
     def get_optimal_sync_points(self, target_sync_points: int,
                                 initial_offset_ms: float = 0.0):
         """FFT-based sync-point picker over the trim ranges (lib.rs:2043)."""
-        from gyroflow_tpu.sync.optimsync import pick_sync_points_fft
+        from ..sync.optimsync import pick_sync_points_fft
         dur_ms = self.params.get_scaled_duration_ms()
         ranges = self.params.trim_ranges or None
         raw = self.gyro.file_metadata.raw_imu if self.gyro.file_metadata else []
@@ -1019,7 +1022,7 @@ class StabilizationManager:
     def project_has_motion_data(data) -> bool:
         """Whether a .gyroflow blob embeds usable gyro (lib.rs:1873-1906)."""
         import json as _json
-        from gyroflow_tpu.utils.compression import decompress_from_base91_cbor
+        from ..utils.compression import decompress_from_base91_cbor
         try:
             obj = _json.loads(data)
         except (ValueError, TypeError):
@@ -1135,7 +1138,7 @@ class StabilizationManager:
     def _apply_focal_length_smoothing(self, params: ComputeParams):
         if not params.focal_length_smoothing_enabled:
             return
-        from gyroflow_tpu.core.focal_length_smoothing import apply_focal_length_smoothing
+        from .focal_length_smoothing import apply_focal_length_smoothing
         apply_focal_length_smoothing(params, self.params)
 
     def recompute_adaptive_zoom(self):
@@ -1261,7 +1264,7 @@ class StabilizationManager:
 
     def frame_transform_at(self, timestamp_ms: float, frame: Optional[int] = None):
         from ..ops.frame_transform import frame_transform_at
-        from gyroflow_tpu.core.params import frame_at_timestamp
+        from .params import frame_at_timestamp
         gen = self.current_compute_id   # BEFORE the params snapshot
         cp = self.get_compute_params()
         if frame is None:
@@ -1442,7 +1445,7 @@ class StabilizationManager:
     def get_cloned(self) -> "StabilizationManager":
         """lib.rs:1168 (render-queue per-job clone)."""
         import copy
-        m = StabilizationManager()
+        m = StabilizationManager(device=self.device)
         m.gyro = self.gyro.clone()
         m.lens = copy.deepcopy(self.lens)
         m.smoothing = self.smoothing.clone()

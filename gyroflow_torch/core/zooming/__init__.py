@@ -6,10 +6,6 @@ follower).
 """
 from __future__ import annotations
 
-# Copy of gyroflow_tpu.core.zooming with jax-free imports: the original's
-# import chain reaches gyroflow_tpu.ops.kernel_params, which imports jax.
-# Only the import lines differ.
-
 import hashlib
 from enum import IntEnum
 from typing import Dict, List, Tuple

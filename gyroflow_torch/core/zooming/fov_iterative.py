@@ -6,17 +6,13 @@ the nearest polygon point, refine 30x around it, up to 4 extra iterations.
 """
 from __future__ import annotations
 
-# Copy of gyroflow_tpu.core.zooming.fov_iterative with jax-free imports: the original's
-# import chain reaches gyroflow_tpu.ops.kernel_params, which imports jax.
-# Only the import lines differ.
-
 import math
 from typing import Dict, List, Tuple
 
 import numpy as np
 
 from ...ops.undistort_points import undistort_points_with_rolling_shutter
-from gyroflow_tpu.core.keyframes import KeyframeType
+from ..keyframes import KeyframeType
 
 
 def interpolate_points(pts: np.ndarray, steps: int) -> np.ndarray:

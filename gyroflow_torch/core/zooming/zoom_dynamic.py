@@ -6,17 +6,13 @@ video-speed-scaled window support.
 """
 from __future__ import annotations
 
-# Copy of gyroflow_tpu.core.zooming.zoom_dynamic with jax-free imports: the original's
-# import chain reaches gyroflow_tpu.ops.kernel_params, which imports jax.
-# Only the import lines differ.
-
 import math
 from dataclasses import dataclass
 from typing import List, Optional, Tuple
 
 import numpy as np
 
-from gyroflow_tpu.core.keyframes import KeyframeType
+from ..keyframes import KeyframeType
 
 
 @dataclass

@@ -18,10 +18,40 @@
 // TPU kernel's window DMA, one-hot MXU gather and overflow flag exist only
 // because the TPU has no fast gather, and none of them is needed here.
 // Nothing is staged in shared memory; occupancy hides the chain's latency.
+//
+// gf_coords_gen (coords_gen_kernel below) replaces
+// gyroflow_tpu/ops/pallas_coords.py::_coords_kernel_gen (:257, driven by
+// _coords_call_gen :351 and project_tiles_gen :396), the self-contained
+// form: no x/y/idx input. Each thread takes its output pixel from its index
+// (ox = column, oy = oy0 + row of the band; the TPU kernel's float floor-div
+// over tile ids is not needed), then runs coords_pre's plain form
+// (remap.py:187: the out-rect map, +translation2d; no lens-correction
+// blend, so the wrapper refuses lens correction, mesh and digital lenses),
+// the rolling-shutter probe through the centre matrix row, the row select
+// min(where(pvalid, clip(rint(probe)), clip(rint(fallback))), rows - 1),
+// and the projection through the selected row. The matrix-window DMA, its
+// exact window check and overflow output, and project_tiles_gen's 6-point
+// coarse window plan are TPU-only and not ported. It reads no x, y, idx
+// and writes u, v, valid (9 B/px) while running two projection chains per
+// pixel (the probe and the projection, ~170 FP32 operations), so bytes and
+// operations bound it about equally on an H100 (chip_smoke.py prints both).
+// The simple design is the coords kernel's: one thread per output pixel on
+// 32x8 blocks; the centre row is read from the table (every thread the same
+// 14 floats, one cached line).
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 #include "lens.cuh"
+
+// The self-contained kernel's grid and coords_pre constants.
+struct GenArgs {
+    int oy0;          // absolute output row of the band's first row
+    float pos_d[2];   // pos_dx, pos_dy added to ox, oy
+    float map_x[4];   // out-rect map: in_min, out_max - out_min, 1 / (in_max - in_min), out_min
+    float map_y[4];
+    float t2d[2];     // translation2d
+    float lim;        // RS row clip: width (horizontal RS) or height
+};
 
 namespace {
 
@@ -51,6 +81,60 @@ __global__ void coords_kernel(const float* __restrict__ xs, const float* __restr
     valid_out[i] = valid ? 1 : 0;
 }
 
+// remap._rint_index: rint, NaN -> 0, +inf -> lim, -inf -> 0, clip to [0, lim].
+__device__ __forceinline__ int rint_index(float a, float lim) {
+    float r = rintf(a);
+    r = r != r ? 0.0f : r;
+    r = fminf(fmaxf(r, 0.0f), lim);
+    return static_cast<int>(r);
+}
+
+__global__ void coords_gen_kernel(const float* __restrict__ mats, int rows, gf::CoordParams p,
+                                  int flags, GenArgs g, int out_rows, int ow,
+                                  float* __restrict__ us, float* __restrict__ vs,
+                                  uint8_t* __restrict__ valid_out) {
+    const int col = blockIdx.x * blockDim.x + threadIdx.x;
+    const int row = blockIdx.y * blockDim.y + threadIdx.y;
+    if (col >= ow || row >= out_rows) return;
+    const long long i = (long long)row * ow + col;
+
+    // coords_pre (remap.py:185-188) on ox + pos_dx, oy + pos_dy. map_coord's
+    // division by the out-rect size is a multiply by its float32 reciprocal,
+    // as torch divides by a host scalar on the card.
+    const float ox = static_cast<float>(col) + g.pos_d[0];
+    const float oy = static_cast<float>(g.oy0 + row) + g.pos_d[1];
+    float x = ((ox - g.map_x[0]) * g.map_x[1]) * g.map_x[2] + g.map_x[3];
+    float y = ((oy - g.map_y[0]) * g.map_y[1]) * g.map_y[2] + g.map_y[3];
+    x = x + g.t2d[0];
+    y = y + g.t2d[1];
+
+    // rolling-shutter row select (remap.py:205-217)
+    const bool horizontal = flags & gf::HORIZONTAL_RS;
+    int sy = rint_index(horizontal ? x : y, g.lim);
+    if (rows > 1) {
+        const float* crow = mats + (long long)(rows / 2) * 14;
+        float mc[14];
+#pragma unroll
+        for (int j = 0; j < 14; ++j) mc[j] = __ldg(crow + j);
+        float pu, pv;
+        bool pvalid;
+        gf::project_point(x, y, mc, p, flags, pu, pv, pvalid);
+        if (pvalid) sy = rint_index(horizontal ? pu : pv, g.lim);
+    }
+    const int r = sy < rows - 1 ? sy : rows - 1;
+
+    const float* mrow = mats + (long long)r * 14;
+    float m[14];
+#pragma unroll
+    for (int j = 0; j < 14; ++j) m[j] = __ldg(mrow + j);
+    float u, v;
+    bool valid;
+    gf::project_point(x, y, m, p, flags, u, v, valid);
+    us[i] = u;
+    vs[i] = v;
+    valid_out[i] = valid ? 1 : 0;
+}
+
 }  // namespace
 
 // x, y: float32 (oh, ow); idx: int32 (oh, ow); mats: float32 (rows, 14);
@@ -66,5 +150,19 @@ extern "C" int gf_coords(const void* x, const void* y, const void* idx, const vo
         static_cast<const int32_t*>(idx), static_cast<const float*>(mats), rows, params,
         flags, oh, ow, static_cast<float*>(u), static_cast<float*>(v),
         static_cast<uint8_t*>(valid));
+    return static_cast<int>(cudaGetLastError());
+}
+
+// mats: float32 (rows, 14); u, v: float32 (out_rows, ow); valid: uint8/bool
+// (out_rows, ow). Device pointers, contiguous. Launches on `stream`; returns
+// cudaGetLastError().
+extern "C" int gf_coords_gen(const void* mats, int rows, gf::CoordParams params, int flags,
+                             GenArgs args, int out_rows, int ow, void* u, void* v, void* valid,
+                             void* stream) {
+    const dim3 block(32, 8);
+    const dim3 grid((ow + block.x - 1) / block.x, (out_rows + block.y - 1) / block.y);
+    coords_gen_kernel<<<grid, block, 0, static_cast<cudaStream_t>(stream)>>>(
+        static_cast<const float*>(mats), rows, params, flags, args, out_rows, ow,
+        static_cast<float*>(u), static_cast<float*>(v), static_cast<uint8_t*>(valid));
     return static_cast<int>(cudaGetLastError());
 }

@@ -36,6 +36,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "taps.cuh"
+
 constexpr int kEwaCap = 4;
 constexpr int kTaps = 2 * kEwaCap + 2;  // 10 taps per axis
 
@@ -50,11 +52,7 @@ struct EwaArgs {
 
 namespace {
 
-// _guard_uv (pallas_sampler.py:1067): non-finite -> 0, clip to +-32768.
-__device__ __forceinline__ float guard_uv(float a) {
-    a = fabsf(a) <= 3.402823466e+38f ? a : 0.0f;   // NaN and +-inf -> 0
-    return fminf(fmaxf(a, -32768.0f), 32768.0f);
-}
+using gf::guard_uv;   // taps.cuh
 
 // float -> int32 conversions saturate (cvt.rzi.s32.f32), as in remap._floor_i32.
 __device__ __forceinline__ int floor_i32(float a) { return static_cast<int>(floorf(a)); }

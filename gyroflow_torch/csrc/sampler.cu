@@ -3,11 +3,10 @@
 // Replaces gyroflow_tpu/ops/pallas_sampler.py::_sampler_kernel (driven by
 // _sample_call and sample_planes_t, with prep_taps and tile_sample). Per
 // output pixel it does what remap.sample_input (remap.py:309-352) does:
-// guard u/v, subtract the tap offset, quantize the phase as rint(u * 32)
-// (round half to even), take the tap weights from the reference LUT
-// (interpolation.COEFFS, 448 floats, in __constant__ memory), sum the taps
-// row by row with out-of-source-rect taps reading the background, and clamp
-// at pixel_value_limit. Pixels with valid == 0 get the background directly.
+// subtract the tap offset, guard u/v, then the separable LUT tap loop of
+// taps.cuh (rint(u * 32) phases, weights from interpolation.COEFFS in
+// __constant__ memory, out-of-source-rect taps read the background), and
+// clamp at pixel_value_limit. Pixels with valid == 0 get the background.
 //
 // What bounds it on an H100: memory latency of the tap loads. lanczos4 reads
 // 64 source values per pixel (8 rows x 8 columns), almost all L1/L2 hits
@@ -24,37 +23,12 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-constexpr int kLutSize = 448;
-constexpr int kInterBits = 5;
-constexpr int kInterTabSize = 1 << kInterBits;  // 32 phases
+#include "taps.cuh"
 
-// interpolation.COEFFS, uploaded once per device by gf_sampler_set_lut
-static __constant__ float c_coeffs[kLutSize];
+using gf::Interp;
+using gf::SamplerArgs;
 
 namespace {
-
-// Tap layout of the LUT per interpolation (interpolation.INTERP_INFO).
-template <int TAPS> struct Interp;
-template <> struct Interp<2> { static constexpr int ind = 0, shift = 1; static constexpr float offset = 0.0f; };
-template <> struct Interp<4> { static constexpr int ind = 64, shift = 2; static constexpr float offset = 1.0f; };
-template <> struct Interp<8> { static constexpr int ind = 192, shift = 3; static constexpr float offset = 3.0f; };
-
-}  // namespace
-
-// Background, clamp and source rect, passed to the kernel by value.
-struct SamplerArgs {
-    float bg[4];
-    float limit;
-    int src_rect[4];  // x, y, w, h
-};
-
-namespace {
-
-// _guard_uv (pallas_sampler.py:1067): non-finite -> 0, clip to +-32768.
-__device__ __forceinline__ float guard_uv(float a) {
-    a = fabsf(a) <= 3.402823466e+38f ? a : 0.0f;   // NaN and +-inf -> 0
-    return fminf(fmaxf(a, -32768.0f), 32768.0f);
-}
 
 template <typename T, int C, int TAPS>
 __global__ void sampler_kernel(const T* __restrict__ img, int H, int W,
@@ -73,46 +47,11 @@ __global__ void sampler_kernel(const T* __restrict__ img, int H, int W,
         return;
     }
 
-    const float u = guard_uv(us[i] - Interp<TAPS>::offset);
-    const float v = guard_uv(vs[i] - Interp<TAPS>::offset);
-    const int sx0 = __float2int_rn(u * (float)kInterTabSize);  // rint: half to even
-    const int sy0 = __float2int_rn(v * (float)kInterTabSize);
-    const int sx = sx0 >> kInterBits;                           // arithmetic shift
-    const int sy = sy0 >> kInterBits;
-    const int base_x = Interp<TAPS>::ind + ((sx0 & (kInterTabSize - 1)) << Interp<TAPS>::shift);
-    const int base_y = Interp<TAPS>::ind + ((sy0 & (kInterTabSize - 1)) << Interp<TAPS>::shift);
-    const int srx = a.src_rect[0], sry = a.src_rect[1];
-    const int srx1 = srx + a.src_rect[2], sry1 = sry + a.src_rect[3];
-
+    // the XLA sample_input order (remap.py:320-326): offset, then guard
+    const float u = gf::guard_uv(us[i] - Interp<TAPS>::offset);
+    const float v = gf::guard_uv(vs[i] - Interp<TAPS>::offset);
     float total[C];
-#pragma unroll
-    for (int c = 0; c < C; ++c) total[c] = 0.0f;
-
-#pragma unroll
-    for (int yp = 0; yp < TAPS; ++yp) {
-        const int yy = sy + yp;
-        const bool row_ok = yy >= sry && yy < sry1;
-        const int yc = yy < 0 ? 0 : (yy >= H ? H - 1 : yy);
-        const T* src_row = img + (long long)yc * W * C;
-        float xsum[C];
-#pragma unroll
-        for (int c = 0; c < C; ++c) xsum[c] = 0.0f;
-#pragma unroll
-        for (int xp = 0; xp < TAPS; ++xp) {
-            const int xx = sx + xp;
-            const bool ok = row_ok && xx >= srx && xx < srx1;
-            const int xc = xx < 0 ? 0 : (xx >= W ? W - 1 : xx);
-            const float cx = c_coeffs[base_x + xp];
-#pragma unroll
-            for (int c = 0; c < C; ++c) {
-                const float px = ok ? static_cast<float>(src_row[(long long)xc * C + c]) : a.bg[c];
-                xsum[c] = xsum[c] + px * cx;
-            }
-        }
-        const float cy = c_coeffs[base_y + yp];
-#pragma unroll
-        for (int c = 0; c < C; ++c) total[c] = total[c] + xsum[c] * cy;
-    }
+    gf::sample_taps<T, C, TAPS>(img, H, W, u, v, a, total);
 #pragma unroll
     for (int c = 0; c < C; ++c) o[c] = fminf(total[c], a.limit);
 }
@@ -157,10 +96,7 @@ bool dispatch_channels(int C, int taps, const void* img, int H, int W, const voi
 
 // Copies the 448-float LUT (host pointer) into constant memory of the
 // current device. Returns the cudaError_t of the copy.
-extern "C" int gf_sampler_set_lut(const float* lut, int n) {
-    if (n != kLutSize) return -1;
-    return static_cast<int>(cudaMemcpyToSymbol(c_coeffs, lut, sizeof(float) * kLutSize));
-}
+extern "C" int gf_sampler_set_lut(const float* lut, int n) { return gf::set_lut(lut, n); }
 
 // img: (H, W, C) channels-last, dtype 0 = uint8, 1 = uint16, 2 = float32;
 // u, v: float32 (oh, ow); valid: uint8/bool (oh, ow); out: float32

@@ -1,12 +1,22 @@
-"""Coords kernel wrapper: per-pixel rolling-shutter matrix projection.
+"""Coords kernel wrappers: per-pixel rolling-shutter matrix projection.
 
-Replaces ``gyroflow_tpu/ops/pallas_coords.py::_coords_kernel`` with the CUDA
-kernel of ``csrc/coords.cu`` (one thread per output pixel, its matrix row read
-straight from the (rows, 14) table). ``project_plain`` is the same function in
-plain torch (``remap.rotate_and_distort``).
+``project`` replaces ``gyroflow_tpu/ops/pallas_coords.py::_coords_kernel``
+with the CUDA kernel ``gf_coords`` of ``csrc/coords.cu`` (one thread per
+output pixel, its matrix row read straight from the (rows, 14) table).
+``project_plain`` is the same function in plain torch
+(``remap.rotate_and_distort``).
 
-``project`` checks its inputs, then runs the plain version for CPU tensors
-only; for CUDA tensors it launches the kernel or raises. ``project.launches`` counts kernel launches.
+``project_gen`` replaces ``pallas_coords.py::_coords_kernel_gen`` (the
+self-contained form behind ``project_tiles_gen``) with ``gf_coords_gen``:
+no x/y/idx input, the kernel builds each pixel's output position, runs
+coords_pre's out-rect map and translation2d, the rolling-shutter probe and
+row select, then the projection. ``project_gen_plain`` is ``remap.coords_pre``
+plus ``project_plain`` on the same grid. As in the JAX package, no render
+path calls it yet.
+
+Each wrapper checks its inputs, then runs its plain version for CPU tensors
+only; for CUDA tensors it launches its kernel or raises. ``project.launches``
+and ``project_gen.launches`` count kernel launches.
 """
 from __future__ import annotations
 
@@ -15,7 +25,7 @@ import torch
 
 from . import distortion_models as dm
 from . import remap
-from .kernel_params import (HAS_DIGITAL_LENS, HAS_FPD_DATA, HAS_MESH_DATA,
+from .kernel_params import (HAS_DIGITAL_LENS, HAS_FPD_DATA, HAS_MESH_DATA, HORIZONTAL_RS,
                             KernelConfig, KernelDynamics, dyn_to_torch)
 
 _UNSUPPORTED_FLAGS = HAS_DIGITAL_LENS | HAS_MESH_DATA | HAS_FPD_DATA
@@ -99,3 +109,96 @@ def project(x, y, idx, matrices, cfg: KernelConfig, dyn: KernelDynamics):
 
 
 project.launches = 0
+
+
+def _gen_grid(cfg: KernelConfig, out_rows: int, oy0: int, device):
+    """(oy, ox) float32 (out_rows, ow): output rows oy0 .. oy0 + out_rows."""
+    ow = cfg.out_buffer[0]
+    return torch.meshgrid(torch.arange(oy0, oy0 + out_rows, dtype=torch.float32, device=device),
+                          torch.arange(ow, dtype=torch.float32, device=device), indexing="ij")
+
+
+def project_gen_plain(cfg: KernelConfig, dyn: KernelDynamics, matrices, out_rows: int,
+                      oy0: int, out_c, out_f, pos_dx: float = 0.0, pos_dy: float = 0.0):
+    """Plain torch: remap.coords_pre on the (out_rows, ow) band's output
+    positions (+ pos_dx, pos_dy), then the projection. Returns u, v float32
+    and valid bool, before coords_post_uv."""
+    dyn_t = dyn_to_torch(dyn, matrices.device)
+    oy, ox = _gen_grid(cfg, out_rows, oy0, matrices.device)
+    x, y, idx = remap.coords_pre(ox + pos_dx, oy + pos_dy, matrices, cfg, dyn_t, out_c, out_f)
+    return remap.rotate_and_distort(x, y, idx, matrices, cfg, dyn_t)
+
+
+def _check_gen(cfg: KernelConfig, matrices, out_rows: int, oy0: int):
+    if cfg.lens_correction or cfg.flags & (HAS_MESH_DATA | HAS_FPD_DATA | HAS_DIGITAL_LENS) \
+            or cfg.digital_lens:
+        raise ValueError(
+            "coords gen kernel: no lens-correction blend, mesh or digital lens (the JAX "
+            "package gates project_tiles_gen off for them, pallas_coords.py:234-236); "
+            "use remap.coords_pre with project")
+    if dm.get_model(cfg.distortion_model).id != "opencv_fisheye":
+        raise NotImplementedError(f"coords gen kernel: model {cfg.distortion_model!r}")
+    if matrices.dtype != torch.float32 or not matrices.is_contiguous():
+        raise TypeError("coords gen kernel: matrices must be contiguous float32")
+    if matrices.dim() != 2 or matrices.shape[1] != 14 or matrices.shape[0] < 1:
+        raise ValueError(f"coords gen kernel: matrices must be (rows, 14), got "
+                         f"{tuple(matrices.shape)}")
+    if out_rows < 0 or oy0 < 0:
+        raise ValueError(f"coords gen kernel: out_rows {out_rows}, oy0 {oy0}")
+
+
+def gen_args(cfg: KernelConfig, dyn: KernelDynamics, oy0: int, pos_dx: float, pos_dy: float):
+    """The kernel's by-value GenArgs. The out-rect map's division is a
+    multiply by the float32 reciprocal, as torch divides by a host scalar on
+    the card."""
+    from .._build import GenArgs
+
+    f32 = np.float32
+    orx, ory, orw, orh = cfg.out_rect
+    g = GenArgs()
+    g.oy0 = int(oy0)
+    g.pos_d[:] = [pos_dx, pos_dy]
+    g.map_x[:] = [float(orx), float(cfg.output_width) - 0.0,
+                  float(f32(1.0) / f32(float(orx + orw) - float(orx))), 0.0]
+    g.map_y[:] = [float(ory), float(cfg.output_height) - 0.0,
+                  float(f32(1.0) / f32(float(ory + orh) - float(ory))), 0.0]
+    g.t2d[:] = np.asarray(dyn.translation2d, np.float32).reshape(-1)[:2].tolist()
+    g.lim = float(cfg.width if cfg.has(HORIZONTAL_RS) else cfg.height)
+    return g
+
+
+def project_gen(cfg: KernelConfig, dyn: KernelDynamics, matrices, out_rows: int, oy0: int,
+                out_c, out_f, pos_dx: float = 0.0, pos_dy: float = 0.0):
+    """Self-contained projection of output rows oy0 .. oy0 + out_rows (the
+    counterpart of pallas_coords.project_tiles_gen on the (out_rows, ow)
+    layout). matrices (rows, 14) float32 on the target device; dyn with host
+    numpy leaves; out_c, out_f as remap builds them (read only by the plain
+    version's coords_pre). Returns u, v float32 and valid bool, before
+    coords_post_uv. Raises ValueError for lens correction, mesh and digital
+    lenses, which the kernel does not compute."""
+    _check_gen(cfg, matrices, out_rows, oy0)
+    if matrices.device.type == "cpu":
+        return project_gen_plain(cfg, dyn, matrices, out_rows, oy0, out_c, out_f, pos_dx, pos_dy)
+    if matrices.device.type != "cuda":
+        raise ValueError(f"coords gen kernel: unsupported device {matrices.device}")
+    from .._build import lib
+
+    ow = cfg.out_buffer[0]
+    u = torch.empty((out_rows, ow), dtype=torch.float32, device=matrices.device)
+    v = torch.empty_like(u)
+    valid = torch.empty(u.shape, dtype=torch.bool, device=u.device)
+    if u.numel() == 0:
+        return u, v, valid
+    L = lib()
+    with torch.cuda.device(u.device):
+        err = L.gf_coords_gen(matrices.data_ptr(), matrices.shape[0], coord_params(dyn),
+                              int(cfg.flags), gen_args(cfg, dyn, oy0, pos_dx, pos_dy),
+                              out_rows, ow, u.data_ptr(), v.data_ptr(), valid.data_ptr(),
+                              torch.cuda.current_stream(u.device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"coords gen kernel launch failed: cudaError {err}")
+    project_gen.launches += 1
+    return u, v, valid
+
+
+project_gen.launches = 0

@@ -13,7 +13,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from gyroflow_tpu.ops.interpolation import COEFFS, INTERP_INFO
+from .interpolation import COEFFS, INTERP_INFO
 
 from . import remap
 

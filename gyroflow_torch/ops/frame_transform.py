@@ -7,19 +7,15 @@ as the (matrix_count, 14) f32 tensor the TPU kernels consume.
 """
 from __future__ import annotations
 
-# Copy of gyroflow_tpu.ops.frame_transform with jax-free imports: the original's
-# import chain reaches gyroflow_tpu.ops.kernel_params, which imports jax.
-# Only the import lines differ.
-
 import math
 from dataclasses import dataclass, field
 from typing import List, Optional, Tuple
 
 import numpy as np
 
-from gyroflow_tpu.core import quaternion as quat
-from gyroflow_tpu.core.keyframes import KeyframeType
-from gyroflow_tpu.core.params import ComputeParams, frame_at_timestamp
+from ..core import quaternion as quat
+from ..core.keyframes import KeyframeType
+from ..core.params import ComputeParams, frame_at_timestamp
 from .kernel_params import (ANY_UNDERWATER, FRAMEBUFFER_INVERTED, HAS_DIGITAL_LENS,
                             HAS_FPD_DATA, HAS_IBIS_DATA, HAS_MESH_DATA, HORIZONTAL_RS,
                             KernelConfig, KernelDynamics)

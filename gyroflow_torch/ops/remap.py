@@ -13,7 +13,10 @@ Two entry points share one body (``_remap``):
   (``cuda_sampler.sample``, or ``cuda_ewa.sample`` for EWA), and the finish
   in torch. It is the counterpart of ``remap_plane_pallas`` without the TPU's
   window ladder: one thread per output pixel reads its matrix row and its
-  taps directly, so there is no window to overflow.
+  taps directly, so there is no window to overflow. With ``fused=True``
+  (off by default, as in the JAX package) the configurations that
+  ``remap_plane_pallas`` fuses (``use_fused``) take one fused projection +
+  sampling launch (``cuda_fused.remap_fused``) after ``coords_pre``.
 
 EWA (interpolation 10-13) needs the finite-difference Jacobian of the
 source coordinates: both entry points stack the base eval and the two
@@ -32,7 +35,7 @@ from typing import Tuple
 import numpy as np
 import torch
 
-from gyroflow_tpu.ops.interpolation import COEFFS, INTER_BITS, INTER_TAB_SIZE, INTERP_INFO
+from .interpolation import COEFFS, INTER_BITS, INTER_TAB_SIZE, INTERP_INFO
 
 from . import distortion_models as dm
 from .kernel_params import (
@@ -265,18 +268,26 @@ def _guard_uv(a):
 
 def sample_input(img, u, v, bg, src_rect, interpolation: int, pixel_value_limit):
     """N-tap LUT separable sampling (remap.py:309): the plain version of the
-    sampler kernel's tap loop.
+    sampler kernel.
 
     img (H, W, C) float32; u, v (...) source coordinates; bg (C,) tensor.
-    Taps outside ``src_rect`` (x, y, w, h) read bg. Returns (..., C) float32."""
+    Taps outside ``src_rect`` (x, y, w, h) read bg. Returns (..., C) float32.
+    The tap offset is subtracted before the guard, as in remap.py:320-326."""
+    offset = INTERP_INFO[interpolation]["offset"]
+    return sample_taps(img, _guard_uv(u - offset), _guard_uv(v - offset), bg, src_rect,
+                       interpolation, pixel_value_limit)
+
+
+def sample_taps(img, u, v, bg, src_rect, interpolation: int, pixel_value_limit):
+    """The separable LUT tap loop (remap.py:328-352) at (u, v) that the
+    caller has already guarded and shifted by the tap offset: the plain
+    version of csrc/taps.cuh's sample_taps, then the clamp."""
     info = INTERP_INFO[interpolation]
-    taps, ind, shift, offset = info["taps"], info["ind"], info["shift"], info["offset"]
+    taps, ind, shift = info["taps"], info["ind"], info["shift"]
     H, W, C = img.shape
     flat = img.reshape(H * W, C)
     srx, sry, srw, srh = src_rect
 
-    u = _guard_uv(u - offset)
-    v = _guard_uv(v - offset)
     sx0 = torch.round(u * INTER_TAB_SIZE).to(torch.int32)
     sy0 = torch.round(v * INTER_TAB_SIZE).to(torch.int32)
     sx = sx0 >> INTER_BITS
@@ -482,12 +493,25 @@ def _ewa_coeffs_of(dyn: KernelDynamics):
                  for c in (dyn.ewa_coeffs_p, dyn.ewa_coeffs_q))
 
 
-def _remap(img, matrices, cfg: KernelConfig, dyn_t: KernelDynamics, project, sample):
+def use_fused(cfg: KernelConfig, matrices, drawing=None) -> bool:
+    """Whether remap_plane_pallas(fused=True) takes the fused kernel for this
+    plane (remap.py:716-719): more than one matrix row, no mesh/FPD, no EWA,
+    background mode 0-2, no drawing, interpolation 2, 4 or 8. Everywhere
+    else fused=True takes the split path, as in the JAX package."""
+    has_mesh = cfg.has(HAS_MESH_DATA) or cfg.has(HAS_FPD_DATA)
+    return (matrices.shape[0] > 1 and not has_mesh and cfg.interpolation in (2, 4, 8)
+            and cfg.background_mode != 3
+            and not (drawing is not None and cfg.has(DRAWING_ENABLED)))
+
+
+def _remap(img, matrices, cfg: KernelConfig, dyn_t: KernelDynamics, project, sample,
+           fused=None):
     """Shared body of remap_plane / remap_plane_cuda (remap.py:511, :662).
 
     dyn_t: tensor leaves on img's device. project(x, y, idx) -> (u, v, valid);
     sample(u, v, valid, jac) -> (oh, ow, C), where jac is the (oh, ow, 4)
-    Jacobian for EWA and None otherwise."""
+    Jacobian for EWA and None otherwise. fused(x, y, idx) -> (oh, ow, C), if
+    given, replaces project, coords_post_uv and sample (remap.py:720-730)."""
     dev = img.device
     C = img.shape[-1]
     bg = (dyn_t.background * dyn_t.max_pixel_value)[:C]
@@ -506,6 +530,27 @@ def _remap(img, matrices, cfg: KernelConfig, dyn_t: KernelDynamics, project, sam
 
     is_ewa = cfg.interpolation in EWA_BC
     x, y, idx = (ewa_stack if is_ewa else coords_pre)(ox, oy, matrices, cfg, dyn_t, out_c, out_f)
+    if fused is not None:
+        pixel = fused(x, y, idx)
+    else:
+        pixel = _project_and_sample(x, y, idx, cfg, dyn_t, bg, project, sample, is_ewa)
+
+    # pixels whose mapped out_pos is beyond the logical output get background
+    orx, ory, orw, orh = cfg.out_rect
+    lx = map_coord(ox, float(orx), float(orx + orw), 0.0, float(cfg.output_width))
+    ly = map_coord(oy, float(ory), float(ory + orh), 0.0, float(cfg.output_height))
+    in_bounds = (lx >= 0.0) & (ly >= 0.0) & (lx < cfg.output_width) & (ly < cfg.output_height)
+    pixel = torch.where(in_bounds[..., None], pixel, bg)
+
+    if cfg.has(FIX_COLOR_RANGE):
+        pixel = _remap_colorrange(pixel, cfg.plane_index == 0, dyn_t.max_pixel_value)
+    return pixel
+
+
+def _project_and_sample(x, y, idx, cfg: KernelConfig, dyn_t: KernelDynamics, bg, project,
+                        sample, is_ewa: bool):
+    """The split path: projection, coords_post_uv, the EWA Jacobian, then one
+    sample (two in background mode 3) and the validity mask."""
     u, v, valid = project(x, y, idx)
     u, v = coords_post_uv(u, v, cfg)
     jac = None
@@ -535,19 +580,7 @@ def _remap(img, matrices, cfg: KernelConfig, dyn_t: KernelDynamics, project, sam
         pixel = c1 * alpha[..., None] + c2 * (1.0 - alpha[..., None])
     else:
         pixel = sample(u, v, valid, jac)
-
-    pixel = torch.where(valid[..., None], pixel, bg)
-
-    # pixels whose mapped out_pos is beyond the logical output get background
-    orx, ory, orw, orh = cfg.out_rect
-    lx = map_coord(ox, float(orx), float(orx + orw), 0.0, float(cfg.output_width))
-    ly = map_coord(oy, float(ory), float(ory + orh), 0.0, float(cfg.output_height))
-    in_bounds = (lx >= 0.0) & (ly >= 0.0) & (lx < cfg.output_width) & (ly < cfg.output_height)
-    pixel = torch.where(in_bounds[..., None], pixel, bg)
-
-    if cfg.has(FIX_COLOR_RANGE):
-        pixel = _remap_colorrange(pixel, cfg.plane_index == 0, dyn_t.max_pixel_value)
-    return pixel
+    return torch.where(valid[..., None], pixel, bg)
 
 
 def _prepare(img, matrices, cfg, mesh, drawing):
@@ -587,16 +620,19 @@ def remap_plane(img, matrices, cfg: KernelConfig, dyn: KernelDynamics, mesh=None
 
 
 def remap_plane_cuda(img, matrices, cfg: KernelConfig, dyn: KernelDynamics, mesh=None,
-                     drawing=None, out_dtype: str = "f32"):
+                     drawing=None, out_dtype: str = "f32", fused: bool = False):
     """Remap one plane through the coords kernel and the sampler (or EWA)
-    kernel.
+    kernel, or with ``fused=True`` through the fused kernel.
 
     Counterpart of remap_plane_pallas (remap.py:662) on one thread per output
     pixel: one coords launch per plane (EWA stacks its three evals into it)
-    and one sampling launch per sample (two in background mode 3). ``img``
-    keeps its native dtype (uint8, uint16 or float32): the samplers read it
-    directly. On CPU tensors the kernel wrappers run their plain versions."""
-    from . import cuda_coords, cuda_ewa, cuda_sampler
+    and one sampling launch per sample (two in background mode 3). With
+    ``fused=True``, a plane that ``use_fused`` admits takes one fused launch
+    instead of the coords and sampler launches; any other plane takes the
+    split path, as remap_plane_pallas does. ``img`` keeps its native dtype
+    (uint8, uint16 or float32): the kernels read it directly. On CPU tensors
+    the kernel wrappers run their plain versions."""
+    from . import cuda_coords, cuda_ewa, cuda_fused, cuda_sampler
 
     matrices = _prepare(img, matrices, cfg, mesh, drawing)
     C = img.shape[-1]
@@ -615,5 +651,10 @@ def remap_plane_cuda(img, matrices, cfg: KernelConfig, dyn: KernelDynamics, mesh
         return cuda_sampler.sample(img, u, v, valid, bg, cfg.src_rect,
                                    cfg.interpolation, limit)
 
-    out = _remap(img, matrices, cfg, dyn_t, project, sample)
+    fuse = None
+    if fused and use_fused(cfg, matrices, drawing):
+        def fuse(x, y, idx):
+            return cuda_fused.remap_fused(img, x, y, idx, matrices, cfg, dyn, bg, limit)
+
+    out = _remap(img, matrices, cfg, dyn_t, project, sample, fuse)
     return _cast_out(out, out_dtype, _host_scalar(dyn.max_pixel_value))

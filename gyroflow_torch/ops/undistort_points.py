@@ -5,18 +5,14 @@ Port of gyroflow src/core/stabilization/cpu_undistort.rs:636-858
 """
 from __future__ import annotations
 
-# Copy of gyroflow_tpu.ops.undistort_points with jax-free imports: the original's
-# import chain reaches gyroflow_tpu.ops.kernel_params, which imports jax.
-# Only the import lines differ.
-
 import math
 from typing import Optional
 
 import numpy as np
 
-from gyroflow_tpu.core.keyframes import KeyframeType
+from ..core.keyframes import KeyframeType
 from .frame_transform import frame_transform_for_points, get_lens_data_at_timestamp
-from gyroflow_tpu.ops.np_models import get_np_model
+from .np_models import get_np_model
 
 
 def _np_params(params, distortion_coeffs):
@@ -67,7 +63,7 @@ def undistort_points(distorted: np.ndarray, camera_matrix: np.ndarray,
 
     if mesh is not None and len(mesh) > 9:
         # FPD with += then distorting mesh (cpu_undistort.rs:712-751)
-        from gyroflow_tpu.core.splines import interpolate_mesh
+        from ..core.splines import interpolate_mesh
         size = (mesh[3], mesh[4])
         ox, oy = mesh[5], mesh[6]
         cw, ch = mesh[7], mesh[8]

@@ -17,11 +17,12 @@ import numpy as np
 import pytest
 import torch
 
-from gyroflow_torch.ops import cuda_coords, cuda_ewa, cuda_sampler
+from gyroflow_torch.ops import cuda_coords, cuda_ewa, cuda_fused, cuda_sampler
 from gyroflow_torch.ops import remap
-from gyroflow_torch.ops.kernel_params import (ANY_UNDERWATER, HAS_IBIS_DATA, HAS_MESH_DATA,
-                                              HAS_OUTPUT_RECT, HAS_SOURCE_RECT, KernelConfig,
-                                              KernelDynamics, dyn_to_torch)
+from gyroflow_torch.ops.kernel_params import (ANY_UNDERWATER, FIX_COLOR_RANGE, HAS_IBIS_DATA,
+                                              HAS_MESH_DATA, HAS_OUTPUT_RECT, HAS_SOURCE_RECT,
+                                              HORIZONTAL_RS, KernelConfig, KernelDynamics,
+                                              dyn_to_torch)
 
 pytestmark = pytest.mark.cuda
 
@@ -202,3 +203,101 @@ def test_remap_plane_cuda_ewa_vs_plain(dev, plane, bg_mode, ref_jac):
     want = remap.remap_plane(timg, m, cfg, dyn, out_dtype="uint16")
     assert got.dtype == torch.uint16 and got.device.type == "cuda"
     assert torch.equal(got, want)
+
+
+FUSED_CASES = [("Y", 8, 0, 0, 0.0), ("UV", 8, 0, 0, 0.0), ("Y", 4, 1, HAS_IBIS_DATA, 0.0),
+               ("UV", 2, 2, HORIZONTAL_RS, 0.0), ("Y", 8, 2, FIX_COLOR_RANGE, 3.0),
+               ("UV", 8, 1, 0, -90.0)]
+
+
+def _fused_case(plane, interpolation, bg_mode, flags, rotation):
+    cfg, dyn, mats, img = _case(plane, flags=flags, background_mode=bg_mode,
+                                interpolation=interpolation)
+    return cfg._replace(input_rotation=rotation), dyn, mats, img
+
+
+@pytest.mark.parametrize("plane,interpolation,bg_mode,flags,rotation", FUSED_CASES)
+def test_fused_kernel_vs_plain(dev, plane, interpolation, bg_mode, flags, rotation):
+    cfg, dyn, mats, img = _fused_case(plane, interpolation, bg_mode, flags, rotation)
+    x, y, idx, m = _coords_inputs(cfg, dyn, mats, dev)
+    timg = torch.from_numpy(img).to(dev)
+    bg = tuple(float(b) * 1023.0 for b in np.asarray(dyn.background)[:img.shape[2]])
+    n0 = cuda_fused.remap_fused.launches
+    k = cuda_fused.remap_fused(timg, x, y, idx, m, cfg, dyn, bg, 1023.0)
+    p = cuda_fused.remap_fused_plain(timg, x, y, idx, m, cfg, dyn, bg, 1023.0)
+    torch.cuda.synchronize()
+    assert cuda_fused.remap_fused.launches == n0 + 1
+    assert k.shape == p.shape == idx.shape + (img.shape[2],)
+    assert float((k - p).abs().max()) <= 1e-3
+
+
+@pytest.mark.parametrize("plane,interpolation,bg_mode,flags,rotation", FUSED_CASES)
+def test_remap_plane_cuda_fused_vs_split(dev, plane, interpolation, bg_mode, flags, rotation):
+    """fused=True: one fused launch and no coords or sampler launch; the
+    same uint16 output as the split kernels and as the plain path."""
+    cfg, dyn, mats, img = _fused_case(plane, interpolation, bg_mode, flags, rotation)
+    timg = torch.from_numpy(img).to(dev)
+    m = torch.from_numpy(mats).to(dev)
+    n = (cuda_fused.remap_fused.launches, cuda_coords.project.launches,
+         cuda_sampler.sample.launches)
+    got = remap.remap_plane_cuda(timg, m, cfg, dyn, out_dtype="uint16", fused=True)
+    assert (cuda_fused.remap_fused.launches, cuda_coords.project.launches,
+            cuda_sampler.sample.launches) == (n[0] + 1, n[1], n[2])
+    split = remap.remap_plane_cuda(timg, m, cfg, dyn, out_dtype="uint16")
+    plain = remap.remap_plane(timg, m, cfg, dyn, out_dtype="uint16")
+    assert got.dtype == torch.uint16 and got.device.type == "cuda"
+    assert torch.equal(got, split) and torch.equal(got, plain)
+
+
+@pytest.mark.parametrize("plane,flags,out_rows,oy0,pos_dx", [
+    ("Y", 0, None, 0, 0.0), ("UV", 0, None, 0, 0.01), ("Y", HORIZONTAL_RS, 40, 24, 0.0),
+    ("Y", HAS_IBIS_DATA, 17, 3, 0.01)])
+def test_coords_gen_kernel_vs_plain(dev, plane, flags, out_rows, oy0, pos_dx):
+    cfg, dyn, mats, _ = _case(plane, flags=flags)
+    m = torch.from_numpy(mats).to(dev)
+    rows = out_rows or cfg.out_buffer[1]
+    out_c = (W / 2.0, H / 2.0)
+    out_f = (F[0] / 1.05, F[1] / 1.05)
+    n0 = cuda_coords.project_gen.launches
+    uk, vk, valk = cuda_coords.project_gen(cfg, dyn, m, rows, oy0, out_c, out_f, pos_dx=pos_dx)
+    up, vp, valp = cuda_coords.project_gen_plain(cfg, dyn, m, rows, oy0, out_c, out_f,
+                                                 pos_dx=pos_dx)
+    torch.cuda.synchronize()
+    assert cuda_coords.project_gen.launches == n0 + 1
+    assert uk.shape == (rows, cfg.out_buffer[0])
+    assert torch.equal(valk, valp) and bool(valk.any())
+    assert float((uk - up).abs()[valk].max()) <= 1e-4
+    assert float((vk - vp).abs()[valk].max()) <= 1e-4
+
+
+def test_new_kernels_raise_instead_of_falling_back(dev):
+    cfg, dyn, mats, img = _case("Y")
+    x, y, idx, m = _coords_inputs(cfg, dyn, mats, dev)
+    with pytest.raises(ValueError):
+        cuda_coords.project_gen(cfg._replace(lens_correction=True), dyn, m, 8, 0, (0, 0), (1, 1))
+    with pytest.raises(TypeError):
+        cuda_fused.remap_fused(torch.zeros(8, 8, 1, dtype=torch.int32, device=dev), x, y, idx,
+                               m, cfg, dyn, (0.0,), 1.0)
+
+
+def test_cuda_tensors_never_reach_a_plain_version(dev, monkeypatch):
+    """Every path on CUDA tensors (split, fused, EWA, the gen kernel) runs
+    with the plain versions replaced by functions that raise."""
+    def refuse(*a, **k):
+        raise AssertionError("a plain version was called on the card")
+
+    for mod, name in ((cuda_coords, "project_plain"), (cuda_coords, "project_gen_plain"),
+                      (cuda_sampler, "sample_plain"), (cuda_ewa, "sample_plain"),
+                      (cuda_fused, "remap_fused_plain")):
+        monkeypatch.setattr(mod, name, refuse)
+    for interpolation, fused in ((8, False), (8, True), (11, False)):
+        cfg, dyn, mats, img = _case("UV", interpolation=interpolation)
+        out = remap.remap_plane_cuda(torch.from_numpy(img).to(dev),
+                                     torch.from_numpy(mats).to(dev), cfg, dyn,
+                                     out_dtype="uint16", fused=fused)
+        assert out.device.type == "cuda"
+    cfg, dyn, mats, _ = _case("Y")
+    u, _, _ = cuda_coords.project_gen(cfg, dyn, torch.from_numpy(mats).to(dev), H, 0,
+                                      (W / 2.0, H / 2.0), (F[0], F[1]))
+    torch.cuda.synchronize()
+    assert u.device.type == "cuda"

@@ -10,8 +10,11 @@ seeded .gcsv of test_end_to_end.py).
   JAX manager's XLA path (use_pallas=False) and its Pallas path
   (use_pallas=True, kernels in interpret mode). 1 code: the uint16 cast
   rounds float results that differ by float rounding.
-- With jax blocked by an import hook, the port imports and renders: the
-  card's machine has no jax.
+- The device is explicit: cuda:0 by default, an error when that card (or
+  the one set_device names) is missing, the CPU only when asked for.
+- With jax and gyroflow_tpu blocked by an import hook, every module of the
+  port imports and the manager renders: the card's machine has no jax, and
+  the port carries its own copies of the host modules.
 """
 import os
 import subprocess
@@ -23,10 +26,10 @@ import numpy as np
 import pytest
 import torch
 
-from gyroflow_tpu.core.lens_profile import LensProfile as JLensProfile
+from gyroflow_tpu.core import lens_profile as jlp
 from gyroflow_tpu.core.manager import StabilizationManager as JManager
 from gyroflow_tpu.parallel.pipeline import WINDOW_LADDER
-from gyroflow_torch.core.lens_profile import CameraParams, Dimensions, LensProfile
+from gyroflow_torch.core import lens_profile as tlp
 from gyroflow_torch.core.manager import StabilizationManager
 
 from test_end_to_end import DUR_S, H, W, gcsv_path  # noqa: F401 (fixture)
@@ -35,12 +38,13 @@ REPO = Path(__file__).resolve().parents[1]
 TS_US = (500_000, 833_333)
 
 
-def _build(cls, lens_cls, gcsv):
-    m = cls()
+def _build(m, lens_mod, gcsv):
+    """Each manager gets its own package's lens classes: the enums and
+    dataclasses of the two packages are distinct classes."""
     m.init_from_video_data(DUR_S * 1000.0, 30.0, int(DUR_S * 30), (W, H))
-    m.lens = lens_cls(
-        calib_dimension=Dimensions(W, H),
-        fisheye_params=CameraParams(
+    m.lens = lens_mod.LensProfile(
+        calib_dimension=lens_mod.Dimensions(W, H),
+        fisheye_params=lens_mod.CameraParams(
             camera_matrix=[[W * 0.6, 0, W / 2], [0, W * 0.6, H / 2], [0, 0, 1]],
             distortion_coeffs=[0.25, -0.05, 0.01, -0.001]),
         distortion_model="opencv_fisheye")
@@ -53,8 +57,8 @@ def _build(cls, lens_cls, gcsv):
 
 @pytest.fixture(scope="module")
 def managers(gcsv_path):  # noqa: F811
-    return (_build(StabilizationManager, LensProfile, gcsv_path),
-            _build(JManager, JLensProfile, gcsv_path))
+    return (_build(StabilizationManager(device="cpu"), tlp, gcsv_path),
+            _build(JManager(), jlp, gcsv_path))
 
 
 def _planes():
@@ -69,11 +73,22 @@ def _planes():
     return out
 
 
-def test_manager_defaults_to_cpu_here():
-    m = StabilizationManager()
-    assert m.device.type == ("cuda" if torch.cuda.is_available() else "cpu")
-    m.set_device(99)
+def test_manager_device_is_explicit(managers):
+    """No quiet CPU: without a card the default cuda:0 and set_device(99)
+    raise; device="cpu" works and get_cloned keeps it."""
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match='device="cpu"'):
+            StabilizationManager()
+    else:
+        assert StabilizationManager().device == torch.device("cuda", 0)
+    m = StabilizationManager(device="cpu")
     assert m.device == torch.device("cpu")
+    with pytest.raises(RuntimeError, match="cuda:99"):
+        m.set_device(99)
+    assert m.device == torch.device("cpu")
+    tm, _ = managers
+    clone = tm.get_cloned()
+    assert clone.device == tm.device == torch.device("cpu")
     assert StabilizationManager.list_gpu_devices()
 
 
@@ -146,18 +161,25 @@ def test_window_entry_is_not_ported(managers):
 
 
 _NO_JAX_SCRIPT = textwrap.dedent('''
-    import importlib.abc, sys
+    import importlib, importlib.abc, pkgutil, sys
 
-    class BlockJax(importlib.abc.MetaPathFinder):
+    BLOCKED = ("jax", "jaxlib", "gyroflow_tpu")
+
+    class Block(importlib.abc.MetaPathFinder):
         def find_spec(self, name, path=None, target=None):
-            if name == "jax" or name.startswith(("jax.", "jaxlib")):
+            if name.split(".")[0] in BLOCKED:
                 raise ImportError(f"{name} is blocked")
             return None
 
-    sys.meta_path.insert(0, BlockJax())
+    sys.meta_path.insert(0, Block())
 
     import math, pathlib
     import numpy as np
+    import gyroflow_torch
+    mods = [m.name for m in pkgutil.walk_packages(gyroflow_torch.__path__, "gyroflow_torch.")]
+    for name in mods:
+        importlib.import_module(name)
+    assert len(mods) > 80, mods
     from gyroflow_torch.core.lens_profile import CameraParams, Dimensions, LensProfile
     from gyroflow_torch.core.manager import StabilizationManager
 
@@ -182,8 +204,8 @@ _NO_JAX_SCRIPT = textwrap.dedent('''
     uv, _ = m.process_pixels(500_000, rng.integers(0, 1024, (H // 2, W // 2, 2)).astype(np.uint16),
                              plane_index=1, max_pixel_value=1023.0, plane_rects=True)
     assert tuple(y.shape) == (H, W, 1) and tuple(uv.shape) == (H // 2, W // 2, 2)
-    assert not any(k == "jax" or k.startswith(("jax.", "jaxlib")) for k in sys.modules)
-    print("NO_JAX_OK")
+    assert not any(k.split(".")[0] in BLOCKED for k in sys.modules)
+    print("NO_JAX_OK", len(mods))
 ''')
 
 
