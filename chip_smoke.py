@@ -39,7 +39,19 @@ exits non-zero without the final line):
    kernel (CUDA events), then the eager stage's and project_gen's device
    busy time (torch.profiler);
 6. where a lanczos4 and an EWA frame's device time goes (torch.profiler, by
-   kernel).
+   kernel);
+7. the experiments' kernels (gyroflow_torch/experiments: the fused kernel
+   with per-tile bboxes, window column sums, the sampler probes' kernel in
+   each mode and precision, the Triton elementwise pass), each against its
+   plain version at the probes' shapes (4K Y and UV float32 planes, 512
+   windows of a 3840x2176 plane, 5400x1536 floats), then the path:
+   experiments.run_all with every launch counter set to 0 before and read
+   after, no plain version allowed to run, each probe's readings checked
+   (fused_bbox's bbox and output against the split path, the float32
+   samplers against remap.sample_input, sampler.cu against probe 4's full
+   mode, the coords kernel against rotate_and_distort); times are the
+   probes' own (CUDA events around each call, L2 flushed before it), with
+   each kernel's bound.
 
 Each kernel's bound (the least time the card could take for the same work)
 is the larger of its bytes (each input read once, each output written once)
@@ -50,8 +62,8 @@ pixel's bbox) over 67 TFLOP/s, the H100 SXM's published peaks.
 Second-to-last lines: the card's name and power limit, then one JSON object
 with the kernels; last line: {"ok": true, "device": {...}}. Needs one card and
 nvcc; a copy of the kernel library is built under gyroflow_torch/build/.
-About 50 s on an H100, the kernels' build (one nvcc per source, run
-together, ~10 s) included.
+About 75 s on an H100, the kernels' build (one nvcc per source, run
+together, ~15 s) and Triton's compile included.
 """
 from __future__ import annotations
 
@@ -139,13 +151,21 @@ def smooth_plane(rng, h, w, c):
     return np.rint(img).astype(np.uint16)
 
 
-# mangled names of the kernels the driven paths launch (uint16, C=1/2)
+# mangled names of the kernels the driven paths launch (uint16 planes, C=1/2;
+# the experiments' float32 planes)
 MAIN_PATH_KERNELS = {"coords": "coords_kernel", "sampler<u16,C1,8>": "sampler_kernelItLi1ELi8E",
                      "sampler<u16,C2,8>": "sampler_kernelItLi2ELi8E",
                      "ewa<u16,C1>": "ewa_kernelItLi1EE", "ewa<u16,C2>": "ewa_kernelItLi2EE",
                      "fused<u16,C1,8>": "fused_kernelItLi1ELi8E",
                      "fused<u16,C2,8>": "fused_kernelItLi2ELi8E",
-                     "coords_gen": "coords_gen_kernel"}
+                     "coords_gen": "coords_gen_kernel",
+                     "fused_bbox<C1,8>": "fused_bbox_kernelILi1ELi8E",
+                     "fused_bbox<C2,8>": "fused_bbox_kernelILi2ELi8E",
+                     "window_colsum": "window_colsum_kernel",
+                     "probe_sampler<C1,full,fp32>": "probe_sampler_kernelILi1ELi3ELi0EE",
+                     "probe_sampler<C1,full,bf16>": "probe_sampler_kernelILi1ELi3ELi1EE",
+                     "probe_sampler<C1,full,bf16x3>": "probe_sampler_kernelILi1ELi3ELi2EE",
+                     "probe_sampler<C2,full,fp32>": "probe_sampler_kernelILi2ELi3ELi0EE"}
 
 
 def ptxas_summary(log):
@@ -194,6 +214,277 @@ def cuda_ms(fn, reps=10, warm=2):
         b.synchronize()
         times.append(a.elapsed_time(b))
     return statistics.median(times)
+
+
+def window_taps(u, v, lo_x, hi_x, lo_y, hi_y, x0=None, y0=None, xoff=None, window=None):
+    """(taps, rows) summed over all pixels: the taps of each pixel's 8-tap
+    lanczos4 stencil at rint((u - 3) * 32) inside [lo, hi) on both
+    axes and, if a window (Sr, Sc, K) is given, inside its rows y0 .. y0 + Sr
+    and columns x0 + xoff .. x0 + xoff + K (per-tile origins)."""
+    import torch
+    fx = torch.round((u - 3.0) * 32).to(torch.int32) >> 5
+    fy = torch.round((v - 3.0) * 32).to(torch.int32) >> 5
+    t = torch.arange(8, dtype=torch.int32, device=u.device)
+    xs, ys = fx[..., None] + t, fy[..., None] + t
+    col = (xs >= lo_x) & (xs < hi_x)
+    row = (ys >= lo_y) & (ys < hi_y)
+    if window is not None:
+        Sr, _, K = window
+        cx = xs - (x0 + xoff)[:, None, None]
+        ry = ys - y0[:, None, None]
+        col &= (cx >= 0) & (cx < K)
+        row &= (ry >= 0) & (ry < Sr)
+    ncol, nrow = col.sum(-1).double(), row.sum(-1).double()
+    return int((ncol * nrow).sum()), int(nrow.sum())
+
+
+def window_union_bytes(shape, y0, x0, Sr, Sc):
+    """Bytes of the plane (H, W, C) float32 under the union of the Sr x Sc
+    windows at (y0, x0): what a call must read, once, however much its
+    windows overlap."""
+    import torch
+    H, W = shape[:2]
+    cover = torch.zeros(H + Sr + 1, W + Sc + 1, dtype=torch.int32, device=y0.device)
+    ys, xs = y0.long().clamp(0, H), x0.long().clamp(0, W)
+    # one 2-D difference array: +1 at each window's corner, -1 past its edges
+    for dy, dx, sign in ((0, 0, 1), (Sr, 0, -1), (0, Sc, -1), (Sr, Sc, 1)):
+        cover.index_put_((ys + dy, xs + dx), torch.full_like(ys, sign, dtype=torch.int32),
+                         accumulate=True)
+    covered = cover.cumsum(0).cumsum(1)[:H, :W] > 0
+    return int(covered.sum()) * 4 * (shape[2] if len(shape) > 2 else 1)
+
+
+def experiments_phase(dev, smi):
+    """Phase 7: the experiments' four kernels (TPU kernels 6-11) against their
+    plain versions at the probes' shapes, then experiments.run_all on the
+    card with every launch counter set to 0 before and read after. Returns
+    (entries for the kernels line, report)."""
+    import torch
+    from gyroflow_torch import experiments
+    from gyroflow_torch.experiments import fused_bbox as fb
+    from gyroflow_torch.experiments import perf_probe3 as p3
+    from gyroflow_torch.experiments import perf_probe4 as p4
+    from gyroflow_torch.experiments import perf_probe5 as p5
+    from gyroflow_torch.experiments import perf_probe6 as p6
+    from gyroflow_torch.experiments import perf_probe8 as p8
+    from gyroflow_torch.experiments import probe_sampler as psm
+    from gyroflow_torch.ops import cuda_coords, cuda_sampler, remap
+
+    err = {k: 0.0 for k in ("fused_bbox", "window", "probe4", "probe5", "probe6", "triton")}
+    plain_ms = {k: 0.0 for k in err}
+    parts = {k: [] for k in err}
+    # a background for the checks (the probes' own is 0, which would hide a
+    # wrong background weight)
+    check_bg = (100.0, 50.0)
+
+    phase("experiments: fused_bbox, window, probe sampler and Triton kernels vs plain torch on "
+          "the card")
+    for name, (img, x, y, idx, mats, cfg, dyn, _) in fb.inputs(dev).items():
+        bg = check_bg[:img.shape[2]]
+        k_out, k_val, k_box = fb.fused_bbox(img, x, y, idx, mats, cfg, dyn, bg)
+        p_out, p_val, p_box = fb.fused_bbox_plain(img, x, y, idx, mats, cfg, dyn, bg)
+        torch.cuda.synchronize()
+        d, db = float((k_out - p_out).abs().max()), float((k_box - p_box).abs().max())
+        n_mis = int((k_val != p_val).sum())
+        print(f"fused_bbox {name:2s} (plane {tuple(img.shape)} f32, tiles {tuple(k_box.shape[:2])}"
+              f" of {fb.TILE}, bg {bg}): out max|d| {d:.3g} codes (limit {SAMPLER_TOL}), valid mismatches "
+              f"{n_mis} (limit 0), bbox max|d| {db:.3g} px (limit 1e-4)")
+        check(bool(torch.isfinite(k_out).all()) and d <= SAMPLER_TOL and n_mis == 0 and db <= 1e-4,
+              f"fused_bbox {name}: differs from its plain version")
+        err["fused_bbox"] = max(err["fused_bbox"], d, db)
+        plain_ms["fused_bbox"] += cuda_ms(
+            lambda: fb.fused_bbox_plain(img, x, y, idx, mats, cfg, dyn, bg), reps=3, warm=1)
+        u, v, val = cuda_coords.project(x, y, idx, mats, cfg, dyn)
+        u, v = remap.coords_post_uv(u, v, cfg)
+        u, v = remap._guard_uv(u), remap._guard_uv(v)
+        n_px, C, ntiles = x.numel(), img.shape[2], k_box.shape[0] * k_box.shape[1]
+        srx, sry, srw, srh = cfg.src_rect
+        taps, rows = window_taps(u, v, srx, srx + srw, sry, sry + srh)
+        # per pixel: projection, post-map + guard + offset, phases 2, bbox 4,
+        # weight masks and sums 32, bg weight 2 + 2C; per in-rect row 2C,
+        # per in-rect tap 2C
+        parts["fused_bbox"].append(
+            (img.numel() * 4 + mats.numel() * 4 + n_px * (16 + 4 * C) + ntiles * 16,
+             n_px * (PROJECT_OPS + POST_OPS + 2 + 4 + 32 + 2 + 2 * C) + rows * 2 * C
+             + taps * 2 * C))
+
+    img, cases = p3.inputs(dev)
+    for align, Sc, y0, x0 in cases:
+        k = p3.window_colsum(img, y0, x0, p3.SR, Sc)
+        p = p3.window_colsum_plain(img, y0, x0, p3.SR, Sc)
+        torch.cuda.synchronize()
+        d = float((k - p).abs().max())
+        rel = float(((k - p).abs() / p.abs().clamp_min(1.0)).max())
+        print(f"window  align {align:3d} Sc {Sc} ({y0.shape[0]} tiles of {p3.SR}x{Sc}): max|d| "
+              f"{d:.3g}, relative {rel:.3g} (limit 1e-5)")
+        check(rel <= 1e-5, f"window align {align} Sc {Sc}: differs from its plain version")
+        err["window"] = max(err["window"], d)
+        plain_ms["window"] += cuda_ms(lambda: p3.window_colsum_plain(img, y0, x0, p3.SR, Sc))
+        n = y0.shape[0]
+        union = window_union_bytes(img.shape, y0, x0, p3.SR, Sc)
+        print(f"window  align {align:3d} Sc {Sc}: the windows cover {union} B of the "
+              f"{img.numel() * 4} B plane ({n * p3.SR * Sc * 4} B counted window by window)")
+        parts["window"].append((union + n * Sc * 4 + n * 8, n * p3.SR * Sc))
+
+    def sampler_case(key, label, img, u, v, y0, x0, xoff, window, mode, precision="fp32"):
+        bg = check_bg[:img.shape[2]] if mode == "full" else None
+        k = psm.sample(img, u, v, y0, x0, xoff, window, mode, precision, bg)
+        p = psm.sample_plain(img, u, v, y0, x0, xoff, window, mode, precision, bg)
+        torch.cuda.synchronize()
+        d = float((k - p).abs().max())
+        limit = 1e-4 * float(p.abs().max()) if mode == "nobuild" else SAMPLER_TOL
+        print(f"probe sampler {label} {mode} {precision} ({u.shape[0]} tiles x {u.shape[1]} px, "
+              f"window {window}, bg {bg}): max|d| {d:.3g} (limit {limit:.3g})")
+        check(bool(torch.isfinite(k).all()) and d <= limit,
+              f"probe sampler {label} {mode} {precision}: differs from its plain version")
+        err[key] = max(err[key], d)
+        pms = cuda_ms(lambda: psm.sample_plain(img, u, v, y0, x0, xoff, window, mode, precision,
+                                               bg), reps=3, warm=1)
+        n_px, C, n = u.numel(), img.shape[2], u.shape[0]
+        io = n_px * 4 * (1 + C) + n * 12
+        if mode == "noop":
+            part = (io + n * 4 * C, n_px * C)
+        elif mode == "nomatmul":
+            part = (io + n_px * 4 + n * 4 * C, n_px * (38 + 3 * C))
+        elif mode == "nobuild":
+            Sr, Sc, _ = window
+            part = (io + window_union_bytes(img.shape, y0, x0, Sr, Sc),
+                    n * Sr * Sc * C * 4 + n_px * (1 + Sr * C * 5))
+        else:
+            H, W, _ = img.shape
+            taps, rows = window_taps(u, v, 0, W, 0, H, x0, y0, xoff, window)
+            per_tap = {"fp32": 2, "bf16": 4, "bf16x3": 12}[precision]
+            part = (io + n_px * 4 + img.numel() * 4,
+                    n_px * (38 + 2 * C) + rows * 2 * C + taps * per_tap * C)
+        return pms, part
+
+    img, u, v, valid, y0, x0, xoff, _, _ = p4.inputs(dev)
+    probe4_plain, probe4_parts = {}, {}
+    for mode in p4.MODES:
+        probe4_plain[mode], probe4_parts[mode] = sampler_case(
+            "probe4", "4 Y", img, u, v, y0, x0, xoff, p4.WINDOW, mode)
+    plain_ms["probe4"] = probe4_plain["full"]
+    parts["probe4"] = [probe4_parts["full"]]
+    for name, (img, u, v, valid, y0, x0, xoff, _, _, window) in p5.inputs(dev).items():
+        pms, part = sampler_case("probe5", f"5 {name}", img, u, v, y0, x0, xoff, window, "full")
+        plain_ms["probe5"] += pms
+        parts["probe5"].append(part)
+    img, _, _, _, (u, v, valid, y0, x0, xoff, _) = p6.inputs(dev)
+    probe6_plain, probe6_parts = {}, {}
+    for prec in p6.PRECISIONS:
+        probe6_plain[prec], probe6_parts[prec] = sampler_case(
+            "probe6", "6 Y", img, u, v, y0, x0, xoff, p6.WINDOW, "full", prec)
+    plain_ms["probe6"] = probe6_plain["bf16"]
+    parts["probe6"] = [probe6_parts["bf16"]]
+
+    xs = p8.inputs(dev)
+    for key, which, variant in p8.CALLS:
+        k = p8.elementwise(xs[which], variant)
+        p = p8.elementwise_plain(xs[which], variant)
+        torch.cuda.synchronize()
+        d = float((k - p).abs().max())
+        print(f"triton  {key} ({variant} on {tuple(xs[which].shape)}): bit-identical "
+              f"{torch.equal(k, p)}, max|d| {d:.3g} (limit: bit-identical)")
+        check(torch.equal(k, p), f"triton {key}: differs from its plain version")
+        plain_ms["triton"] += cuda_ms(lambda: p8.elementwise_plain(xs[which], variant))
+        n = xs[which].numel()
+        ops = {"chain": 100, "chain_plus1": 101, "sum10": 20}[variant]
+        parts["triton"].append((n * 8, n * ops))
+
+    # ---- the path: run_all with every counter at 0 and no plain version ------
+    phase("experiments path: experiments.run_all on the card (the six probes at their own shapes)")
+    counters = {"fused_bbox": fb.fused_bbox, "window": p3.window_colsum,
+                "probe_sampler": psm.sample, "triton": p8.elementwise,
+                "coords": cuda_coords.project, "sampler": cuda_sampler.sample}
+    plain_versions = ((fb, "fused_bbox_plain"), (p3, "window_colsum_plain"),
+                      (psm, "sample_plain"), (p8, "elementwise_plain"),
+                      (cuda_coords, "project_plain"), (cuda_sampler, "sample_plain"))
+    for fn in counters.values():
+        fn.launches = 0
+    plain_calls = []
+
+    def refuse(*a, **kw):
+        plain_calls.append(a)
+        raise AssertionError("a plain version was called on the card's tensors")
+
+    saved = [(mod, nm, getattr(mod, nm)) for mod, nm in plain_versions]
+    for mod, nm, _ in saved:
+        setattr(mod, nm, refuse)
+    t0 = time.perf_counter()
+    try:
+        r = experiments.run_all(dev)
+    finally:
+        for mod, nm, fn in saved:
+            setattr(mod, nm, fn)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    counts = {k: fn.launches for k, fn in counters.items()}
+    print(f"run_all: {secs:.1f} s; launch counts {counts}; plain versions called "
+          f"{len(plain_calls)} (expected 0)")
+    print(json.dumps(r))
+    check(not plain_calls, "run_all: a plain version ran on the card's tensors")
+    check(all(counts[k] > 0 for k in ("fused_bbox", "window", "probe_sampler", "triton")),
+          "run_all: a kernel of the path was not launched")
+    by_probe = {p: r[p]["launches"].get("probe_sampler", 0)
+                for p in ("perf_probe4", "perf_probe5", "perf_probe6")}
+    check(sum(by_probe.values()) == counts["probe_sampler"],
+          f"run_all: probe sampler launches by probe {by_probe} != {counts['probe_sampler']}")
+
+    fbr, r3, r4, r5, r6, r8 = (r[p] for p in experiments.perf_probe.PROBES)
+    for name in ("Y", "UV"):
+        check(fbr[name]["bbox_err_px"] <= 1e-4 and fbr[name]["valid_mismatches"] == 0
+              and fbr[name]["max_err"] <= SAMPLER_TOL,
+              f"fused_bbox probe {name}: bbox, valid or output off the split path")
+        check(r5[name]["max_err"] <= SAMPLER_TOL, f"probe 5 {name}: off sample_input")
+    check(r4["full max_err"] <= SAMPLER_TOL, "probe 4: full off sample_input")
+    check(r4["base vs full max_err"] <= SAMPLER_TOL, "probe 4: sampler.cu off the full mode")
+    check(r6["sampler fp32"]["err"] <= SAMPLER_TOL, "probe 6: fp32 off sample_input")
+    check(max(r6["coords kernel err px"]) <= COORDS_TOL_PX,
+          "probe 6: coords off rotate_and_distort")
+    ms = {"fused_bbox": fbr["Y"]["ms"] + fbr["UV"]["ms"],
+          "window": sum(r3[f"window align{a} Sc{s}"]["ms"] for a, s in p3.CASES),
+          "probe4": r4["full"], "probe5": r5["Y"]["rolled"] + r5["UV"]["rolled"],
+          "probe6": r6["sampler bf16"]["ms"],
+          "triton": sum(r8[key] for key, _, _ in p8.CALLS)}
+    launches = {"fused_bbox": counts["fused_bbox"], "window": counts["window"],
+                "probe4": by_probe["perf_probe4"], "probe5": by_probe["perf_probe5"],
+                "probe6": by_probe["perf_probe6"], "triton": counts["triton"]}
+    check(all(isinstance(t, float) and t > 0 for t in ms.values()), f"run_all: times {ms}")
+
+    phase(f"experiments times and bounds on {smi}")
+    print(f"probe 4 (Y 4K, tile 16x128, window 48x256), CUDA events, L2 flushed: base "
+          f"(sampler.cu on the frame layout, same function, max|d| vs full "
+          f"{r4['base vs full max_err']:.3g} codes) {r4['base']:.4f} ms; " + "; ".join(
+              f"{m} {r4[m]:.4f} ms (plain {probe4_plain[m]:.4f}, bound "
+              f"{bound([probe4_parts[m]])[0]:.4f} {bound([probe4_parts[m]])[1]})"
+              for m in p4.MODES))
+    print("probe 6 (Y 4K, tile 16x96, window 48x256, K 128): " + "; ".join(
+        f"{p} {r6[f'sampler {p}']['ms']:.4f} ms, err vs sample_input "
+        f"{r6[f'sampler {p}']['err']:.4g} codes (plain {probe6_plain[p]:.4f} ms, bound "
+        f"{bound([probe6_parts[p]])[0]:.4f})" for p in p6.PRECISIONS))
+    sources = {"fused_bbox": ("csrc/fused_bbox.cu", "experiments/pallas_fused.py:36", "cuda"),
+               "window": ("csrc/probe_window.cu", "experiments/perf_probe3.py:30", "cuda"),
+               "probe4": ("csrc/probe_sampler.cu", "experiments/perf_probe4.py:210", "cuda"),
+               "probe5": ("csrc/probe_sampler.cu", "experiments/perf_probe5.py:118", "cuda"),
+               "probe6": ("csrc/probe_sampler.cu", "experiments/perf_probe6.py:143", "cuda"),
+               "triton": ("experiments/perf_probe8.py", "experiments/perf_probe8.py:24",
+                          "triton")}
+    entries = []
+    for key, (src, replaces, route) in sources.items():
+        b_ms, by = bound(parts[key])
+        print(f"bound {key:10s}: {b_ms:.4f} ms ({by}); kernel {ms[key]:.4f} ms = "
+              f"{100.0 * b_ms / ms[key]:.1f}% of the bound's speed; plain {plain_ms[key]:.4f} "
+              f"ms; launches {launches[key]}")
+        entries.append({"name": key, "route": route, "source": f"gyroflow_torch/{src}",
+                        "replaces": replaces, "launches": launches[key],
+                        "max_abs_err": err[key], "ms": ms[key], "plain_ms": plain_ms[key],
+                        "bound_ms": b_ms, "bound_by": by, "library_ms": None})
+    print("library_ms: null for the six: no single PyTorch call computes them (per-tile "
+          "window sums at given origins, 32-phase LUT lanczos4 with separable background, "
+          "per-tile bboxes, or the 100-operation chain with the same rounding)")
+    return entries, {"readings": r, "run_all_s": secs, "launches": counts, "errs": err,
+                     "plain_ms": plain_ms,
+                     "bounds": {k: bound(v) for k, v in parts.items()}}
 
 
 def main() -> int:
@@ -736,6 +1027,11 @@ def main() -> int:
         entry("coords_gen", "gyroflow_torch/csrc/coords.cu",
               "gyroflow_tpu/ops/pallas_coords.py:257", launches_gen["coords_gen"]),
     ]
+
+    # ---- 7. the experiments' kernels (TPU kernels 6-11) ----------------------
+    exp_entries, report["experiments"] = experiments_phase(dev, smi)
+    check("jax" not in sys.modules, "jax was imported")
+    kernels += exp_entries
     OUT_DIR.mkdir(exist_ok=True)
     (OUT_DIR / "chip_smoke.json").write_text(json.dumps({**report, "bounds": bound_of,
                                                          "kernels": kernels}, indent=1))
@@ -743,7 +1039,10 @@ def main() -> int:
     print(f"chip_smoke.py wall time {time.perf_counter() - t_start:.1f} s")
     print("kernel ms, plain_ms and bound_ms: one frame's Y+UV launches (Y 3840x2160x1 + UV "
           "1920x1080x2); coords, sampler, fused and coords_gen at lanczos4, ewa at "
-          "interpolation 11")
+          "interpolation 11; the experiments' kernels at their probes' shapes (fused_bbox Y+UV "
+          "float32 planes, window the four cases summed, probe4 the full mode, probe5 Y+UV, "
+          "probe6 the bf16 mode, triton the four calls summed; each call timed with L2 "
+          "flushed before it)")
     print(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

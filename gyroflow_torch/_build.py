@@ -49,7 +49,7 @@ class SamplerArgs(ctypes.Structure):
 
 
 class FusedArgs(ctypes.Structure):
-    """Mirror of ``FusedArgs`` (csrc/fused.cu)."""
+    """Mirror of ``FusedArgs`` (csrc/post_uv.cuh)."""
     _fields_ = [("s", SamplerArgs), ("rotate", ctypes.c_int), ("rot_cos", ctypes.c_float),
                 ("rot_sin", ctypes.c_float), ("rot_o", ctypes.c_float * 2),
                 ("rot_o2", ctypes.c_float * 2), ("bg_mode", ctypes.c_int),
@@ -69,6 +69,13 @@ class EwaArgs(ctypes.Structure):
     _fields_ = [("p", ctypes.c_float * 4), ("q", ctypes.c_float * 4),
                 ("bg", ctypes.c_float * 4), ("limit", ctypes.c_float),
                 ("src_rect", ctypes.c_int * 4)]
+
+
+class ProbeArgs(ctypes.Structure):
+    """Mirror of ``ProbeArgs`` (csrc/probe_sampler.cu)."""
+    _fields_ = [("H", ctypes.c_int), ("W", ctypes.c_int), ("Sr", ctypes.c_int),
+                ("Sc", ctypes.c_int), ("K", ctypes.c_int), ("P", ctypes.c_int),
+                ("bg", ctypes.c_float * 4)]
 
 
 def _sources():
@@ -167,5 +174,16 @@ def lib() -> ctypes.CDLL:
             L.gf_fused_set_lut.restype = ci
             L.gf_coords_gen.argtypes = [vp, ci, CoordParams, ci, GenArgs, ci, ci, vp, vp, vp, vp]
             L.gf_coords_gen.restype = ci
+            L.gf_fused_bbox.argtypes = [vp, ci, ci, ci, vp, vp, vp, vp, ci, CoordParams, ci, ci,
+                                        ci, ci, ci, ci, FusedArgs, vp, vp, vp, vp]
+            L.gf_fused_bbox.restype = ci
+            L.gf_window_colsum.argtypes = [vp, ci, ci, vp, vp, ci, ci, ci, vp, vp]
+            L.gf_window_colsum.restype = ci
+            L.gf_probe_sampler.argtypes = [vp, ci, vp, vp, vp, vp, vp, ci, ProbeArgs, ci, ci,
+                                           vp, vp]
+            L.gf_probe_sampler.restype = ci
+            for name in ("gf_fused_bbox_set_lut", "gf_probe_sampler_set_lut"):
+                getattr(L, name).argtypes = [vp, ci]
+                getattr(L, name).restype = ci
             _lib = L
     return _lib

@@ -301,3 +301,129 @@ def test_cuda_tensors_never_reach_a_plain_version(dev, monkeypatch):
                                       (W / 2.0, H / 2.0), (F[0], F[1]))
     torch.cuda.synchronize()
     assert u.device.type == "cuda"
+
+
+# ---- the experiments' kernels (gyroflow_torch/experiments) -------------------
+
+FUSED_BBOX_CASES = [("Y", 8, 0, 0, (16, 128)), ("UV", 4, 1, HAS_IBIS_DATA, (8, 32)),
+                    ("Y", 2, 2, HORIZONTAL_RS, (16, 96))]
+
+
+@pytest.mark.parametrize("plane,interpolation,bg_mode,flags,tile", FUSED_BBOX_CASES)
+def test_fused_bbox_kernel_vs_plain(dev, plane, interpolation, bg_mode, flags, tile):
+    from gyroflow_torch.experiments import fused_bbox as fb
+
+    cfg, dyn, mats, img = _case(plane, flags=flags, background_mode=bg_mode,
+                                interpolation=interpolation)
+    x, y, idx, m = _coords_inputs(cfg, dyn, mats, dev)
+    timg = torch.from_numpy(img.astype(np.float32)).to(dev)
+    bg = tuple(float(b) * 1023.0 for b in np.asarray(dyn.background)[:img.shape[2]])
+    n0 = fb.fused_bbox.launches
+    k = fb.fused_bbox(timg, x, y, idx, m, cfg, dyn, bg, *tile)
+    p = fb.fused_bbox_plain(timg, x, y, idx, m, cfg, dyn, bg, *tile)
+    torch.cuda.synchronize()
+    assert fb.fused_bbox.launches == n0 + 1
+    assert k[0].shape == p[0].shape == idx.shape + (img.shape[2],)
+    assert k[2].shape == (-(-idx.shape[0] // tile[0]), -(-idx.shape[1] // tile[1]), 4)
+    assert float((k[0] - p[0]).abs().max()) <= 1e-3
+    assert torch.equal(k[1], p[1])
+    assert float((k[2] - p[2]).abs().max()) <= 1e-4
+
+
+def test_window_colsum_kernel_vs_plain(dev):
+    from gyroflow_torch.experiments import perf_probe3 as p3
+
+    img, cases = p3.inputs(dev, small=True)
+    for align, Sc, y0, x0 in cases:
+        n0 = p3.window_colsum.launches
+        k = p3.window_colsum(img, y0, x0, p3.SR, Sc)
+        p = p3.window_colsum_plain(img, y0, x0, p3.SR, Sc)
+        torch.cuda.synchronize()
+        assert p3.window_colsum.launches == n0 + 1
+        assert k.shape == (y0.shape[0], Sc)
+        assert float(((k - p).abs() / p.abs().clamp_min(1.0)).max()) <= 1e-5
+
+
+def _probe_sampler_cases(dev):
+    from gyroflow_torch.experiments import perf_probe4 as p4, perf_probe5 as p5
+
+    img, u, v, valid, y0, x0, xoff, _, _ = p4.inputs(dev, small=True)
+    yield img, u, v, y0, x0, xoff, p4.WINDOW
+    for img, u, v, valid, y0, x0, xoff, _, _, window in p5.inputs(dev, small=True).values():
+        yield img, u, v, y0, x0, xoff, window
+
+
+@pytest.mark.parametrize("mode,precision", [("noop", "fp32"), ("nobuild", "fp32"),
+                                            ("nomatmul", "fp32"), ("full", "fp32"),
+                                            ("full", "bf16"), ("full", "bf16x3")])
+def test_probe_sampler_kernel_vs_plain(dev, mode, precision):
+    from gyroflow_torch.experiments import probe_sampler as ps
+
+    for img, u, v, y0, x0, xoff, window in _probe_sampler_cases(dev):
+        bg = tuple(float(b) for b in (17.0, 3.5)[:img.shape[2]])
+        n0 = ps.sample.launches
+        k = ps.sample(img, u, v, y0, x0, xoff, window, mode, precision, bg)
+        p = ps.sample_plain(img, u, v, y0, x0, xoff, window, mode, precision, bg)
+        torch.cuda.synchronize()
+        assert ps.sample.launches == n0 + 1
+        assert k.shape == u.shape + (img.shape[2],) and bool(torch.isfinite(k).all())
+        d = float((k - p).abs().max())
+        if mode == "nobuild":
+            assert d <= 1e-4 * float(p.abs().max())
+        else:
+            assert d <= 1e-3
+
+
+@pytest.mark.parametrize("variant", ["chain", "chain_plus1", "sum10"])
+def test_elementwise_triton_vs_plain(dev, variant):
+    from gyroflow_torch.experiments import perf_probe8 as p8
+
+    for x in p8.inputs(dev, small=True):
+        n0 = p8.elementwise.launches
+        k = p8.elementwise(x, variant)
+        p = p8.elementwise_plain(x, variant)
+        torch.cuda.synchronize()
+        assert p8.elementwise.launches == n0 + 1
+        assert k.shape == p.shape
+        assert torch.equal(k, p)
+
+
+def test_experiment_kernels_raise_instead_of_falling_back(dev):
+    from gyroflow_torch.experiments import fused_bbox as fb, perf_probe3 as p3
+    from gyroflow_torch.experiments import perf_probe8 as p8, probe_sampler as ps
+
+    cfg, dyn, mats, img = _case("Y")
+    x, y, idx, m = _coords_inputs(cfg, dyn, mats, dev)
+    with pytest.raises(TypeError):
+        fb.fused_bbox(torch.zeros(8, 8, 1, dtype=torch.int32, device=dev), x, y, idx, m, cfg,
+                      dyn, (0.0,))
+    i32 = torch.zeros(4, dtype=torch.int32, device=dev)
+    with pytest.raises(ValueError):
+        p3.window_colsum(torch.zeros(8, 8, dtype=torch.float64, device=dev), i32, i32)
+    with pytest.raises(ValueError):
+        ps.sample(torch.zeros(8, 8, 3, device=dev), x[:4], y[:4], i32, i32, i32, (8, 8, 8))
+    with pytest.raises(ValueError):
+        p8.elementwise(torch.zeros(4, 8, dtype=torch.float64, device=dev), "chain")
+
+
+def test_experiments_run_all_on_the_card(dev):
+    """Every probe runs on the card at its small size: each new kernel
+    launches, every time is read, and the fp32 samplers match
+    remap.sample_input."""
+    from gyroflow_torch import experiments
+
+    r = experiments.run_all(dev, small=True)
+    assert r["fused_bbox"]["launches"]["fused_bbox"] > 0
+    assert r["perf_probe3"]["launches"]["window_colsum"] == 4 * 13
+    assert r["perf_probe4"]["launches"]["probe_sampler"] > 0
+    assert r["perf_probe5"]["launches"]["probe_sampler"] > 0
+    assert r["perf_probe6"]["launches"]["probe_sampler"] > 0
+    assert r["perf_probe8"]["launches"]["elementwise"] == 4 * 12
+    assert all(isinstance(r["perf_probe4"][m], float) for m in ("base", "noop", "full"))
+    assert r["perf_probe4"]["full max_err"] <= 1e-3
+    assert r["perf_probe4"]["base vs full max_err"] <= 1e-3
+    assert r["perf_probe5"]["Y"]["max_err"] <= 1e-3 and r["perf_probe5"]["UV"]["max_err"] <= 1e-3
+    assert r["perf_probe6"]["sampler fp32"]["err"] <= 1e-3
+    for name in ("Y", "UV"):
+        assert r["fused_bbox"][name]["bbox_err_px"] <= 1e-4
+        assert r["fused_bbox"][name]["valid_mismatches"] == 0
