@@ -31,13 +31,16 @@ exits non-zero without the final line):
 4d. the self-contained coords path: the 3 frames' planes through
    cuda_coords.project_gen, held within 0.05 px (valid identical) of
    coords_pre + the coords kernel, one launch per plane;
-5. times: each kernel and its plain version (CUDA events, median of 10) and
-   ms per frame (Y+UV) through process_pixels, kernel path vs plain path;
+5. times: each kernel (experiments.perf_probe.cuda_ms: median of 10 CUDA
+   event pairs, each call behind an L2-flushing read and a device spin that
+   covers the host's wrapper work) and its plain version (CUDA events around
+   each call, median of 10), and ms per frame (Y+UV) through process_pixels,
+   kernel path vs plain path;
 5b. the same for EWA (the plain EWA runs 100 eager taps per pixel: 3 reps);
 5c. the fused kernel against the split coords + sampler kernels, and
    project_gen against the eager output grid + coords_pre + the coords
-   kernel (CUDA events), then the eager stage's and project_gen's device
-   busy time (torch.profiler);
+   kernel (the kernels' timer), then the eager stage's and project_gen's
+   device busy time (torch.profiler);
 6. where a lanczos4 and an EWA frame's device time goes (torch.profiler, by
    kernel);
 7. the experiments' kernels (gyroflow_torch/experiments: the fused kernel
@@ -151,6 +154,56 @@ def smooth_plane(rng, h, w, c):
     return np.rint(img).astype(np.uint16)
 
 
+def make_planes():
+    """{name: (plane_index, host uint16 plane)} of the 4K 10-bit YUV420 frame."""
+    import numpy as np
+    rng = np.random.default_rng(0)
+    return {"Y": (0, smooth_plane(rng, H, W, 1)),
+            "UV": (1, smooth_plane(rng, H // 2, W // 2, 2))}
+
+
+def make_manager(dev, workdir):
+    """The main path's StabilizationManager on dev: W x H at FPS, a fisheye
+    lens, 8 ms rolling shutter, the seeded gyro log written to workdir."""
+    from gyroflow_torch.core.lens_profile import CameraParams, Dimensions, LensProfile
+    from gyroflow_torch.core.manager import StabilizationManager
+    gcsv = Path(workdir) / "chip_smoke.gcsv"
+    write_gcsv(gcsv)
+    mgr = StabilizationManager(device=dev)
+    mgr.init_from_video_data(1000.0, FPS, int(FPS), (W, H))
+    mgr.lens = LensProfile(
+        calib_dimension=Dimensions(W, H),
+        fisheye_params=CameraParams(
+            camera_matrix=[[W * 0.6, 0, W / 2], [0, W * 0.6, H / 2], [0, 0, 1]],
+            distortion_coeffs=[0.25, -0.05, 0.01, -0.001]),
+        distortion_model="opencv_fisheye")
+    mgr.lens.init()
+    mgr.params.frame_readout_time = 8.0
+    mgr.load_gyro_data(str(gcsv))
+    t0 = time.perf_counter()
+    mgr.recompute_blocking()
+    print(f"manager: {W}x{H} @ {FPS} fps, recompute_blocking {time.perf_counter() - t0:.2f} s")
+    return mgr
+
+
+def plane_setup(mgr, planes, ts_us, name, interpolation=8):
+    """(cfg, dyn, matrices on the card) of one plane at ts_us, as
+    process_pixels builds them."""
+    pi, host = planes[name]
+    ts_ms = mgr._adjusted_ts_ms(ts_us)
+    ft = mgr.frame_transform_at(ts_ms)
+    cfg, dyn = mgr._plane_cfg_dyn(ft, host.shape, interpolation, pi, MAXV, True, None, None)
+    mats, _ = mgr._mats_on_device(ts_ms, ft)
+    return cfg, dyn, mats
+
+
+def plane_bg(dyn, img):
+    """The plane's background in codes, one value per channel."""
+    import numpy as np
+    return tuple(float(b) for b in
+                 (np.asarray(dyn.background, np.float32) * np.float32(MAXV))[:img.shape[2]])
+
+
 # mangled names of the kernels the driven paths launch (uint16 planes, C=1/2;
 # the experiments' float32 planes)
 MAIN_PATH_KERNELS = {"coords": "coords_kernel", "sampler<u16,C1,8>": "sampler_kernelItLi1ELi8E",
@@ -199,7 +252,9 @@ def ewa_bbox_taps(u, v, jac, valid):
 
 
 def cuda_ms(fn, reps=10, warm=2):
-    """Median device time of fn in ms (CUDA events around each call)."""
+    """Median time of fn in ms, CUDA events around each call: no L2 flush
+    and no device spin, so the host's work inside fn shows in the reading.
+    The plain versions' timer; the kernels take experiments.perf_probe.cuda_ms."""
     import torch
     for _ in range(warm):
         fn()
@@ -497,11 +552,8 @@ def main() -> int:
         print(f"chip_smoke: gyroflow_torch/csrc not found next to {__file__}", file=sys.stderr)
         return 2
     sys.path.insert(0, str(REPO))
-    import numpy as np
-
     from gyroflow_torch import _build
-    from gyroflow_torch.core.lens_profile import CameraParams, Dimensions, LensProfile
-    from gyroflow_torch.core.manager import StabilizationManager
+    from gyroflow_torch.experiments import perf_probe
     from gyroflow_torch.ops import cuda_coords, cuda_ewa, cuda_fused, cuda_sampler, remap
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -529,40 +581,21 @@ def main() -> int:
     print(f"nvcc {' '.join(_build.NVCC_FLAGS)}")
     print(f"built {path.name} in {secs:.1f} s "
           f"(nvcc {_build.build_seconds if _build.build_seconds is not None else 0:.1f} s)")
-    for name, info in ptxas_summary(_build.build_log).items():
+    report["ptxas"] = ptxas_summary(_build.build_log)
+    for name, info in report["ptxas"].items():
         print(f"  ptxas {name}: {info}")
     report["build_s"] = secs
 
     # ---- the manager (frame transform for phases 3-5) ----------------------
     tmp = tempfile.TemporaryDirectory()
-    gcsv = Path(tmp.name) / "chip_smoke.gcsv"
-    write_gcsv(gcsv)
-    mgr = StabilizationManager(device=dev)
-    mgr.init_from_video_data(1000.0, FPS, int(FPS), (W, H))
-    mgr.lens = LensProfile(
-        calib_dimension=Dimensions(W, H),
-        fisheye_params=CameraParams(
-            camera_matrix=[[W * 0.6, 0, W / 2], [0, W * 0.6, H / 2], [0, 0, 1]],
-            distortion_coeffs=[0.25, -0.05, 0.01, -0.001]),
-        distortion_model="opencv_fisheye")
-    mgr.lens.init()
-    mgr.params.frame_readout_time = 8.0
-    mgr.load_gyro_data(str(gcsv))
-    t0 = time.perf_counter()
-    mgr.recompute_blocking()
-    print(f"manager: {W}x{H} @ {FPS} fps, recompute_blocking {time.perf_counter() - t0:.2f} s")
+    mgr = make_manager(dev, tmp.name)
+    planes = make_planes()
 
-    rng = np.random.default_rng(0)
-    planes = {"Y": (0, smooth_plane(rng, H, W, 1)),
-              "UV": (1, smooth_plane(rng, H // 2, W // 2, 2))}
-
-    def plane_setup(ts_us, name, interpolation=8):
-        pi, host = planes[name]
-        ts_ms = mgr._adjusted_ts_ms(ts_us)
-        ft = mgr.frame_transform_at(ts_ms)
-        cfg, dyn = mgr._plane_cfg_dyn(ft, host.shape, interpolation, pi, MAXV, True, None, None)
-        mats, _ = mgr._mats_on_device(ts_ms, ft)
-        return cfg, dyn, mats
+    def kernel_ms(fn):
+        """A kernel's device time: L2 flushed and the card spinning ahead of
+        each call (experiments.perf_probe.cuda_ms), so the host's wrapper
+        work stays out of the reading."""
+        return perf_probe.cuda_ms(fn, dev)
 
     from gyroflow_torch.ops.kernel_params import dyn_to_torch
 
@@ -590,7 +623,7 @@ def main() -> int:
     def coords_inputs(name, interpolation):
         """x, y, idx of the plane as remap_plane_cuda builds them (3*oh rows
         for EWA)."""
-        cfg, dyn, mats = plane_setup(500_000, name, interpolation)
+        cfg, dyn, mats = plane_setup(mgr, planes, 500_000, name, interpolation)
         return (*pre_coords(cfg, dyn, mats, interpolation in remap.EWA_BC), mats, cfg, dyn)
 
     def compare_uv(label, k, p, rows):
@@ -612,10 +645,6 @@ def main() -> int:
         p = cuda_coords.project_plain(x, y, idx, mats, cfg, dyn)
         torch.cuda.synchronize()
         return (*p, compare_uv(label, k, p, mats.shape[0]))
-
-    def plane_bg(dyn, img):
-        return tuple(float(b) for b in
-                     (np.asarray(dyn.background, np.float32) * np.float32(MAXV))[:img.shape[2]])
 
     # ---- 3. kernels vs plain at the main-path shapes ------------------------
     phase("kernels vs plain torch on the card")
@@ -751,7 +780,7 @@ def main() -> int:
             check(out.dtype == torch.uint16 and out.device.type == "cuda",
                   f"{name}: {out.dtype} on {out.device}")
             check(info["backend"] == "cuda", f"{name}: backend {info['backend']}")
-            cfg, dyn, mats = plane_setup(ts, name, interpolation)
+            cfg, dyn, mats = plane_setup(mgr, planes, ts, name, interpolation)
             ref = remap.remap_plane(dev_planes[name], mats, cfg, dyn, out_dtype="uint16")
             d = int((out.to(torch.int32) - ref.to(torch.int32)).abs().max())
             n_diff = int((out.to(torch.int32) != ref.to(torch.int32)).sum())
@@ -775,7 +804,7 @@ def main() -> int:
     with driven("remap_plane_cuda(fused=True)", expect(fused=2 * FRAMES)) as launches_fused:
         for ts in ts_list:
             for name in ("Y", "UV"):
-                cfg, dyn, mats = plane_setup(ts, name, 8)
+                cfg, dyn, mats = plane_setup(mgr, planes, ts, name, 8)
                 outs.append((ts, name, cfg, dyn, mats,
                              remap.remap_plane_cuda(dev_planes[name], mats, cfg, dyn,
                                                     out_dtype="uint16", fused=True)))
@@ -794,7 +823,7 @@ def main() -> int:
     with driven("project_gen", expect(coords_gen=2 * FRAMES)) as launches_gen:
         for ts in ts_list:
             for name in ("Y", "UV"):
-                cfg, dyn, mats = plane_setup(ts, name, 8)
+                cfg, dyn, mats = plane_setup(mgr, planes, ts, name, 8)
                 cf = out_cf(cfg, dyn_to_torch(dyn, dev))
                 outs.append((ts, name, cfg, dyn, mats,
                              cuda_coords.project_gen(cfg, dyn, mats, cfg.out_buffer[1], 0, *cf)))
@@ -810,9 +839,9 @@ def main() -> int:
     times = {"coords": [0.0, 0.0], "sampler": [0.0, 0.0]}
     for name in ("Y", "UV"):
         x, y, idx, mats, cfg, dyn, u, v, valp, img, bg = shapes[name]
-        ck = cuda_ms(lambda: cuda_coords.project(x, y, idx, mats, cfg, dyn))
+        ck = kernel_ms(lambda: cuda_coords.project(x, y, idx, mats, cfg, dyn))
         cp = cuda_ms(lambda: cuda_coords.project_plain(x, y, idx, mats, cfg, dyn))
-        sk = cuda_ms(lambda: cuda_sampler.sample(img, u, v, valp, bg, cfg.src_rect, 8, MAXV))
+        sk = kernel_ms(lambda: cuda_sampler.sample(img, u, v, valp, bg, cfg.src_rect, 8, MAXV))
         sp = cuda_ms(lambda: cuda_sampler.sample_plain(img, u, v, valp, bg, cfg.src_rect, 8, MAXV))
         print(f"{name:2s} coords  kernel {ck:.4f} ms  plain {cp:.4f} ms")
         print(f"{name:2s} sampler kernel {sk:.4f} ms  plain {sp:.4f} ms")
@@ -829,7 +858,7 @@ def main() -> int:
 
     def frame_plain(ts, interpolation):
         for name in ("Y", "UV"):
-            cfg, dyn, mats = plane_setup(ts, name, interpolation)
+            cfg, dyn, mats = plane_setup(mgr, planes, ts, name, interpolation)
             remap.remap_plane(dev_planes[name], mats, cfg, dyn, out_dtype="uint16")
 
     def per_frame_ms(fn, n, interpolation):
@@ -857,9 +886,9 @@ def main() -> int:
     times.update(coords_stacked=[0.0, 0.0], ewa=[0.0, 0.0])
     for name in ("Y", "UV"):
         x, y, idx, mats, cfg, dyn, u, v, jac, valid, img, bg, coeffs = shapes[f"ewa {name}"]
-        ck = cuda_ms(lambda: cuda_coords.project(x, y, idx, mats, cfg, dyn))
+        ck = kernel_ms(lambda: cuda_coords.project(x, y, idx, mats, cfg, dyn))
         cp = cuda_ms(lambda: cuda_coords.project_plain(x, y, idx, mats, cfg, dyn))
-        ek = cuda_ms(lambda: cuda_ewa.sample(img, u, v, jac, valid, bg, cfg.src_rect, coeffs,
+        ek = kernel_ms(lambda: cuda_ewa.sample(img, u, v, jac, valid, bg, cfg.src_rect, coeffs,
                                              MAXV))
         ep = cuda_ms(lambda: cuda_ewa.sample_plain(img, u, v, jac, valid, bg, cfg.src_rect,
                                                    coeffs, MAXV), reps=3, warm=1)
@@ -914,14 +943,14 @@ def main() -> int:
             return cuda_coords.project(*grid_and_pre(gcfg, gdyn_t, gmats, cf), gmats, gcfg,
                                        gdyn)
 
-        fk = cuda_ms(lambda: cuda_fused.remap_fused(img, x, y, idx, mats, cfg, dyn, bg, MAXV))
+        fk = kernel_ms(lambda: cuda_fused.remap_fused(img, x, y, idx, mats, cfg, dyn, bg, MAXV))
         fp = cuda_ms(lambda: cuda_fused.remap_fused_plain(img, x, y, idx, mats, cfg, dyn, bg,
                                                           MAXV))
-        sc = cuda_ms(split_chain)
-        gk = cuda_ms(lambda: cuda_coords.project_gen(gcfg, gdyn, gmats, oh, 0, *cf))
+        sc = kernel_ms(split_chain)
+        gk = kernel_ms(lambda: cuda_coords.project_gen(gcfg, gdyn, gmats, oh, 0, *cf))
         gp = cuda_ms(lambda: cuda_coords.project_gen_plain(gcfg, gdyn, gmats, oh, 0, *cf))
-        pre = cuda_ms(lambda: grid_and_pre(gcfg, gdyn_t, gmats, cf))
-        pc = cuda_ms(pre_and_coords)
+        pre = kernel_ms(lambda: grid_and_pre(gcfg, gdyn_t, gmats, cf))
+        pc = kernel_ms(pre_and_coords)
         print(f"{name:2s} fused   kernel {fk:.4f} ms  plain {fp:.4f} ms; split chain (coords "
               f"kernel, eager coords_post_uv, sampler kernel) {sc:.4f} ms")
         print(f"{name:2s} gen     kernel {gk:.4f} ms  plain {gp:.4f} ms; eager grid + "
@@ -1041,8 +1070,9 @@ def main() -> int:
           "1920x1080x2); coords, sampler, fused and coords_gen at lanczos4, ewa at "
           "interpolation 11; the experiments' kernels at their probes' shapes (fused_bbox Y+UV "
           "float32 planes, window the four cases summed, probe4 the full mode, probe5 Y+UV, "
-          "probe6 the bf16 mode, triton the four calls summed; each call timed with L2 "
-          "flushed before it)")
+          "probe6 the bf16 mode, triton the four calls summed); every kernel ms from "
+          "experiments.perf_probe.cuda_ms (L2 flushed and the card spinning before each "
+          "call), every plain_ms from CUDA events around each call")
     print(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

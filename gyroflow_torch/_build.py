@@ -160,18 +160,14 @@ def lib() -> ctypes.CDLL:
             L.gf_coords.argtypes = [vp, vp, vp, vp, ci, CoordParams, ci, ci, ci,
                                     vp, vp, vp, vp]
             L.gf_coords.restype = ci
-            L.gf_sampler.argtypes = [vp, ci, ci, ci, ci, vp, vp, vp, ci, ci, ci,
+            L.gf_sampler.argtypes = [vp, ci, ci, ci, ci, vp, vp, vp, ci, ci, ci, vp,
                                      SamplerArgs, vp, vp]
             L.gf_sampler.restype = ci
-            L.gf_sampler_set_lut.argtypes = [vp, ci]
-            L.gf_sampler_set_lut.restype = ci
             L.gf_ewa.argtypes = [vp, ci, ci, ci, ci, vp, vp, vp, vp, ci, ci, EwaArgs, vp, vp]
             L.gf_ewa.restype = ci
             L.gf_fused.argtypes = [vp, ci, ci, ci, ci, vp, vp, vp, vp, ci, CoordParams, ci,
-                                   ci, ci, ci, FusedArgs, vp, vp]
+                                   ci, ci, ci, vp, FusedArgs, vp, vp]
             L.gf_fused.restype = ci
-            L.gf_fused_set_lut.argtypes = [vp, ci]
-            L.gf_fused_set_lut.restype = ci
             L.gf_coords_gen.argtypes = [vp, ci, CoordParams, ci, GenArgs, ci, ci, vp, vp, vp, vp]
             L.gf_coords_gen.restype = ci
             L.gf_fused_bbox.argtypes = [vp, ci, ci, ci, vp, vp, vp, vp, ci, CoordParams, ci, ci,

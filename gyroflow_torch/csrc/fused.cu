@@ -36,10 +36,12 @@
 // then the 64-tap lanczos4 loop, so one thread holds both the chain's
 // registers and the tap loop's.
 //
-// What the simple design does about it: one thread per output pixel on
-// 32x8 blocks (the split kernels' layout), the row read with __ldg, the
-// weights from this unit's own copy of the LUT in constant memory
-// (gf_fused_set_lut), nothing staged in shared memory.
+// What the design does about it: one thread per output pixel on 32x8
+// blocks, the matrix row read with __ldg, and the
+// split sampler's tap loop (taps.cuh): the interpolation's LUT slice staged
+// in shared memory by each block and read as float4s at the pixel's phases,
+// and the stencils that lie wholly inside the plane and the source rect
+// read row by row with aligned 16-byte loads.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -55,8 +57,12 @@ template <typename T, int C, int TAPS>
 __global__ void fused_kernel(const T* __restrict__ img, int H, int W,
                              const float* __restrict__ xs, const float* __restrict__ ys,
                              const int32_t* __restrict__ idx, const float* __restrict__ mats,
-                             int rows, gf::CoordParams p, int flags, FusedArgs a, int oh,
-                             int ow, float* __restrict__ out) {
+                             int rows, gf::CoordParams p, int flags,
+                             const float* __restrict__ lut, FusedArgs a, int oh, int ow,
+                             float* __restrict__ out) {
+    __shared__ __align__(16) float s_lut[gf::kSliceSize<TAPS>];
+    gf::stage_lut<TAPS>(lut, s_lut);
+
     const int col = blockIdx.x * blockDim.x + threadIdx.x;
     const int row = blockIdx.y * blockDim.y + threadIdx.y;
     if (col >= ow || row >= oh) return;
@@ -83,7 +89,7 @@ __global__ void fused_kernel(const T* __restrict__ img, int H, int W,
     const float su = gf::guard_uv(u) - Interp<TAPS>::offset;
     const float sv = gf::guard_uv(v) - Interp<TAPS>::offset;
     float total[C];
-    gf::sample_taps<T, C, TAPS>(img, H, W, su, sv, a.s, total);
+    gf::sample_taps<T, C, TAPS>(img, H, W, su, sv, a.s, s_lut, total);
 #pragma unroll
     for (int c = 0; c < C; ++c) o[c] = fminf(total[c], a.s.limit);
 }
@@ -91,7 +97,7 @@ __global__ void fused_kernel(const T* __restrict__ img, int H, int W,
 struct Launch {
     const void* img; int H, W;
     const void *x, *y, *idx, *mats; int rows;
-    const gf::CoordParams* p; int flags;
+    const gf::CoordParams* p; int flags; const float* lut;
     const FusedArgs* a; int oh, ow; void* out; cudaStream_t s;
 };
 
@@ -102,7 +108,7 @@ void launch(const Launch& l) {
     fused_kernel<T, C, TAPS><<<grid, block, 0, l.s>>>(
         static_cast<const T*>(l.img), l.H, l.W, static_cast<const float*>(l.x),
         static_cast<const float*>(l.y), static_cast<const int32_t*>(l.idx),
-        static_cast<const float*>(l.mats), l.rows, *l.p, l.flags, *l.a, l.oh, l.ow,
+        static_cast<const float*>(l.mats), l.rows, *l.p, l.flags, l.lut, *l.a, l.oh, l.ow,
         static_cast<float*>(l.out));
 }
 
@@ -129,20 +135,18 @@ bool dispatch_channels(int C, int taps, const Launch& l) {
 
 }  // namespace
 
-// Copies the 448-float LUT (host pointer) into this unit's constant memory
-// on the current device. Returns the cudaError_t of the copy.
-extern "C" int gf_fused_set_lut(const float* lut, int n) { return gf::set_lut(lut, n); }
-
 // img: (H, W, C) channels-last, dtype 0 = uint8, 1 = uint16, 2 = float32;
 // x, y: float32 (oh, ow) and idx: int32 (oh, ow) from coords_pre; mats:
-// float32 (rows, 14); out: float32 (oh, ow, C). taps: 2, 4 or 8. All device
-// pointers, contiguous. Returns -1 for an unsupported dtype/C/taps, else
-// cudaGetLastError() after the launch.
+// float32 (rows, 14); out: float32 (oh, ow, C). taps: 2, 4 or 8; lut: the
+// interpolation's LUT slice, float32 COEFFS[ind : ind + 32 * taps], 16-byte
+// aligned. All device pointers, contiguous. Returns -1 for an unsupported
+// dtype/C/taps, else cudaGetLastError() after the launch.
 extern "C" int gf_fused(const void* img, int dtype, int H, int W, int C, const void* x,
                         const void* y, const void* idx, const void* mats, int rows,
                         gf::CoordParams params, int flags, int oh, int ow, int taps,
-                        FusedArgs args, void* out, void* stream) {
-    const Launch l{img, H, W, x, y, idx, mats, rows, &params, flags, &args, oh, ow, out,
+                        const void* lut, FusedArgs args, void* out, void* stream) {
+    const Launch l{img, H, W, x, y, idx, mats, rows, &params, flags,
+                   static_cast<const float*>(lut), &args, oh, ow, out,
                    static_cast<cudaStream_t>(stream)};
     bool ok = false;
     switch (dtype) {

@@ -1,18 +1,37 @@
 // Shared __device__ sampling code: the coordinate guard and the separable
-// LUT tap loop of the sampler kernel (sampler.cu), the fused projection +
-// sampling kernel (fused.cu) and, for the guard, the EWA kernel (ewa.cu).
+// LUT tap loop of the sampler kernel (sampler.cu) and the fused projection +
+// sampling kernel (fused.cu); the guard also serves the EWA kernel (ewa.cu).
 // One copy of the loop, so the fused and split kernels round alike.
 //
 // The tap loop is remap.sample_input's (gyroflow_torch/ops/remap.py, twin of
 // the JAX remap.py:309-352) after its guard: quantize the phase as
 // rint(u * 32) (round half to even), take the weights from the reference
-// LUT (interpolation.COEFFS, 448 floats), sum the taps row by row with
-// out-of-source-rect taps reading the background. Built with --fmad=false:
-// every multiply and add rounds on its own, as the plain torch ops do.
+// LUT (interpolation.COEFFS), sum the taps row by row with out-of-source-rect
+// taps reading the background. Built with --fmad=false: every multiply and
+// add rounds on its own, as the plain torch ops do, and the sums run in the
+// plain version's order (xsum from 0 over the columns, then total += xsum *
+// cy over the rows), so kernel and plain version give the same bits.
 //
-// __constant__ memory belongs to its translation unit (the kernels are
-// compiled without -rdc), so c_coeffs is declared static here and each .cu
-// that samples uploads its own copy (gf_sampler_set_lut, gf_fused_set_lut).
+// How it reads its inputs (sampler.cu's header says why):
+// - Weights: the block stages its interpolation's LUT slice, 32 phases x
+//   TAPS floats (1 KB for lanczos4), from device memory into shared memory
+//   (stage_lut); each thread reads its TAPS x- and TAPS y-weights as float4s
+//   (phase_weights). A warp's pixels have different x-phases, so the
+//   per-thread addresses hit different banks instead of being served one
+//   after another, as __constant__ memory serves them.
+// - Taps: a stencil that lies wholly inside the plane and the source rect
+//   (nearly every pixel of a frame) reads each of its rows with 16-byte
+//   aligned loads (load_row) and needs no clamp or background select; the
+//   other stencils (near the frame's or the source rect's edges) take the
+//   checked loop, one tap at a time. Row loads cover the type/channel/tap
+//   combinations whose row is 16 or 32 bytes (uint16 C=1 and C=2 lanczos4,
+//   float32 C=1 lanczos4, ...); the others always take the checked loop.
+//
+// c_coeffs, the whole LUT in __constant__ memory, serves the experiments'
+// kernels (fused_bbox.cu, probe_sampler.cu), which read it as the TPU
+// probes did. __constant__ memory belongs to its translation unit (the
+// kernels are compiled without -rdc), so it is declared static here and each
+// .cu that reads it uploads its own copy (set_lut).
 #pragma once
 
 #include <cuda_runtime.h>
@@ -45,23 +64,161 @@ __device__ __forceinline__ float guard_uv(float a) {
     return fminf(fmaxf(a, -32768.0f), 32768.0f);
 }
 
+// Floats in the LUT slice of a TAPS-tap interpolation: COEFFS[ind : ind +
+// 32 * TAPS], phase p's weights at [p * TAPS, (p + 1) * TAPS).
+template <int TAPS>
+constexpr int kSliceSize = kInterTabSize * TAPS;
+
+// Copies the slice (device memory, 16-byte aligned) into the block's shared
+// s_lut. Every thread of the block must call it, before any returns.
+template <int TAPS>
+__device__ __forceinline__ void stage_lut(const float* __restrict__ lut, float* s_lut) {
+    const int tid = threadIdx.y * blockDim.x + threadIdx.x;
+    const int nt = blockDim.x * blockDim.y;
+    for (int i = tid; i < kSliceSize<TAPS> / 4; i += nt)
+        reinterpret_cast<float4*>(s_lut)[i] = __ldg(reinterpret_cast<const float4*>(lut) + i);
+    __syncthreads();
+}
+
+// The TAPS weights of one phase from the staged slice.
+template <int TAPS>
+__device__ __forceinline__ void phase_weights(const float* s_lut, int phase, float* w) {
+    if constexpr (TAPS == 2) {
+        const float2 q = reinterpret_cast<const float2*>(s_lut)[phase];
+        w[0] = q.x;
+        w[1] = q.y;
+    } else {
+        const float4* q = reinterpret_cast<const float4*>(s_lut + phase * TAPS);
+#pragma unroll
+        for (int k = 0; k < TAPS / 4; ++k) {
+            const float4 f = q[k];
+            w[4 * k] = f.x;
+            w[4 * k + 1] = f.y;
+            w[4 * k + 2] = f.z;
+            w[4 * k + 3] = f.w;
+        }
+    }
+}
+
+// Row loads for a stencil row of TAPS pixels of C channels of T.
+template <typename T, int C, int TAPS>
+struct RowLoad {
+    static constexpr int kBytes = TAPS * C * static_cast<int>(sizeof(T));
+    static constexpr bool kVector = kBytes == 16 || kBytes == 32;
+    static constexpr int kWords = kBytes / 4;
+    static constexpr int kChunks = kBytes / 16 + 1;  // an unaligned row spans one more
+};
+
+// Word j of a row as T values, converted to float exactly. uint16 and uint8
+// go through the float 2^23 + x (its mantissa holds x) minus 2^23: a byte
+// permute and an add, where a conversion instruction runs at a quarter of
+// the add's rate.
+template <typename T>
+__device__ __forceinline__ void word_values(uint32_t w, float* out);
+
+template <>
+__device__ __forceinline__ void word_values<float>(uint32_t w, float* out) {
+    out[0] = __uint_as_float(w);
+}
+
+template <>
+__device__ __forceinline__ void word_values<uint16_t>(uint32_t w, float* out) {
+    out[0] = __uint_as_float(__byte_perm(w, 0x4B00u, 0x5410)) - 8388608.0f;
+    out[1] = __uint_as_float(__byte_perm(w, 0x4B00u, 0x5432)) - 8388608.0f;
+}
+
+template <>
+__device__ __forceinline__ void word_values<uint8_t>(uint32_t w, float* out) {
+    out[0] = __uint_as_float(__byte_perm(w, 0x4B000000u, 0x7540)) - 8388608.0f;
+    out[1] = __uint_as_float(__byte_perm(w, 0x4B000000u, 0x7541)) - 8388608.0f;
+    out[2] = __uint_as_float(__byte_perm(w, 0x4B000000u, 0x7542)) - 8388608.0f;
+    out[3] = __uint_as_float(__byte_perm(w, 0x4B000000u, 0x7543)) - 8388608.0f;
+}
+
+// The TAPS * C values of the row that starts at p, as floats: aligned
+// 16-byte loads, then shifted into place. Only chunks that hold a byte of
+// the row are read (the last one only when p is not 16-byte aligned), so no
+// load leaves the 16-byte aligned span of the row's own bytes.
+template <typename T, int C, int TAPS>
+__device__ __forceinline__ void load_row(const T* p, float* px) {
+    using R = RowLoad<T, C, TAPS>;
+    const uintptr_t addr = reinterpret_cast<uintptr_t>(p);
+    const uint4* q = reinterpret_cast<const uint4*>(addr & ~static_cast<uintptr_t>(15));
+    const int o = static_cast<int>(addr & 15);
+    uint32_t w[4 * R::kChunks];
+#pragma unroll
+    for (int k = 0; k < R::kChunks; ++k) {
+        const uint4 c = (k < R::kChunks - 1 || o != 0) ? __ldg(q + k) : make_uint4(0, 0, 0, 0);
+        w[4 * k] = c.x;
+        w[4 * k + 1] = c.y;
+        w[4 * k + 2] = c.z;
+        w[4 * k + 3] = c.w;
+    }
+    // shift by o bytes: whole words in two select steps, then a funnel shift
+    uint32_t t[R::kWords + 2];
+#pragma unroll
+    for (int m = 0; m < R::kWords + 2; ++m) t[m] = (o & 8) ? w[m + 2] : w[m];
+    uint32_t s[R::kWords + 1];
+#pragma unroll
+    for (int m = 0; m < R::kWords + 1; ++m) s[m] = (o & 4) ? t[m + 1] : t[m];
+    constexpr int kPerWord = 4 / static_cast<int>(sizeof(T)) > 0 ? 4 / static_cast<int>(sizeof(T)) : 1;
+#pragma unroll
+    for (int m = 0; m < R::kWords; ++m)
+        word_values<T>(__funnelshift_r(s[m], s[m + 1], (o & 3) * 8), px + m * kPerWord);
+}
+
 // The separable tap sum at (u, v), which the caller has already guarded and
-// shifted by Interp<TAPS>::offset. total[c] gets the unclamped sum.
+// shifted by Interp<TAPS>::offset; s_lut is the block's staged LUT slice.
+// total[c] gets the unclamped sum.
 template <typename T, int C, int TAPS>
 __device__ __forceinline__ void sample_taps(const T* __restrict__ img, int H, int W, float u,
-                                            float v, const SamplerArgs& a, float* total) {
+                                            float v, const SamplerArgs& a, const float* s_lut,
+                                            float* total) {
     const int sx0 = __float2int_rn(u * (float)kInterTabSize);  // rint: half to even
     const int sy0 = __float2int_rn(v * (float)kInterTabSize);
     const int sx = sx0 >> kInterBits;                           // arithmetic shift
     const int sy = sy0 >> kInterBits;
-    const int base_x = Interp<TAPS>::ind + ((sx0 & (kInterTabSize - 1)) << Interp<TAPS>::shift);
-    const int base_y = Interp<TAPS>::ind + ((sy0 & (kInterTabSize - 1)) << Interp<TAPS>::shift);
+    float wx[TAPS], wy[TAPS];
+    phase_weights<TAPS>(s_lut, sx0 & (kInterTabSize - 1), wx);
+    phase_weights<TAPS>(s_lut, sy0 & (kInterTabSize - 1), wy);
     const int srx = a.src_rect[0], sry = a.src_rect[1];
     const int srx1 = srx + a.src_rect[2], sry1 = sry + a.src_rect[3];
 
 #pragma unroll
     for (int c = 0; c < C; ++c) total[c] = 0.0f;
 
+    if constexpr (RowLoad<T, C, TAPS>::kVector) {
+        // the whole stencil inside the plane and the source rect, and the
+        // last row's chunks inside the plane
+        const bool inside = sx >= max(srx, 0) && sx + TAPS <= min(srx1, W) &&
+                            sy >= max(sry, 0) && sy + TAPS <= min(sry1, H);
+        if (inside) {
+            const T* last = img + ((long long)(sy + TAPS - 1) * W + sx) * C;
+            const uintptr_t end = reinterpret_cast<uintptr_t>(last + TAPS * C);
+            const uintptr_t plane_end = reinterpret_cast<uintptr_t>(img + (long long)H * W * C);
+            if (((end + 15) & ~static_cast<uintptr_t>(15)) <= plane_end) {
+#pragma unroll
+                for (int yp = 0; yp < TAPS; ++yp) {
+                    float px[TAPS * C];
+                    load_row<T, C, TAPS>(img + ((long long)(sy + yp) * W + sx) * C, px);
+                    float xsum[C];
+#pragma unroll
+                    for (int c = 0; c < C; ++c) xsum[c] = 0.0f;
+#pragma unroll
+                    for (int xp = 0; xp < TAPS; ++xp) {
+#pragma unroll
+                        for (int c = 0; c < C; ++c) xsum[c] = xsum[c] + px[xp * C + c] * wx[xp];
+                    }
+#pragma unroll
+                    for (int c = 0; c < C; ++c) total[c] = total[c] + xsum[c] * wy[yp];
+                }
+                return;
+            }
+        }
+    }
+
+    // the checked loop: clamp each tap into the plane, background outside
+    // the source rect
 #pragma unroll
     for (int yp = 0; yp < TAPS; ++yp) {
         const int yy = sy + yp;
@@ -76,16 +233,14 @@ __device__ __forceinline__ void sample_taps(const T* __restrict__ img, int H, in
             const int xx = sx + xp;
             const bool ok = row_ok && xx >= srx && xx < srx1;
             const int xc = xx < 0 ? 0 : (xx >= W ? W - 1 : xx);
-            const float cx = c_coeffs[base_x + xp];
 #pragma unroll
             for (int c = 0; c < C; ++c) {
                 const float px = ok ? static_cast<float>(src_row[(long long)xc * C + c]) : a.bg[c];
-                xsum[c] = xsum[c] + px * cx;
+                xsum[c] = xsum[c] + px * wx[xp];
             }
         }
-        const float cy = c_coeffs[base_y + yp];
 #pragma unroll
-        for (int c = 0; c < C; ++c) total[c] = total[c] + xsum[c] * cy;
+        for (int c = 0; c < C; ++c) total[c] = total[c] + xsum[c] * wy[yp];
     }
 }
 

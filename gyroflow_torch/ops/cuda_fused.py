@@ -19,12 +19,11 @@ import math
 import numpy as np
 import torch
 
-from . import cuda_coords, remap
-from .interpolation import COEFFS, INTERP_INFO
+from . import cuda_coords, cuda_sampler, remap
+from .interpolation import INTERP_INFO
 from .kernel_params import KernelConfig, KernelDynamics, dyn_to_torch
 
 _DTYPES = {torch.uint8: 0, torch.uint16: 1, torch.float32: 2}
-_lut_devices = set()
 
 
 def remap_fused_plain(img, x, y, idx, matrices, cfg: KernelConfig, dyn: KernelDynamics, bg,
@@ -89,17 +88,6 @@ def _check(img, x, y, idx, matrices, cfg: KernelConfig, bg):
         raise ValueError("fused kernel: bg needs one value per channel")
 
 
-def _ensure_lut(L, device):
-    """Copy the reference LUT into fused.cu's constant memory, once per device."""
-    if device.index in _lut_devices:
-        return
-    lut = np.ascontiguousarray(COEFFS, np.float32)
-    err = L.gf_fused_set_lut(lut.ctypes.data, lut.size)
-    if err != 0:
-        raise RuntimeError(f"fused kernel: LUT upload failed: cudaError {err}")
-    _lut_devices.add(device.index)
-
-
 def remap_fused(img, x, y, idx, matrices, cfg: KernelConfig, dyn: KernelDynamics, bg,
                 limit: float):
     """Project and sample one plane in one launch.
@@ -122,13 +110,14 @@ def remap_fused(img, x, y, idx, matrices, cfg: KernelConfig, dyn: KernelDynamics
     if x.numel() == 0:
         return out
     L = lib()
+    lut = cuda_sampler.lut_slice(cfg.interpolation, img.device)
     with torch.cuda.device(img.device):
-        _ensure_lut(L, img.device)
         err = L.gf_fused(img.data_ptr(), _DTYPES[img.dtype], H, W, C, x.data_ptr(),
                          y.data_ptr(), idx.data_ptr(), matrices.data_ptr(), matrices.shape[0],
                          cuda_coords.coord_params(dyn), int(cfg.flags), oh, ow,
-                         INTERP_INFO[cfg.interpolation]["taps"], fused_args(cfg, bg, limit),
-                         out.data_ptr(), torch.cuda.current_stream(img.device).cuda_stream)
+                         INTERP_INFO[cfg.interpolation]["taps"], lut.data_ptr(),
+                         fused_args(cfg, bg, limit), out.data_ptr(),
+                         torch.cuda.current_stream(img.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"fused kernel launch failed: error {err}")
     remap_fused.launches += 1

@@ -2,8 +2,10 @@
 
 Replaces ``gyroflow_tpu/ops/pallas_sampler.py::_sampler_kernel`` with the CUDA
 kernel of ``csrc/sampler.cu`` (one thread per output pixel, taps loaded
-directly from the plane in its native dtype, weights from the reference LUT).
-``sample_plain`` is the same function in plain torch (``remap.sample_input``).
+directly from the plane in its native dtype, weights from the reference
+LUT's slice for the interpolation, ``lut_slice``, which each block stages in
+shared memory). ``sample_plain`` is the same function in plain torch
+(``remap.sample_input``).
 
 ``sample`` checks its inputs, then runs the plain version for CPU tensors
 only; for CUDA tensors it launches the kernel or raises. ``sample.launches`` counts kernel launches.
@@ -13,12 +15,12 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from .interpolation import COEFFS, INTERP_INFO
+from .interpolation import COEFFS, INTER_TAB_SIZE, INTERP_INFO
 
 from . import remap
 
 _DTYPES = {torch.uint8: 0, torch.uint16: 1, torch.float32: 2}
-_lut_devices = set()
+_lut_slices = {}
 
 
 def sample_plain(img, u, v, valid, bg, src_rect, interpolation: int, limit: float):
@@ -51,15 +53,19 @@ def _check(img, u, v, valid, bg, src_rect, interpolation):
         raise ValueError("sampler kernel: u, v, valid must share one (oh, ow) shape")
 
 
-def _ensure_lut(L, device):
-    """Copy the reference LUT into the kernel's constant memory, once per device."""
-    if device.index in _lut_devices:
-        return
-    lut = np.ascontiguousarray(COEFFS, np.float32)
-    err = L.gf_sampler_set_lut(lut.ctypes.data, lut.size)
-    if err != 0:
-        raise RuntimeError(f"sampler kernel: LUT upload failed: cudaError {err}")
-    _lut_devices.add(device.index)
+def lut_slice(interpolation: int, device):
+    """The interpolation's part of the reference LUT as the kernels index it:
+    float32 ``COEFFS[ind : ind + 32 * taps]``, phase p's taps at
+    ``[p * taps, (p + 1) * taps)``. One tensor per device and interpolation,
+    made at its first use."""
+    device = torch.device(device)
+    key = (device, interpolation)
+    if key not in _lut_slices:
+        info = INTERP_INFO[interpolation]
+        n = INTER_TAB_SIZE * info["taps"]
+        part = np.ascontiguousarray(COEFFS[info["ind"]:info["ind"] + n], np.float32)
+        _lut_slices[key] = torch.from_numpy(part).to(device)
+    return _lut_slices[key]
 
 
 def sample(img, u, v, valid, bg, src_rect, interpolation: int, limit: float):
@@ -86,12 +92,12 @@ def sample(img, u, v, valid, bg, src_rect, interpolation: int, limit: float):
     args.limit = float(limit)
     args.src_rect[:] = [int(r) for r in src_rect]
     L = lib()
+    lut = lut_slice(interpolation, img.device)
     with torch.cuda.device(img.device):
-        _ensure_lut(L, img.device)
         err = L.gf_sampler(img.data_ptr(), _DTYPES[img.dtype], H, W, C, u.data_ptr(),
                            v.data_ptr(), valid.data_ptr(), oh, ow,
-                           INTERP_INFO[interpolation]["taps"], args, out.data_ptr(),
-                           torch.cuda.current_stream(img.device).cuda_stream)
+                           INTERP_INFO[interpolation]["taps"], lut.data_ptr(), args,
+                           out.data_ptr(), torch.cuda.current_stream(img.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"sampler kernel launch failed: error {err}")
     sample.launches += 1

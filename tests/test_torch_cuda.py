@@ -126,6 +126,147 @@ def test_sampler_kernel_vs_plain(dev, dtype, c, interpolation):
     assert float((k - p).abs().max()) <= 1e-3
 
 
+# ---- the tap loop's two paths (taps.cuh): aligned row loads for stencils
+# inside the plane and the source rect, the checked loop for the others ----
+
+# planes whose rows are not a whole number of 16-byte chunks
+TAP_PLANES = [(torch.uint16, 1, 8), (torch.uint16, 2, 8), (torch.float32, 1, 8),
+              (torch.uint8, 4, 8), (torch.uint16, 2, 4)]
+PW, PH = 203, 61
+
+
+def _warp_uv(oh, ow, rotation, zoom, w, h):
+    """u, v of an output grid rotated by `rotation` rad and zoomed by `zoom`
+    about the plane's centre (0.5: the output covers twice the plane)."""
+    oy, ox = np.mgrid[0:oh, 0:ow].astype(np.float64)
+    dx, dy = (ox - ow / 2.0) / zoom, (oy - oh / 2.0) / zoom
+    c, s = math.cos(rotation), math.sin(rotation)
+    return ((c * dx - s * dy + w / 2.0).astype(np.float32),
+            (s * dx + c * dy + h / 2.0).astype(np.float32))
+
+
+def _plane(dev, dtype, c, h, w, seed, offset=0):
+    """A (h, w, c) plane of random codes; with offset > 0, a contiguous view
+    that starts `offset` elements into its buffer."""
+    rng = np.random.default_rng(seed)
+    n = h * w * c
+    buf = rng.uniform(0, 250, offset + n).astype(np.float32)
+    return torch.from_numpy(buf).to(dtype).to(dev)[offset:].view(h, w, c)
+
+
+def _hold_to_plain(img, u, v, valid, bg, rect, taps):
+    n0 = cuda_sampler.sample.launches
+    k = cuda_sampler.sample(img, u, v, valid, bg, rect, taps, 240.0)
+    p = cuda_sampler.sample_plain(img, u, v, valid, bg, rect, taps, 240.0)
+    torch.cuda.synchronize()
+    assert cuda_sampler.sample.launches == n0 + 1
+    assert k.shape == u.shape + (img.shape[2],) and bool(torch.isfinite(k).all())
+    # the same arithmetic in the same order: 0 codes apart (ceiling 1e-3)
+    assert float((k - p).abs().max()) == 0.0
+
+
+@pytest.mark.parametrize("zoom", [0.5, 1.0, 2.0])
+@pytest.mark.parametrize("rotation", [-0.3, 0.3])
+@pytest.mark.parametrize("dtype,c,taps", TAP_PLANES)
+def test_sampler_tap_paths_warp_maps(dev, dtype, c, taps, rotation, zoom):
+    """Rotated and zoomed maps over a plane whose row is not a multiple of
+    16 bytes: interior stencils at every alignment, edge stencils around."""
+    img = _plane(dev, dtype, c, PH, PW, seed=c * 100 + taps)
+    u, v = (torch.from_numpy(a).to(dev) for a in _warp_uv(57, 190, rotation, zoom, PW, PH))
+    valid = torch.ones(u.shape, dtype=torch.bool, device=dev)
+    bg = tuple(float(b) for b in np.linspace(20.0, 200.0, c))
+    _hold_to_plain(img, u, v, valid, bg, (4, 3, PW - 9, PH - 7), taps)
+
+
+@pytest.mark.parametrize("case", ["odd_offset", "rect_outside", "left", "right", "top",
+                                  "bottom", "non_finite", "narrow"])
+@pytest.mark.parametrize("dtype,c,taps", TAP_PLANES)
+def test_sampler_tap_paths_edges(dev, dtype, c, taps, case):
+    """The edge between the two paths: a plane that is a view at an odd
+    element offset, a source rect partly outside the plane, stencils that
+    straddle each of the plane's four edges, non-finite u/v, and a plane
+    narrower than 8 px."""
+    rng = np.random.default_rng(7)
+    h, w, offset = PH, PW, 0
+    rect = (0, 0, PW, PH)
+    oh, ow = 40, 64
+    u = rng.uniform(-6, w + 6, (oh, ow))
+    v = rng.uniform(-6, h + 6, (oh, ow))
+    if case == "odd_offset":
+        offset = 1
+        u, v = _warp_uv(oh, ow, 0.1, 0.8, w, h)
+    elif case == "rect_outside":
+        rect = (-5, -3, w - 10, h + 10)
+        u, v = _warp_uv(oh, ow, 0.2, 0.6, w, h)
+    elif case == "left":
+        u = rng.uniform(-9, 9, (oh, ow))
+    elif case == "right":
+        u = rng.uniform(w - 9, w + 9, (oh, ow))
+    elif case == "top":
+        v = rng.uniform(-9, 9, (oh, ow))
+    elif case == "bottom":
+        v = rng.uniform(h - 9, h + 9, (oh, ow))
+    elif case == "non_finite":
+        u, v = _warp_uv(oh, ow, 0.1, 1.0, w, h)
+        u[0, :4] = [np.nan, np.inf, -np.inf, 1e30]
+        v[1, :4] = [np.inf, np.nan, -1e30, -np.inf]
+        u[2, :2] = [40000.0, -40000.0]
+    elif case == "narrow":
+        w, rect = 5, (0, 0, 5, PH)
+        u = rng.uniform(-6, 11, (oh, ow))
+    img = _plane(dev, dtype, c, h, w, seed=c * 100 + taps + 1, offset=offset)
+    assert img.storage_offset() == offset and img.is_contiguous()
+    u, v = (torch.from_numpy(np.asarray(a, np.float32)).to(dev) for a in (u, v))
+    valid = torch.from_numpy(rng.uniform(size=(oh, ow)) > 0.1).to(dev)
+    bg = tuple(float(b) for b in np.linspace(20.0, 200.0, c))
+    _hold_to_plain(img, u, v, valid, bg, rect, taps)
+
+
+def _warp_fused_case(plane, rotation, zoom):
+    """A PW x PH frame (rows not a multiple of 16 bytes) whose RS matrices
+    roll the camera by `rotation` rad about its axis, with fov = 1 / zoom."""
+    f = (PW * 0.62, PW * 0.62)
+    fov = 1.0 / zoom
+    new_k = np.array([[f[0] / fov, 0, PW / 2], [0, f[1] / fov, PH / 2], [0, 0, 1.0]])
+    c, s = math.cos(rotation), math.sin(rotation)
+    rows = []
+    for i in range(PH):
+        r = np.array([[c, -s, 0], [s, c, 0], [0, 0, 1.0]]) @ np.array(
+            [[1, 0, 0], [0, math.cos(2e-4 * i), -math.sin(2e-4 * i)],
+             [0, math.sin(2e-4 * i), math.cos(2e-4 * i)]])
+        rows.append(list(np.linalg.inv(new_k @ r).flatten()) + [0.0] * 5)
+    cfg = KernelConfig(width=PW, height=PH, output_width=PW, output_height=PH, interpolation=8)
+    ch = 1
+    if plane == "UV":
+        half = (PW // 2, PH // 2)
+        cfg = cfg._replace(plane_index=1, source_rect=(0, 0, *half), output_rect=(0, 0, *half),
+                           out_size=half, flags=HAS_SOURCE_RECT | HAS_OUTPUT_RECT)
+        ch = 2
+    dyn = KernelDynamics.make(f=f, c=(PW / 2, PH / 2), k=[0.25, -0.07, 0.02, -0.003], fov=fov,
+                              background=(0.1, 0.5, 0.2, 1.0), max_pixel_value=1023.0,
+                              pixel_value_limit=1023.0)
+    ow, oh = cfg.out_buffer
+    img = np.random.default_rng(3).integers(0, 1024, (oh, ow, ch)).astype(np.uint16)
+    return cfg, dyn, np.asarray(rows, np.float32), img
+
+
+@pytest.mark.parametrize("zoom", [0.5, 1.0, 2.0])
+@pytest.mark.parametrize("rotation", [-0.3, 0.3])
+@pytest.mark.parametrize("plane", ["Y", "UV"])
+def test_fused_tap_paths_warp_maps(dev, plane, rotation, zoom):
+    """The same warp maps through the fused kernel: one fused launch and the
+    split kernels' uint16 output, 0 codes apart."""
+    cfg, dyn, mats, img = _warp_fused_case(plane, rotation, zoom)
+    timg = torch.from_numpy(img).to(dev)
+    m = torch.from_numpy(mats).to(dev)
+    assert remap.use_fused(cfg, m)
+    n = cuda_fused.remap_fused.launches
+    got = remap.remap_plane_cuda(timg, m, cfg, dyn, out_dtype="uint16", fused=True)
+    assert cuda_fused.remap_fused.launches == n + 1
+    split = remap.remap_plane_cuda(timg, m, cfg, dyn, out_dtype="uint16")
+    assert got.dtype == torch.uint16 and torch.equal(got, split)
+
+
 @pytest.mark.parametrize("bg_mode", [0, 1, 2, 3])
 @pytest.mark.parametrize("plane", ["Y", "UV"])
 def test_remap_plane_cuda_vs_plain(dev, plane, bg_mode):

@@ -16,6 +16,7 @@ import numpy as np
 import pytest
 import torch
 
+from gyroflow_tpu.ops import interpolation as jinterp
 from gyroflow_tpu.ops import pallas_sampler
 from gyroflow_tpu.ops import remap as jremap
 from gyroflow_tpu.ops.kernel_params import KernelConfig, KernelDynamics
@@ -115,3 +116,23 @@ def test_wrapper_checks():
         cuda_sampler._check(torch.zeros(8, 8, 1), u, u, ok.float(), (0.0,), (0, 0, 8, 8), 8)
     cuda_sampler._check(torch.zeros(8, 8, 1, dtype=torch.uint16), u, u,
                         torch.ones(4, 4, dtype=torch.bool), (0.0,), (0, 0, 8, 8), 8)
+
+
+@pytest.mark.parametrize("interpolation", [2, 4, 8])
+def test_lut_slice_is_the_interpolations_part_of_coeffs(interpolation):
+    """The LUT slice the sampler and fused kernels stage: exactly
+    COEFFS[ind : ind + 32 * taps] of the reference table, phase p's taps at
+    [p * taps, (p + 1) * taps), where the reference reads them at
+    ind + (p << shift) + t."""
+    info = jinterp.INTERP_INFO[interpolation]
+    taps, ind, shift = info["taps"], info["ind"], info["shift"]
+    coeffs = np.asarray(jinterp.COEFFS, np.float32)
+    got = cuda_sampler.lut_slice(interpolation, "cpu")
+    assert got.dtype == torch.float32 and got.device.type == "cpu"
+    assert got.shape == (jinterp.INTER_TAB_SIZE * taps,) and got.is_contiguous()
+    np.testing.assert_array_equal(got.numpy(), coeffs[ind:ind + jinterp.INTER_TAB_SIZE * taps])
+    for phase in range(jinterp.INTER_TAB_SIZE):
+        for t in range(taps):
+            assert got[phase * taps + t] == coeffs[ind + (phase << shift) + t]
+    # one tensor per device and interpolation, made once
+    assert cuda_sampler.lut_slice(interpolation, "cpu") is got
