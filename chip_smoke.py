@@ -12,8 +12,9 @@ exits non-zero without the final line):
    of a 4K 10-bit YUV420 render (Y 3840x2160x1, UV 1920x1080x2 uint16), with
    the frame transform of a real StabilizationManager;
 3b. EWA (interpolation 11): the stacked coords launch of the base and both
-   finite-difference evals (3*oh rows) and the EWA kernel, each against its
-   plain version at the same shapes;
+   finite-difference evals (3*oh rows) and the EWA kernel, which forms the
+   Jacobian from those evals itself, each against its plain version at the
+   same shapes;
 3c. the fused projection + sampling kernel (remap_plane_cuda(fused=True))
    and the self-contained coords kernel (cuda_coords.project_gen), each
    against its plain version at the same shapes;
@@ -42,7 +43,7 @@ exits non-zero without the final line):
    kernel (the kernels' timer), then the eager stage's and project_gen's
    device busy time (torch.profiler);
 6. where a lanczos4 and an EWA frame's device time goes (torch.profiler, by
-   kernel);
+   kernel), and the concatenation copies of each frame;
 7. the experiments' kernels (gyroflow_torch/experiments: the fused kernel
    with per-tile bboxes, window column sums, the sampler probes' kernel in
    each mode and precision, the Triton elementwise pass), each against its
@@ -60,7 +61,12 @@ Each kernel's bound (the least time the card could take for the same work)
 is the larger of its bytes (each input read once, each output written once)
 over 3.35 TB/s and its FP32 operations (counted from the kernel source, at
 this run's inputs: taps only for valid pixels, EWA taps only inside each
-pixel's bbox) over 67 TFLOP/s, the H100 SXM's published peaks.
+pixel's bbox, and their weights and sums only where dr < 4, the taps with a
+nonzero weight) over 67 TFLOP/s, the H100 SXM's published peaks. The 67
+TFLOP/s counts a fused multiply-add as two operations; the kernels are built
+with --fmad=false, so each multiply and add issues on its own and an
+operation-bound kernel can reach at most half that rate. The bound keeps
+its definition so that it compares across runs.
 
 Second-to-last lines: the card's name and power limit, then one JSON object
 with the kernels; last line: {"ok": true, "device": {...}}. Needs one card and
@@ -233,22 +239,29 @@ def ptxas_summary(log):
 
 
 def ewa_bbox_taps(u, v, jac, valid):
-    """(taps, rows) of ewa.cu's 10x10 stencil that lie inside each valid
-    pixel's reference bbox (affine_bbox), summed over the plane."""
+    """(taps, rows, weighted) of ewa.cu's 10x10 stencil over the valid
+    pixels of the plane: the taps and rows inside each pixel's reference
+    bbox (affine_bbox), and the bbox taps whose dr is below 4, the only ones
+    with a nonzero weight (the others stop at dr)."""
     import torch
     from gyroflow_torch.ops import remap
-    u, v = remap._guard_uv(u), remap._guard_uv(v)
-    jx, jy, jz, jw = jac.unbind(-1)
-    tx = 2.0 * torch.clamp_min(torch.maximum((jx + jy).abs(), (jx - jy).abs()), 1.0)
-    ty = 2.0 * torch.clamp_min(torch.maximum((jz + jw).abs(), (jz - jw).abs()), 1.0)
-    cap = remap.EWA_CAP
-    bx, by = torch.floor(u) - cap, torch.floor(v) - cap
-    span = 2 * cap + 1
-    cols = (torch.minimum(torch.ceil(u + tx), bx + span)
-            - torch.maximum(torch.floor(u - tx), bx) + 1).clamp_min(0)
-    rows = (torch.minimum(torch.ceil(v + ty), by + span)
-            - torch.maximum(torch.floor(v - ty), by) + 1).clamp_min(0)
-    return int((cols * rows)[valid].double().sum()), int(rows[valid].double().sum())
+    u, v, (x0, x1, y0, y1), (abc_x, abc_y, abc_z) = remap.ewa_footprint(u, v, jac)
+    bx = torch.floor(u).to(torch.int32) - remap.EWA_CAP
+    by = torch.floor(v).to(torch.int32) - remap.EWA_CAP
+    taps = rows = weighted = 0
+    for ty in range(2 * remap.EWA_CAP + 2):
+        in_y = by + ty
+        row = valid & (in_y >= y0) & (in_y <= y1)
+        rows += int(row.sum())
+        fy = in_y.to(torch.float32) - v
+        for tx in range(2 * remap.EWA_CAP + 2):
+            in_x = bx + tx
+            tap = row & (in_x >= x0) & (in_x <= x1)
+            fx = in_x.to(torch.float32) - u
+            dr = fx * fx * abc_x + fx * (fy * abc_y) + fy * fy * abc_z
+            taps += int(tap.sum())
+            weighted += int((tap & (dr < 4.0)).sum())
+    return taps, rows, weighted
 
 
 def cuda_ms(fn, reps=10, warm=2):
@@ -679,12 +692,14 @@ def main() -> int:
                                        cfg, dyn)
         errs["coords_stacked"] = max(errs["coords_stacked"], d)
         u3, v3 = remap.coords_post_uv(up, vp, cfg)
-        u, v, valid, jac = remap.ewa_jacobian(u3, v3, valp)
+        oh = u3.shape[0] // 3
+        u, v = u3[:oh], v3[:oh]       # background mode 0: the base eval's rows
         img = dev_planes[name]
         bg = plane_bg(dyn, img)
         coeffs = remap._ewa_coeffs_of(dyn)
-        ek = cuda_ewa.sample(img, u, v, jac, valid, bg, cfg.src_rect, coeffs, MAXV)
-        ep = cuda_ewa.sample_plain(img, u, v, jac, valid, bg, cfg.src_rect, coeffs, MAXV)
+        ek = cuda_ewa.sample(img, u, v, u3, v3, valp, bg, cfg.src_rect, coeffs, MAXV)
+        ep = cuda_ewa.sample_plain(img, u, v, u3, v3, valp, bg, cfg.src_rect, coeffs, MAXV)
+        _, _, valid, jac = remap.ewa_jacobian(u3, v3, valp)
         torch.cuda.synchronize()
         de = float((ek - ep).abs().max())
         check(bool(torch.isfinite(ek).all()), f"ewa {name}: non-finite output")
@@ -693,7 +708,7 @@ def main() -> int:
               f"(limit {SAMPLER_TOL})")
         check(de < SAMPLER_TOL, f"ewa {name}: output differs")
         errs["ewa"] = max(errs["ewa"], de)
-        shapes[f"ewa {name}"] = (x, y, idx, mats, cfg, dyn, u, v, jac, valid, img, bg, coeffs)
+        shapes[f"ewa {name}"] = (x, y, idx, mats, cfg, dyn, u3, v3, valp, img, bg, coeffs)
 
     # ---- 3c. fused kernel and self-contained coords kernel vs plain ---------
     phase("fused projection + sampling kernel and self-contained coords kernel vs plain torch "
@@ -885,12 +900,13 @@ def main() -> int:
     phase(f"EWA times on {smi}")
     times.update(coords_stacked=[0.0, 0.0], ewa=[0.0, 0.0])
     for name in ("Y", "UV"):
-        x, y, idx, mats, cfg, dyn, u, v, jac, valid, img, bg, coeffs = shapes[f"ewa {name}"]
+        x, y, idx, mats, cfg, dyn, u3, v3, valp, img, bg, coeffs = shapes[f"ewa {name}"]
+        u, v = u3[:u3.shape[0] // 3], v3[:v3.shape[0] // 3]
         ck = kernel_ms(lambda: cuda_coords.project(x, y, idx, mats, cfg, dyn))
         cp = cuda_ms(lambda: cuda_coords.project_plain(x, y, idx, mats, cfg, dyn))
-        ek = kernel_ms(lambda: cuda_ewa.sample(img, u, v, jac, valid, bg, cfg.src_rect, coeffs,
-                                             MAXV))
-        ep = cuda_ms(lambda: cuda_ewa.sample_plain(img, u, v, jac, valid, bg, cfg.src_rect,
+        ek = kernel_ms(lambda: cuda_ewa.sample(img, u, v, u3, v3, valp, bg, cfg.src_rect,
+                                             coeffs, MAXV))
+        ep = cuda_ms(lambda: cuda_ewa.sample_plain(img, u, v, u3, v3, valp, bg, cfg.src_rect,
                                                    coeffs, MAXV), reps=3, warm=1)
         print(f"{name:2s} coords stacked ({x.shape[0]}x{x.shape[1]}) kernel {ck:.4f} ms  "
               f"plain {cp:.4f} ms")
@@ -1002,6 +1018,11 @@ def main() -> int:
             print("device time per frame: not measured (no device events)")
         for key, ms, n in rows[:10]:
             print(f"  {ms:8.3f} ms/frame  {n:5.0f} launches/frame  {key[:100]}")
+        cats = [(key, ms, n) for key, ms, n in rows if "Cat" in key]
+        print(f"  concatenation copies (torch.cat / torch.stack): "
+              f"{sum(r[1] for r in cats):.3f} ms/frame over {sum(r[2] for r in cats):.0f} "
+              f"launches/frame" + "".join(f"; {ms:.3f} ms x {n:.0f} {key[:60]}"
+                                          for key, ms, n in cats))
         report[f"{label}_profile"] = {"wall_ms_per_frame": wall_ms,
                                       "device_ms_per_frame": dev_ms, "top": rows[:10]}
 
@@ -1019,14 +1040,19 @@ def main() -> int:
         gcfg, gdyn, gmats, _, _ = shapes[f"gen {name}"]
         bounds["coords_gen"].append((gmats.numel() * 4 + n_px * 9,
                                      n_px * (GEN_PRE_OPS + 2 * PROJECT_OPS)))
-        _, _, _, _, _, _, u, v, jac, valid, img, _, _ = shapes[f"ewa {name}"]
-        taps, tap_rows = ewa_bbox_taps(u, v, jac, valid)
+        _, _, _, _, _, _, u3, v3, valp, img, _, _ = shapes[f"ewa {name}"]
+        u, v, valid, jac = remap.ewa_jacobian(u3, v3, valp)
+        taps, tap_rows, weighted = ewa_bbox_taps(u, v, jac, valid)
         n_valid = int(valid.sum())
-        # setup 125 (guard, bbox, clamped ellipse), 4 per bbox row, and per
-        # bbox tap 18 plus a multiply-add per channel and the weight sum
-        # (zero-weight taps inside the bbox counted as full)
-        bounds["ewa"].append((plane + u.numel() * (25 + 4 * C),
-                              n_valid * 125 + tap_rows * 4 + taps * (18 + 2 * C + 1)))
+        # per valid pixel: the Jacobian 12 (4 selects, 4 subtractions, 4
+        # divisions), setup 125 (guard, bbox, clamped ellipse); 4 per bbox
+        # row; per bbox tap 7 (its offset, dr and the test dr < 4); per tap
+        # with dr < 4 another 11 (sqrt, the piece, the cubic), a multiply-add
+        # per channel and the weight sum. Bytes: the plane, the three evals'
+        # u, v, valid (9 B each) and the output per pixel
+        bounds["ewa"].append((plane + u.numel() * (3 * 9 + 4 * C),
+                              n_valid * (12 + 125) + tap_rows * 4 + taps * 7
+                              + weighted * (11 + 2 * C + 1)))
     bound_of = {k: bound(v) for k, v in bounds.items()}
     for k, (b_ms, by) in bound_of.items():
         ms = times[k][0]

@@ -68,7 +68,7 @@ class EwaArgs(ctypes.Structure):
     """Mirror of ``EwaArgs`` (csrc/ewa.cu)."""
     _fields_ = [("p", ctypes.c_float * 4), ("q", ctypes.c_float * 4),
                 ("bg", ctypes.c_float * 4), ("limit", ctypes.c_float),
-                ("src_rect", ctypes.c_int * 4)]
+                ("inv_eps", ctypes.c_float), ("src_rect", ctypes.c_int * 4)]
 
 
 class ProbeArgs(ctypes.Structure):
@@ -163,7 +163,8 @@ def lib() -> ctypes.CDLL:
             L.gf_sampler.argtypes = [vp, ci, ci, ci, ci, vp, vp, vp, ci, ci, ci, vp,
                                      SamplerArgs, vp, vp]
             L.gf_sampler.restype = ci
-            L.gf_ewa.argtypes = [vp, ci, ci, ci, ci, vp, vp, vp, vp, ci, ci, EwaArgs, vp, vp]
+            L.gf_ewa.argtypes = [vp, ci, ci, ci, ci, vp, vp, vp, vp, vp, ci, ci, EwaArgs, vp,
+                                 vp]
             L.gf_ewa.restype = ci
             L.gf_fused.argtypes = [vp, ci, ci, ci, ci, vp, vp, vp, vp, ci, CoordParams, ci,
                                    ci, ci, ci, vp, FusedArgs, vp, vp]

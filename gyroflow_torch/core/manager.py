@@ -1370,10 +1370,10 @@ class StabilizationManager:
                               use_pallas: Optional[bool] = None):
         """Stabilize a window of frames (gyroflow_tpu manager.py:1351). Not
         ported yet: the window pipeline and the renderer are ROADMAP queue 1,
-        items 8 and 9. Call process_pixels per frame instead."""
+        items 4 and 5. Call process_pixels per frame instead."""
         raise NotImplementedError(
             "process_pixels_window is not ported to gyroflow_torch yet "
-            "(ROADMAP queue 1, items 8-9: window pipeline and renderer)")
+            "(ROADMAP queue 1, items 4-5: window pipeline and renderer)")
 
     def process_pixels(self, timestamp_us: int, frame_plane,
                        interpolation: int = 8, plane_index: int = 0,

@@ -56,13 +56,20 @@ def coord_params(dyn: KernelDynamics):
     return p
 
 
+def _check_model(cfg: KernelConfig, kernel: str):
+    """csrc/lens.cuh has the fisheye model only."""
+    if dm.get_model(cfg.distortion_model).id != "opencv_fisheye":
+        raise NotImplementedError(
+            f"{kernel}: distortion model {cfg.distortion_model!r} is not ported to "
+            "gyroflow_torch yet (ROADMAP queue 1, item 3)")
+
+
 def _check(x, y, idx, matrices, cfg: KernelConfig):
     if cfg.flags & _UNSUPPORTED_FLAGS or cfg.digital_lens:
         raise NotImplementedError(
             "coords kernel: digital lens / mesh / FPD are not ported yet "
-            "(ROADMAP queue 1, items 2 and 10)")
-    if dm.get_model(cfg.distortion_model).id != "opencv_fisheye":
-        raise NotImplementedError(f"coords kernel: model {cfg.distortion_model!r}")
+            "(ROADMAP queue 1, items 3 and 6)")
+    _check_model(cfg, "coords kernel")
     for name, t, dt in (("x", x, torch.float32), ("y", y, torch.float32),
                         ("idx", idx, torch.int32), ("matrices", matrices, torch.float32)):
         if t.device != x.device:
@@ -136,8 +143,7 @@ def _check_gen(cfg: KernelConfig, matrices, out_rows: int, oy0: int):
             "coords gen kernel: no lens-correction blend, mesh or digital lens (the JAX "
             "package gates project_tiles_gen off for them, pallas_coords.py:234-236); "
             "use remap.coords_pre with project")
-    if dm.get_model(cfg.distortion_model).id != "opencv_fisheye":
-        raise NotImplementedError(f"coords gen kernel: model {cfg.distortion_model!r}")
+    _check_model(cfg, "coords gen kernel")
     if matrices.dtype != torch.float32 or not matrices.is_contiguous():
         raise TypeError("coords gen kernel: matrices must be contiguous float32")
     if matrices.dim() != 2 or matrices.shape[1] != 14 or matrices.shape[0] < 1:

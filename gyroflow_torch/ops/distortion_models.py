@@ -1,10 +1,15 @@
 """Lens distortion models on torch tensors (twin of gyroflow_tpu.ops.distortion_models).
 
-Only ``opencv_fisheye`` is ported so far; ``get_model`` raises
-NotImplementedError for the other reference models (ROADMAP queue 1, item 2).
-The same fisheye math is written once more as ``__device__`` functions in
-``csrc/lens.cuh`` for the coords kernel; the three versions (JAX, this file,
-CUDA) use the same Cephes arctangent so they round alike.
+``get_model`` resolves every reference model id to a descriptor with the
+reference's id, name and ``is_digital``, so the host layers (lens profiles,
+ComputeParams, the frame transform, zooming) run for every model. Only
+``opencv_fisheye`` has torch math so far: the other descriptors carry
+``None`` for ``undistort``, ``distort`` and ``distort_xy``, and
+``torch_model`` raises NotImplementedError for them where a remap needs the
+math (ROADMAP queue 1, item 3). The same fisheye math is written once more
+as ``__device__`` functions in ``csrc/lens.cuh`` for the coords kernel; the
+three versions (JAX, this file, CUDA) use the same Cephes arctangent so they
+round alike.
 
 ``radial_distortion_limit`` is host numpy and is copied verbatim: the frame
 transform and the lens-profile init call it.
@@ -16,18 +21,31 @@ from typing import Callable, NamedTuple
 
 import torch
 
-__all__ = ["LensParams", "MODELS", "get_model", "DistortionModel",
+__all__ = ["LensParams", "MODELS", "get_model", "torch_model", "DistortionModel",
            "radial_distortion_limit"]
 
 PI = math.pi
 EPS = 1e-6
 
-# every model id of the reference (DistortionModel::from_name), in the JAX
-# registry's order; only the ones in MODELS are ported
-REFERENCE_MODEL_IDS = (
-    "opencv_fisheye", "opencv_standard", "poly3", "poly5", "ptlens", "insta360",
-    "sony", "generic_polynomial", "gopro", "gopro_superview", "gopro6_superview",
-    "gopro_hyperview", "gopro_warp", "digital_stretch")
+# every model of the reference (DistortionModel::from_name) as (id, name,
+# is_digital), in the JAX registry's order (distortion_models.py:674-689)
+_REFERENCE_MODELS = (
+    ("opencv_fisheye", "OpenCV Fisheye", False),
+    ("opencv_standard", "OpenCV Standard", False),
+    ("poly3", "Poly3", False),
+    ("poly5", "Poly5", False),
+    ("ptlens", "PTLens", False),
+    ("insta360", "Insta360", False),
+    ("sony", "Sony", False),
+    ("generic_polynomial", "Generic polynomial", False),
+    ("gopro", "GoPro", False),
+    ("gopro_superview", "GoPro Superview", True),
+    ("gopro6_superview", "GoPro6 Superview", True),
+    ("gopro_hyperview", "GoPro Hyperview", True),
+    ("gopro_warp", "GoPro warp", True),
+    ("digital_stretch", "Digital stretch", True),
+)
+REFERENCE_MODEL_IDS = tuple(m[0] for m in _REFERENCE_MODELS)
 
 
 class LensParams(NamedTuple):
@@ -133,31 +151,34 @@ def fisheye_distort(x, y, z, p):
 class DistortionModel(NamedTuple):
     id: str
     name: str
-    undistort: Callable    # (pt(...,2), LensParams) -> (pt(...,2), valid(...))
-    distort: Callable      # (x, y, z, LensParams) -> pt(...,2)
-    distort_xy: Callable = None  # tuple core: (x, y, z, p) -> (u, v)
+    undistort: Callable    # (pt(...,2), LensParams) -> (pt(...,2), valid(...)); None: not ported
+    distort: Callable      # (x, y, z, LensParams) -> pt(...,2); None: not ported
+    distort_xy: Callable = None  # tuple core: (x, y, z, p) -> (u, v); None: not ported
     is_digital: bool = False
 
 
-MODELS = {
-    "opencv_fisheye": DistortionModel("opencv_fisheye", "OpenCV Fisheye", fisheye_undistort,
-                                      fisheye_distort, fisheye_distort_xy),
-}
+_TORCH_MATH = {"opencv_fisheye": (fisheye_undistort, fisheye_distort, fisheye_distort_xy)}
+
+MODELS = {mid: DistortionModel(mid, name, *_TORCH_MATH.get(mid, (None, None, None)), is_digital)
+          for mid, name, is_digital in _REFERENCE_MODELS}
 
 
 def get_model(name: str | None) -> DistortionModel:
-    """Resolve by id, defaulting to opencv_fisheye like the reference.
-
-    A reference model that is not ported yet raises NotImplementedError."""
+    """Resolve by id, defaulting to opencv_fisheye like the reference."""
     if not name:
         return MODELS["opencv_fisheye"]
-    if name in MODELS:
-        return MODELS[name]
-    if name in REFERENCE_MODEL_IDS:
+    return MODELS.get(name, MODELS["opencv_fisheye"])
+
+
+def torch_model(name: str | None) -> DistortionModel:
+    """``get_model``, for a caller that needs the model's torch math: raises
+    NotImplementedError for a model that has none yet."""
+    model = get_model(name)
+    if model.distort_xy is None:
         raise NotImplementedError(
-            f"distortion model {name!r} is not ported to gyroflow_torch yet "
-            "(ROADMAP queue 1, item 2)")
-    return MODELS["opencv_fisheye"]
+            f"distortion model {model.id!r} is not ported to gyroflow_torch yet "
+            "(ROADMAP queue 1, item 3)")
+    return model
 
 
 def radial_distortion_limit(model: DistortionModel, k) -> float | None:

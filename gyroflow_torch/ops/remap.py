@@ -10,10 +10,11 @@ Two entry points share one body (``_remap``):
   kernels are held against.
 - ``remap_plane_cuda``: torch ``coords_pre``, then the coords kernel
   (``cuda_coords.project``), torch ``coords_post_uv``, the sampler kernel
-  (``cuda_sampler.sample``, or ``cuda_ewa.sample`` for EWA), and the finish
-  in torch. It is the counterpart of ``remap_plane_pallas`` without the TPU's
-  window ladder: one thread per output pixel reads its matrix row and its
-  taps directly, so there is no window to overflow. With ``fused=True``
+  (``cuda_sampler.sample``, or ``cuda_ewa.sample`` for EWA, which forms the
+  Jacobian from the stacked evals itself), and the finish in torch. It is
+  the counterpart of ``remap_plane_pallas`` without the TPU's window
+  ladder: one thread per output pixel reads its matrix row and its taps
+  directly, so there is no window to overflow. With ``fused=True``
   (off by default, as in the JAX package) the configurations that
   ``remap_plane_pallas`` fuses (``use_fused``) take one fused projection +
   sampling launch (``cuda_fused.remap_fused``) after ``coords_pre``.
@@ -22,7 +23,9 @@ EWA (interpolation 10-13) needs the finite-difference Jacobian of the
 source coordinates: both entry points stack the base eval and the two
 +eps evals into one (3*oh, ow) projection call (``ewa_stack``), as
 remap_plane_pallas does (remap.py:783-802), and sample with the EWA stencil
-at the JAX package's top cap, ``EWA_CAP = 4`` (a 10x10 stencil).
+at the JAX package's top cap, ``EWA_CAP = 4`` (a 10x10 stencil). The plain
+path forms the Jacobian with ``ewa_jacobian``, the spec; the EWA kernel
+forms it from the same stacked evals in the same order.
 
 ``dyn`` is a KernelDynamics with host numpy leaves, as the manager builds it;
 the functions move it to the image's device themselves.
@@ -87,12 +90,12 @@ def _inverse_refraction(nx, ny, lrc):
 
 def _check_supported(cfg: KernelConfig):
     if cfg.has(HAS_MESH_DATA) or cfg.has(HAS_FPD_DATA):
-        raise NotImplementedError("mesh / focal-plane correction " + _NOT_PORTED.format(10))
+        raise NotImplementedError("mesh / focal-plane correction " + _NOT_PORTED.format(6))
     if cfg.has(HAS_DIGITAL_LENS) or cfg.digital_lens:
-        raise NotImplementedError(f"digital lens {cfg.digital_lens!r} " + _NOT_PORTED.format(2))
+        raise NotImplementedError(f"digital lens {cfg.digital_lens!r} " + _NOT_PORTED.format(3))
     if cfg.interpolation not in INTERP_INFO and cfg.interpolation not in EWA_BC:
         raise ValueError(f"unknown interpolation {cfg.interpolation}")
-    dm.get_model(cfg.distortion_model)      # raises for models not ported
+    dm.torch_model(cfg.distortion_model)    # raises for models not ported
 
 
 def rotate_and_distort_core(px, py, m, cfg: KernelConfig, dyn: KernelDynamics,
@@ -101,7 +104,7 @@ def rotate_and_distort_core(px, py, m, cfg: KernelConfig, dyn: KernelDynamics,
 
     ``m``: 14 broadcastable tensors (one per matrix column). Returns
     (u, v, valid). Mesh, FPD and digital lenses are rejected upstream."""
-    model = dm.get_model(cfg.distortion_model)
+    model = dm.torch_model(cfg.distortion_model)
 
     _x = px * m[0] + py * m[1] + m[2] + dyn.translation3d[0]
     _y = px * m[3] + py * m[4] + m[5] + dyn.translation3d[1]
@@ -181,7 +184,6 @@ def coords_pre(ox, oy, matrices, cfg: KernelConfig, dyn: KernelDynamics, out_c, 
     ``rs_idx`` overrides the row select and skips the centre-matrix probe:
     the EWA same-row Jacobian evaluates the +eps evals on the base pixel's
     row (KernelConfig.ewa_ref_jac)."""
-    model = dm.get_model(cfg.distortion_model)
     lp = _lens_params(cfg, dyn)
     orx, ory, orw, orh = cfg.out_rect
 
@@ -194,6 +196,7 @@ def coords_pre(ox, oy, matrices, cfg: KernelConfig, dyn: KernelDynamics, out_c, 
     if cfg.lens_correction:
         nx = (x - out_c[0]) / out_f[0]
         ny = (y - out_c[1]) / out_f[1]
+        model = dm.torch_model(cfg.distortion_model)
         upt, uvalid = model.undistort(torch.stack([nx, ny], dim=-1), lp)
         nx = torch.where(uvalid, upt[..., 0], nx)
         ny = torch.where(uvalid, upt[..., 1], ny)
@@ -348,19 +351,12 @@ def _ceil_i32(a):
     return torch.clamp(torch.ceil(a), -2147483648.0, _I32_MAX_F).to(torch.int32)
 
 
-def sample_ewa(img, u, v, jac, bg, src_rect, coeffs_p, coeffs_q, pixel_value_limit):
-    """EWA elliptical sampling (remap.py:374): the plain version of the EWA
-    kernel, and its spec.
-
-    img (H, W, C) float32; u, v (...) source coordinates; jac (..., 4) the
-    finite-difference Jacobian (du/dx, du/dy, dv/dx, dv/dy); bg (C,) tensor;
-    coeffs_p, coeffs_q the four float32 Keys-cubic coefficients of each
-    piece (``ewa_coeffs``). The reference bbox (affine_bbox) is masked inside
-    a fixed (2*EWA_CAP+2)^2 stencil; taps outside ``src_rect`` read bg.
-    Returns (..., C) float32."""
-    H, W, C = img.shape
-    flat = img.reshape(H * W, C)
-    srx, sry, srw, srh = src_rect
+def ewa_footprint(u, v, jac):
+    """What sample_ewa derives from each pixel's position and Jacobian
+    before its tap loop: the guarded u, v, the reference bbox (x0, x1, y0,
+    y1) int32 and the clamped ellipse's (abc_x, abc_y, abc_z); a tap at
+    (in_x, in_y) of the bbox weighs bc2(sqrt(dr)) with fx = in_x - u,
+    fy = in_y - v and dr = fx * fx * abc_x + fx * (fy * abc_y) + fy * fy * abc_z."""
     u = _guard_uv(u)
     v = _guard_uv(v)
     jx, jy, jz, jw = jac[..., 0], jac[..., 1], jac[..., 2], jac[..., 3]
@@ -400,6 +396,23 @@ def sample_ewa(img, u, v, jac, bg, src_rect, coeffs_p, coeffs_q, pixel_value_lim
     abc_x = a0 * cc * cc - b0 * cc * sn + c0 * sn * sn
     abc_y = 2.0 * a0 * cc * sn + b0 * cc * cc - b0 * sn * sn - 2.0 * c0 * cc * sn
     abc_z = a0 * sn * sn + b0 * cc * sn + c0 * cc * cc
+    return u, v, (x0, x1, y0, y1), (abc_x, abc_y, abc_z)
+
+
+def sample_ewa(img, u, v, jac, bg, src_rect, coeffs_p, coeffs_q, pixel_value_limit):
+    """EWA elliptical sampling (remap.py:374): the plain version of the EWA
+    kernel, and its spec.
+
+    img (H, W, C) float32; u, v (...) source coordinates; jac (..., 4) the
+    finite-difference Jacobian (du/dx, du/dy, dv/dx, dv/dy); bg (C,) tensor;
+    coeffs_p, coeffs_q the four float32 Keys-cubic coefficients of each
+    piece (``ewa_coeffs``). The reference bbox (affine_bbox) is masked inside
+    a fixed (2*EWA_CAP+2)^2 stencil; taps outside ``src_rect`` read bg.
+    Returns (..., C) float32."""
+    H, W, C = img.shape
+    flat = img.reshape(H * W, C)
+    srx, sry, srw, srh = src_rect
+    u, v, (x0, x1, y0, y1), (abc_x, abc_y, abc_z) = ewa_footprint(u, v, jac)
 
     pw, qw = [float(x) for x in coeffs_p], [float(x) for x in coeffs_q]
 
@@ -509,9 +522,10 @@ def _remap(img, matrices, cfg: KernelConfig, dyn_t: KernelDynamics, project, sam
     """Shared body of remap_plane / remap_plane_cuda (remap.py:511, :662).
 
     dyn_t: tensor leaves on img's device. project(x, y, idx) -> (u, v, valid);
-    sample(u, v, valid, jac) -> (oh, ow, C), where jac is the (oh, ow, 4)
-    Jacobian for EWA and None otherwise. fused(x, y, idx) -> (oh, ow, C), if
-    given, replaces project, coords_post_uv and sample (remap.py:720-730)."""
+    sample(u, v, valid, evals) -> (oh, ow, C), where evals is the stacked
+    (3*oh, ow) (u3, v3, valid3) after coords_post_uv for EWA and None
+    otherwise. fused(x, y, idx) -> (oh, ow, C), if given, replaces project,
+    coords_post_uv and sample (remap.py:720-730)."""
     dev = img.device
     C = img.shape[-1]
     bg = (dyn_t.background * dyn_t.max_pixel_value)[:C]
@@ -549,13 +563,15 @@ def _remap(img, matrices, cfg: KernelConfig, dyn_t: KernelDynamics, project, sam
 
 def _project_and_sample(x, y, idx, cfg: KernelConfig, dyn_t: KernelDynamics, bg, project,
                         sample, is_ewa: bool):
-    """The split path: projection, coords_post_uv, the EWA Jacobian, then one
-    sample (two in background mode 3) and the validity mask."""
+    """The split path: projection, coords_post_uv, then one sample (two in
+    background mode 3) and the validity mask. For EWA the stacked evals go
+    to the sampler with the base eval's rows as u, v, valid."""
     u, v, valid = project(x, y, idx)
     u, v = coords_post_uv(u, v, cfg)
-    jac = None
+    evals = None
     if is_ewa:
-        u, v, valid, jac = ewa_jacobian(u, v, valid)
+        evals = (u, v, valid)
+        u, v, valid = u.chunk(3)[0], v.chunk(3)[0], valid.chunk(3)[0]
 
     if cfg.background_mode == 3:
         # margin with feather (remap.py:968-987): two samples, blended
@@ -574,20 +590,20 @@ def _project_and_sample(x, y, idx, cfg: KernelConfig, dyn_t: KernelDynamics, bg,
         frame_w, frame_h = (fw, fh) if cfg.input_rotation == 0.0 else _rotated_frame_size(cfg)
         srx, sry, srw, srh = cfg.src_rect
         c1 = sample(map_coord(u, 0.0, frame_w, float(srx), float(srx + srw)),
-                    map_coord(v, 0.0, frame_h, float(sry), float(sry + srh)), valid, jac)
+                    map_coord(v, 0.0, frame_h, float(sry), float(sry + srh)), valid, evals)
         c2 = sample(map_coord(pt2u, 0.0, frame_w, float(srx), float(srx + srw)),
-                    map_coord(pt2v, 0.0, frame_h, float(sry), float(sry + srh)), valid, jac)
+                    map_coord(pt2v, 0.0, frame_h, float(sry), float(sry + srh)), valid, evals)
         pixel = c1 * alpha[..., None] + c2 * (1.0 - alpha[..., None])
     else:
-        pixel = sample(u, v, valid, jac)
+        pixel = sample(u, v, valid, evals)
     return torch.where(valid[..., None], pixel, bg)
 
 
 def _prepare(img, matrices, cfg, mesh, drawing):
     if mesh is not None:
-        raise NotImplementedError("mesh / focal-plane correction " + _NOT_PORTED.format(10))
+        raise NotImplementedError("mesh / focal-plane correction " + _NOT_PORTED.format(6))
     if drawing is not None or cfg.has(DRAWING_ENABLED):
-        raise NotImplementedError("the drawing overlay " + _NOT_PORTED.format(12))
+        raise NotImplementedError("the drawing overlay " + _NOT_PORTED.format(7))
     _check_supported(cfg)
     if img.dim() != 3:
         raise ValueError(f"plane must be (H, W, C), got {tuple(img.shape)}")
@@ -610,8 +626,9 @@ def remap_plane(img, matrices, cfg: KernelConfig, dyn: KernelDynamics, mesh=None
     def project(x, y, idx):
         return rotate_and_distort(x, y, idx, matrices, cfg, dyn_t)
 
-    def sample(u, v, valid, jac):
-        if jac is not None:
+    def sample(u, v, valid, evals):
+        if evals is not None:
+            jac = ewa_jacobian(*evals)[3]
             return sample_ewa(imgf, u, v, jac, bg, cfg.src_rect, coeffs_p, coeffs_q, limit)
         return sample_input(imgf, u, v, bg, cfg.src_rect, cfg.interpolation, limit)
 
@@ -645,9 +662,9 @@ def remap_plane_cuda(img, matrices, cfg: KernelConfig, dyn: KernelDynamics, mesh
     def project(x, y, idx):
         return cuda_coords.project(x, y, idx, matrices, cfg, dyn)
 
-    def sample(u, v, valid, jac):
-        if jac is not None:
-            return cuda_ewa.sample(img, u, v, jac, valid, bg, cfg.src_rect, coeffs, limit)
+    def sample(u, v, valid, evals):
+        if evals is not None:
+            return cuda_ewa.sample(img, u, v, *evals, bg, cfg.src_rect, coeffs, limit)
         return cuda_sampler.sample(img, u, v, valid, bg, cfg.src_rect,
                                    cfg.interpolation, limit)
 

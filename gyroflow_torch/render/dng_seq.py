@@ -53,8 +53,20 @@ _TYPE_SIZE = {1: 1, 2: 1, 3: 2, 4: 4, 5: 8, 6: 1, 7: 1, 8: 2, 9: 4, 10: 8,
 _TYPE_FMT = {1: "B", 3: "H", 4: "I", 6: "b", 8: "h", 9: "i", 11: "f", 12: "d"}
 
 
+class DNGError(IOError, ValueError):
+    """A file that is not a readable DNG. An IOError, as the reader's errors
+    always were, and a ValueError, as a malformed value is."""
+
+
 def _read_ifd(buf: bytes, off: int, endian: str) -> Tuple[dict, int]:
+    # every count and offset is bounded by the buffer before it is unpacked:
+    # a damaged 32-bit count would otherwise build a format string of up to
+    # ~2.7 GB and leak struct.error
+    if off + 2 > len(buf):
+        raise DNGError(f"DNG IFD at {off} lies past the end of the file ({len(buf)} bytes)")
     n = struct.unpack_from(endian + "H", buf, off)[0]
+    if off + 2 + n * 12 + 4 > len(buf):
+        raise DNGError(f"DNG IFD at {off} with {n} entries runs past the end of the file")
     tags = {}
     for i in range(n):
         base = off + 2 + i * 12
@@ -64,6 +76,9 @@ def _read_ifd(buf: bytes, off: int, endian: str) -> Tuple[dict, int]:
             data_off = base + 8
         else:
             data_off = struct.unpack_from(endian + "I", buf, base + 8)[0]
+        if data_off + size > len(buf):
+            raise DNGError(f"DNG tag {tag}: {cnt} values at {data_off} run past the end of "
+                           f"the file ({len(buf)} bytes)")
         fmt = _TYPE_FMT.get(typ)
         if fmt:
             vals = struct.unpack_from(endian + fmt * cnt, buf, data_off)
@@ -78,16 +93,32 @@ def _read_ifd(buf: bytes, off: int, endian: str) -> Tuple[dict, int]:
     return tags, nxt
 
 
+def _ints(vals, name: str):
+    """A tag's values, which must be integers (an offset, a count, a size)."""
+    if not vals or not all(isinstance(v, int) for v in vals):
+        raise DNGError(f"DNG {name} tag must hold integers, got {vals!r:.60}")
+    return vals
+
+
+def _numbers(vals, name: str):
+    """A tag's values, which must be numbers (a level, an area)."""
+    if not vals or not all(isinstance(v, (int, float)) and np.isfinite(v) for v in vals):
+        raise DNGError(f"DNG {name} tag must hold finite numbers, got {vals!r:.60}")
+    return vals
+
+
 def _all_ifds(buf: bytes):
     if buf[:2] == b"II":
         endian = "<"
     elif buf[:2] == b"MM":
         endian = ">"
     else:
-        raise IOError("not a TIFF/DNG file")
+        raise DNGError("not a TIFF/DNG file")
+    if len(buf) < 8:
+        raise DNGError("not a TIFF/DNG file: shorter than its header")
     magic, off = struct.unpack_from(endian + "HI", buf, 2)
     if magic != 42:
-        raise IOError("not a TIFF/DNG file")
+        raise DNGError("not a TIFF/DNG file")
     out = []
     seen = set()
     stack = [off]
@@ -208,7 +239,7 @@ class DNGSequenceReader:
             if best is None:
                 best = t
         if best is None:
-            raise IOError("no raw image IFD in DNG")
+            raise DNGError("no raw image IFD in DNG")
         return best, endian
 
     def _decode(self, path: str) -> np.ndarray:
@@ -217,21 +248,30 @@ class DNGSequenceReader:
         t, endian = self._raw_ifd(buf)
 
         def req(tag, name):
-            # a damaged IFD must surface as a clean IOError, not a KeyError
-            # (r4 mutation fuzz finding)
+            # a damaged IFD must surface as a clean DNGError, not a KeyError
+            # or a TypeError (mutation fuzz findings)
             if tag not in t or not t[tag]:
-                raise IOError(f"DNG IFD missing required {name} tag")
-            return t[tag]
+                raise DNGError(f"DNG IFD missing required {name} tag")
+            return _ints(t[tag], name)
+
+        def opt(tag, name, default):
+            return _ints(t.get(tag, (default,)), name)[0]
 
         w = req(T_WIDTH, "ImageWidth")[0]
         h = req(T_LENGTH, "ImageLength")[0]
-        bits = t.get(T_BITS, (16,))[0]
-        comp = t.get(T_COMPRESSION, (1,))[0]
-        photo = t.get(T_PHOTOMETRIC, (PHOTO_CFA,))[0]
-        spp = t.get(T_SAMPLES_PER_PIXEL, (1,))[0]
+        bits = opt(T_BITS, "BitsPerSample", 16)
+        comp = opt(T_COMPRESSION, "Compression", 1)
+        photo = opt(T_PHOTOMETRIC, "PhotometricInterpretation", PHOTO_CFA)
+        spp = opt(T_SAMPLES_PER_PIXEL, "SamplesPerPixel", 1)
         if comp not in (1, 7):
-            raise IOError(f"unsupported DNG compression {comp} "
-                          "(uncompressed and lossless-JPEG are supported)")
+            raise DNGError(f"unsupported DNG compression {comp} "
+                           "(uncompressed and lossless-JPEG are supported)")
+
+        def check_samples(n, what):
+            # lossless JPEG spends at least one bit per sample: a size past
+            # 8 samples per byte of the file is damage, not a picture
+            if n <= 0 or n > 8 * len(buf):
+                raise DNGError(f"DNG {what} of {n} samples does not fit a {len(buf)}-byte file")
 
         def unpack_raw(data: bytes, count: int) -> np.ndarray:
             if comp == 7:
@@ -247,9 +287,10 @@ class DNGSequenceReader:
                                      count=count).astype(np.uint16)
             if bits == 12:
                 return _unpack12(data, count)
-            raise IOError(f"unsupported DNG bit depth {bits}")
+            raise DNGError(f"unsupported DNG bit depth {bits}")
 
         n = w * h * spp
+        check_samples(n, f"{w}x{h}x{spp} image")
         if T_TILE_OFFSETS in t:
             # tiled layout (Adobe-written DNGs): place each tile into the
             # padded mosaic, then crop to the image size
@@ -257,6 +298,7 @@ class DNGSequenceReader:
             th_ = req(T_TILE_LENGTH, "TileLength")[0]
             offs = req(T_TILE_OFFSETS, "TileOffsets")
             cnts = req(T_TILE_COUNTS, "TileByteCounts")
+            check_samples(tw_ * th_ * spp, f"{tw_}x{th_}x{spp} tile")
             tiles_x = -(-w // tw_)
             canvas = np.zeros((-(-h // th_) * th_, tiles_x * tw_ * spp),
                               np.uint16)
@@ -269,7 +311,8 @@ class DNGSequenceReader:
             raw = canvas[:h, :w * spp].reshape(-1)
         else:
             offsets = req(T_STRIP_OFFSETS, "StripOffsets")
-            counts = t.get(T_STRIP_COUNTS, (len(buf) - offsets[0],))
+            counts = _ints(t.get(T_STRIP_COUNTS, (len(buf) - offsets[0],)),
+                           "StripByteCounts")
             if comp == 7:
                 parts = [unpack_raw(buf[o:o + c], 0)[:, :w * spp]
                          for o, c in zip(offsets, counts)]
@@ -282,24 +325,31 @@ class DNGSequenceReader:
         # codes index the LUT before black/white normalization
         lin = t.get(T_LINEARIZATION)
         if lin:
+            lin = _ints(lin, "LinearizationTable")
+            if min(lin) < 0 or max(lin) > 0xFFFF:
+                raise DNGError("DNG LinearizationTable holds values outside uint16")
             lut = np.asarray(lin, np.uint16)
             raw = lut[np.minimum(raw.astype(np.int64), len(lut) - 1)]
         # ActiveArea crop (top, left, bottom, right) drops masked borders
         aa = t.get(T_ACTIVE_AREA)
         if aa and len(aa) == 4:
-            top, left, bottom, right = (int(v) for v in aa)
+            top, left, bottom, right = (int(v) for v in _numbers(aa, "ActiveArea"))
             if 0 <= top < bottom <= h and 0 <= left < right <= w:
                 raw = raw[top:bottom, left:right]
                 h, w = raw.shape[:2]
-        black = float(np.mean(t.get(T_BLACK_LEVEL, (0,))))
-        white = float(t.get(T_WHITE_LEVEL, ((1 << bits) - 1,))[0])
+        black = float(np.mean(_numbers(t.get(T_BLACK_LEVEL, (0,)), "BlackLevel")))
+        white = float(_numbers(t.get(T_WHITE_LEVEL, ((1 << bits) - 1,)), "WhiteLevel")[0])
         img = raw.astype(np.float32)
         img = (img - black) / max(white - black, 1.0)
         np.clip(img, 0.0, 1.0, out=img)
         if photo == PHOTO_CFA and spp == 1:
-            pat = t.get(T_CFA_PATTERN, (b"\x00\x01\x01\x02",))[0]
-            if not isinstance(pat, (bytes, bytearray)):
-                pat = bytes(t[T_CFA_PATTERN][:4])
+            pat = t.get(T_CFA_PATTERN, (b"\x00\x01\x01\x02",))
+            if pat and isinstance(pat[0], (bytes, bytearray)):
+                pat = pat[0]
+            else:
+                pat = bytes(_ints(pat, "CFAPattern")[:4])
+            if len(pat) < 4:
+                raise DNGError(f"DNG CFAPattern needs 4 entries, got {len(pat)}")
             rgb = _demosaic_bilinear(img[..., 0], bytes(pat[:4]))
         elif spp >= 3:
             rgb = img[..., :3]

@@ -25,6 +25,7 @@ from gyroflow_torch.ops import remap as tremap
 from gyroflow_torch.ops.kernel_params import dyn_to_torch
 
 from test_torch_remap import make_case
+from test_torch_threads import one_torch_thread  # noqa: F401 (autouse fixture)
 
 UV_TOL_PX = 0.05
 IDX_MISMATCH_SHARE = 1e-3

@@ -287,45 +287,183 @@ def test_kernels_raise_instead_of_falling_back(dev):
     with pytest.raises(TypeError):
         cuda_sampler.sample(torch.zeros(8, 8, 1, dtype=torch.int32, device=dev), x, y,
                             x > 0, (0.0,), (0, 0, 8, 8), 8, 1.0)
+    x3 = torch.cat([x, x, x])
     with pytest.raises(TypeError):
-        cuda_ewa.sample(torch.zeros(8, 8, 1, dtype=torch.int32, device=dev), x, y,
-                        torch.zeros(x.shape + (4,), device=dev), x > 0, (0.0,), (0, 0, 8, 8),
-                        remap.ewa_coeffs(11), 1.0)
+        cuda_ewa.sample(torch.zeros(8, 8, 1, dtype=torch.int32, device=dev), x, y, x3, x3,
+                        x3 > 0, (0.0,), (0, 0, 8, 8), remap.ewa_coeffs(11), 1.0)
 
 
-def _ewa_inputs(dev, dtype, c, seed):
-    """Noisy content, u/v across the plane's edges, and Jacobians that mix
-    magnification, |J| ~ 3 minification and near-singular matrices."""
+# ---- the EWA kernel: stacked evals in, the Jacobian formed in the kernel ----
+
+EWA_EPS = np.float32(remap.EWA_EPS)
+
+
+def _stacked_evals(rng, u, v, jac, p_invalid=0.05):
+    """(u3, v3, valid3) as numpy (3*oh, ow): the base eval (u, v) and +eps
+    evals whose differences make the Jacobian jac (du/dx, du/dy, dv/dx,
+    dv/dy); a share p_invalid of the +eps evals is not valid, which the
+    Jacobian reads as source point 0 (a spike of ~100x the coordinates)."""
+    u3 = np.concatenate([u, u + EWA_EPS * jac[..., 0], u + EWA_EPS * jac[..., 1]])
+    v3 = np.concatenate([v, v + EWA_EPS * jac[..., 2], v + EWA_EPS * jac[..., 3]])
+    valid3 = rng.uniform(size=u3.shape) > p_invalid
+    return u3.astype(np.float32), v3.astype(np.float32), valid3
+
+
+def _ewa_inputs(dev, dtype, c, seed, h=70, w=90, offset=0, oh=40, ow=64, margin=6.0):
+    """Noisy content, u/v across the plane's edges (margin px beyond them),
+    and Jacobians that mix magnification, |J| ~ 3 minification and
+    near-singular matrices, as stacked evals. Returns img, u, v, u3, v3,
+    valid3 (the sampling positions u, v are the base eval's rows) and bg."""
     rng = np.random.default_rng(seed)
-    img = torch.from_numpy(rng.uniform(0, 250, (70, 90, c)).astype(np.float32)).to(dtype).to(dev)
-    u = rng.uniform(-6, 96, (40, 64)).astype(np.float32)
-    v = rng.uniform(-6, 76, (40, 64)).astype(np.float32)
-    jac = np.asarray([1.0, 0.0, 0.0, 1.0]) + rng.normal(0.0, 0.35, (40, 64, 4))
-    jac[:10] *= 3.0
-    a, b = rng.normal(0.0, 1.5, (2, 10, 64))
-    jac[10:20] = np.stack([a, b, 0.7 * a, 0.7 * b], -1) + rng.normal(0.0, 1e-3, (10, 64, 4))
-    valid = rng.uniform(size=(40, 64)) > 0.2
+    img = _plane(dev, dtype, c, h, w, seed, offset)
+    u = rng.uniform(-margin, w + margin, (oh, ow)).astype(np.float32)
+    v = rng.uniform(-margin, h + margin, (oh, ow)).astype(np.float32)
+    jac = np.asarray([1.0, 0.0, 0.0, 1.0]) + rng.normal(0.0, 0.35, (oh, ow, 4))
+    jac[:oh // 4] *= 3.0
+    a, b = rng.normal(0.0, 1.5, (2, oh // 4, ow))
+    jac[oh // 4:oh // 2] = np.stack([a, b, 0.7 * a, 0.7 * b], -1) + \
+        rng.normal(0.0, 1e-3, (oh // 4, ow, 4))
+    u3, v3, valid3 = _stacked_evals(rng, u, v, jac)
+    valid3[:oh] = rng.uniform(size=(oh, ow)) > 0.2
     bg = tuple(float(b) for b in rng.uniform(0, 250, c))
-    t = [torch.from_numpy(a).to(dev) for a in (u, v, jac.astype(np.float32), valid)]
-    return (img, *t, bg)
+    t = [torch.from_numpy(a).to(dev) for a in (u3, v3, valid3)]
+    return (img, t[0][:oh], t[1][:oh], *t, bg)
 
 
-@pytest.mark.parametrize("dtype,c,interpolation", [
-    *[(dt, c, 11) for dt in (torch.uint8, torch.uint16, torch.float32) for c in (1, 2, 4)],
-    (torch.uint16, 1, 10), (torch.uint16, 1, 12), (torch.uint16, 1, 13)])
-def test_ewa_kernel_vs_plain(dev, dtype, c, interpolation):
-    img, u, v, jac, valid, bg = _ewa_inputs(dev, dtype, c, seed=c * 10 + interpolation)
-    rect = (3, 2, 81, 64)
+def _hold_ewa_to_plain(img, u, v, u3, v3, valid3, bg, rect, interpolation=11, mask=None):
+    """The kernel against sample_plain on the same inputs: one launch, and
+    the same bits (over ``mask`` where given)."""
     coeffs = tuple(tuple(float(x) for x in np.asarray(k, np.float32))
                    for k in remap.ewa_coeffs(interpolation))
     n0 = cuda_ewa.sample.launches
-    k = cuda_ewa.sample(img, u, v, jac, valid, bg, rect, coeffs, 240.0)
-    p = cuda_ewa.sample_plain(img, u, v, jac, valid, bg, rect, coeffs, 240.0)
+    k = cuda_ewa.sample(img, u, v, u3, v3, valid3, bg, rect, coeffs, 240.0)
+    p = cuda_ewa.sample_plain(img, u, v, u3, v3, valid3, bg, rect, coeffs, 240.0)
     torch.cuda.synchronize()
     assert cuda_ewa.sample.launches == n0 + 1
-    assert k.shape == (40, 64, c) and k.dtype == torch.float32
+    assert k.shape == u.shape + (img.shape[2],) and k.dtype == torch.float32
+    if mask is not None:
+        k, p = k[mask], p[mask]
     assert bool(torch.isfinite(k).all())
-    assert float((k - p).abs().max()) <= 1e-3
+    assert torch.equal(k, p)
+
+
+@pytest.mark.parametrize("dtype,c,interpolation", [
+    *[(dt, c, 11) for dt in (torch.uint8, torch.uint16, torch.float32) for c in (1, 2, 3, 4)],
+    (torch.uint16, 1, 10), (torch.uint16, 1, 12), (torch.uint16, 1, 13)])
+def test_ewa_kernel_vs_plain(dev, dtype, c, interpolation):
+    img, u, v, u3, v3, valid3, bg = _ewa_inputs(dev, dtype, c, seed=c * 10 + interpolation)
+    _hold_ewa_to_plain(img, u, v, u3, v3, valid3, bg, (3, 2, 81, 64), interpolation)
+
+
+EWA_PLANES = [(torch.uint16, 1), (torch.uint16, 2), (torch.uint8, 4), (torch.float32, 1),
+              (torch.uint8, 3)]
+
+
+@pytest.mark.parametrize("case", ["interior", "left", "right", "top", "bottom",
+                                  "rect_inside", "rect_outside", "odd_offset", "narrow"])
+@pytest.mark.parametrize("dtype,c", EWA_PLANES)
+def test_ewa_kernel_stencil_paths(dev, dtype, c, case):
+    """The interior path (every clipped tap inside the plane and the source
+    rect: no clamps, no background) and the checked path: stencils wholly
+    inside, across each of the plane's edges, across a source rect inside
+    the plane and one partly outside it, a plane that is a view at an odd
+    element offset, and a plane narrower than the stencil."""
+    rng = np.random.default_rng(11)
+    h, w, offset, oh, ow = PH, PW, 0, 40, 64
+    rect = (0, 0, PW, PH)
+    u, v = _warp_uv(oh, ow, 0.2, 0.7, w, h)
+    if case == "left":
+        u = rng.uniform(-9, 9, (oh, ow))
+    elif case == "right":
+        u = rng.uniform(w - 9, w + 9, (oh, ow))
+    elif case == "top":
+        v = rng.uniform(-9, 9, (oh, ow))
+    elif case == "bottom":
+        v = rng.uniform(h - 9, h + 9, (oh, ow))
+    elif case == "rect_inside":
+        rect = (17, 9, w - 40, h - 25)
+    elif case == "rect_outside":
+        rect = (-5, -3, w - 10, h + 10)
+    elif case == "odd_offset":
+        offset = 1
+    elif case == "narrow":
+        w, rect = 5, (0, 0, 5, PH)
+        u = rng.uniform(-6, 11, (oh, ow))
+    img = _plane(dev, dtype, c, h, w, seed=c * 100 + 7, offset=offset)
+    assert img.storage_offset() == offset and img.is_contiguous()
+    u, v = np.asarray(u, np.float32), np.asarray(v, np.float32)
+    # near-identity Jacobians of the warp's scale, so most stencils are small
+    jac = np.asarray([1.0 / 0.7, 0.0, 0.0, 1.0 / 0.7]) + rng.normal(0.0, 0.1, (oh, ow, 4))
+    u3, v3, valid3 = (torch.from_numpy(a).to(dev) for a in _stacked_evals(rng, u, v, jac, 0.02))
+    bg = tuple(float(b) for b in np.linspace(20.0, 200.0, c))
+    _hold_ewa_to_plain(img, u3[:oh], v3[:oh], u3, v3, valid3, bg, rect)
+
+
+@pytest.mark.parametrize("seed", [0, 1, 2])
+def test_ewa_kernel_extreme_evals(dev, seed):
+    """Random stacked evals: +eps evals scattered up to 40 px from the base
+    (Jacobians up to ~4000), a fifth of them not valid, and base evals on
+    integer and half-integer positions: elongated, degenerate and huge
+    ellipses, all clipped to the 10x10 stencil."""
+    rng = np.random.default_rng(seed)
+    oh, ow = 48, 64
+    img = _plane(dev, torch.uint16, 2, PH, PW, seed=seed)
+    u = rng.uniform(-12, PW + 12, (oh, ow)).astype(np.float32)
+    v = rng.uniform(-12, PH + 12, (oh, ow)).astype(np.float32)
+    u[:4], v[:4] = np.round(u[:4]), np.round(v[:4]) + 0.5
+    u3 = np.concatenate([u] + [u + rng.normal(0, s, u.shape) for s in (0.02, 40.0)])
+    v3 = np.concatenate([v] + [v + rng.normal(0, s, v.shape) for s in (40.0, 0.02)])
+    valid3 = rng.uniform(size=u3.shape) > 0.2
+    u3, v3, valid3 = (torch.from_numpy(np.asarray(a)).to(dev)
+                      for a in (u3.astype(np.float32), v3.astype(np.float32), valid3))
+    _hold_ewa_to_plain(img, u3[:oh], v3[:oh], u3, v3, valid3, (30.0, 90.0), (2, 3, PW - 6, PH - 4),
+                       interpolation=10 + seed)
+
+
+def _nan_bbox(u3, v3, valid3):
+    """Pixels whose reference bbox has a NaN edge: remap._floor_i32 casts
+    that NaN to int32, which torch leaves undefined."""
+    jx, jy, jz, jw = remap.ewa_jacobian(u3, v3, valid3)[3].unbind(-1)
+    tx = torch.maximum((jx + jy).abs(), (jx - jy).abs())
+    ty = torch.maximum((jz + jw).abs(), (jz - jw).abs())
+    return tx.isnan() | ty.isnan()
+
+
+def test_ewa_kernel_non_finite_evals(dev):
+    """inf, -inf, NaN and +-1e30 in the evals of valid pixels: in the +eps
+    evals' u and v, in the base eval, and in pairs that make inf - inf. The
+    kernel's clamps keep NaN as torch's do (fmaxf alone would turn a NaN dr
+    into the weight p[0]). Pixels whose bbox edge is NaN are left out: the
+    plain version casts that NaN to int32, which torch leaves undefined."""
+    rng = np.random.default_rng(5)
+    oh, ow = 24, 32
+    img = _plane(dev, torch.uint16, 1, PH, PW, seed=5)
+    u, v = (a[:oh, :ow] for a in _warp_uv(oh, ow, 0.1, 0.9, PW, PH))
+    jac = np.asarray([1.1, 0.0, 0.0, 1.1]) + rng.normal(0.0, 0.05, (oh, ow, 4))
+    u3, v3, valid3 = _stacked_evals(rng, u, v, jac, 0.0)
+    bad = [np.inf, -np.inf, np.nan, 1e30, -1e30]
+    for j, x in enumerate(bad):
+        u3[oh + j, :8] = x             # +eps in x, u
+        v3[2 * oh + j, 8:16] = x       # +eps in y, v
+        u3[2 * oh + j, 16:24] = x      # +eps in y, u
+        u3[j + 5, 24:] = x             # the base eval
+    u3[oh + 10, :8], u3[2 * oh + 10, :8] = np.inf, -np.inf      # jx + jy = inf - inf
+    v3[oh + 11, :8], v3[2 * oh + 11, :8] = 1e30, -1e30
+    u3, v3, valid3 = (torch.from_numpy(a).to(dev) for a in (u3, v3, valid3))
+    keep = ~_nan_bbox(u3, v3, valid3)
+    assert int((~keep).sum()) > 0 and int(keep.sum()) > oh * ow // 2
+    _hold_ewa_to_plain(img, u3[:oh], v3[:oh], u3, v3, valid3, (50.0,), (0, 0, PW, PH),
+                       mask=keep)
+
+
+def test_ewa_kernel_positions_apart_from_the_base_eval(dev):
+    """Background mode 3 samples at positions that are not the base eval's
+    (the feather's second sample), with the base eval's Jacobian."""
+    img, _, _, u3, v3, valid3, bg = _ewa_inputs(dev, torch.uint16, 2, seed=21)
+    oh = u3.shape[0] // 3
+    u = ((u3[:oh] / 90.0 - 0.5) * 0.8 + 0.5) * 90.0
+    v = ((v3[:oh] / 70.0 - 0.5) * 0.8 + 0.5) * 70.0
+    _hold_ewa_to_plain(img, u.contiguous(), v.contiguous(), u3, v3, valid3, bg, (3, 2, 81, 64))
 
 
 @pytest.mark.parametrize("ref_jac", [False, True])
@@ -344,6 +482,16 @@ def test_remap_plane_cuda_ewa_vs_plain(dev, plane, bg_mode, ref_jac):
     want = remap.remap_plane(timg, m, cfg, dyn, out_dtype="uint16")
     assert got.dtype == torch.uint16 and got.device.type == "cuda"
     assert torch.equal(got, want)
+
+
+def test_ewa_jacobian_scale_is_torchs(dev):
+    """The kernel scales the Jacobian by 1 / EWA_EPS as torch divides by a
+    Python scalar on the card (a multiply by the float32 reciprocal):
+    checked on differences across the float range."""
+    rng = np.random.default_rng(9)
+    d = torch.from_numpy(np.concatenate([rng.normal(0, s, 4096) for s in (1e-3, 1.0, 1e3)])
+                         .astype(np.float32)).to(dev)
+    assert torch.equal(d / remap.EWA_EPS, d * cuda_ewa._INV_EPS)
 
 
 FUSED_CASES = [("Y", 8, 0, 0, 0.0), ("UV", 8, 0, 0, 0.0), ("Y", 4, 1, HAS_IBIS_DATA, 0.0),

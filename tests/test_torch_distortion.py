@@ -14,6 +14,7 @@ import torch
 
 from gyroflow_tpu.ops import distortion_models as jdm
 from gyroflow_torch.ops import distortion_models as tdm
+from test_torch_threads import one_torch_thread  # noqa: F401 (autouse fixture)
 
 TOL = 1e-5
 K_CASES = [[0.25, -0.07, 0.02, -0.003], [0.0, 0.0, 0.0, 0.0], [-0.05, 0.01, 0.0, 0.0]]
@@ -75,7 +76,26 @@ def test_radial_limit_and_registry():
         jdm.radial_distortion_limit(jdm.get_model("opencv_fisheye"), k)
     assert tdm.get_model(None).id == "opencv_fisheye"
     assert tdm.get_model("not-a-model").id == jdm.get_model("not-a-model").id
-    assert set(tdm.REFERENCE_MODEL_IDS) == set(jdm.MODELS)
-    for name in set(jdm.MODELS) - set(tdm.MODELS):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            tdm.get_model(name)
+    assert tdm.REFERENCE_MODEL_IDS == tuple(jdm.MODELS)
+    for name, jm in jdm.MODELS.items():
+        m = tdm.get_model(name)
+        assert (m.id, m.name, m.is_digital) == (jm.id, jm.name, jm.is_digital)
+        ported = name == "opencv_fisheye"
+        assert all((f is not None) == ported for f in (m.undistort, m.distort, m.distort_xy))
+        assert tdm.radial_distortion_limit(m, k) == jdm.radial_distortion_limit(jm, k)
+
+
+@pytest.mark.parametrize("name", sorted(set(tdm.REFERENCE_MODEL_IDS) - {"opencv_fisheye"}))
+def test_remap_raises_for_models_without_torch_math(name):
+    """Each model without torch math yet resolves (the host layers run), and
+    the remap raises where it needs the math, citing ROADMAP queue 1,
+    item 3."""
+    from gyroflow_torch.ops import remap as tremap
+    from gyroflow_torch.ops.kernel_params import KernelConfig
+    assert tdm.get_model(name).id == name
+    with pytest.raises(NotImplementedError, match="queue 1, item 3"):
+        tdm.torch_model(name)
+    cfg = KernelConfig(width=96, height=64, output_width=96, output_height=64,
+                       distortion_model=name)
+    with pytest.raises(NotImplementedError, match="queue 1, item 3"):
+        tremap._check_supported(cfg)

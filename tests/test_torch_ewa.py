@@ -16,7 +16,14 @@ maximum, and the jitted run is held where it is well-conditioned.
 
 - (a) ``remap.sample_ewa`` vs JAX ``remap.sample_ewa`` on the same
   u/v/Jacobian/plane: 0.05 of a code against the eager run; against the
-  jitted run on the rows that are not near-singular.
+  jitted run on the rows that are not near-singular. The EWA kernel's plain
+  version (``cuda_ewa.sample`` on CPU tensors: ``ewa_jacobian`` of the
+  stacked evals, then ``sample_ewa``) vs JAX's own Jacobian
+  (remap.py:842-845) and eager ``sample_ewa`` on the same evals: 0.05 of a
+  code, at the base eval's positions and at other positions (background
+  mode 3's second sample); and on evals with inf, NaN and +-1e30 at valid
+  pixels, leaving out the pixels whose bbox edge is NaN (``_floor_i32``
+  casts that NaN to int32, which torch's CPU cast leaves undefined).
 - (b) ``coords_pre(rs_idx=...)`` vs JAX: x/y within 0.05 px, idx passed
   through and the probe skipped.
 - (c) ``remap_plane`` vs JAX ``remap_plane`` (eager, maximum) and
@@ -47,6 +54,7 @@ from gyroflow_torch.ops import cuda_ewa
 from gyroflow_torch.ops import kernel_params as tkp
 from gyroflow_torch.ops import remap as tremap
 from test_torch_remap import H, W, jax_xla, make_case, port_remap
+from test_torch_threads import one_torch_thread  # noqa: F401 (autouse fixture)
 
 SAMPLE_TOL = 0.05           # codes, same u/v/jac into both
 COORD_TOL_PX = 0.05
@@ -114,30 +122,131 @@ def test_sample_ewa_vs_jax(interpolation, c):
     assert np.abs(got - eager).max() <= SAMPLE_TOL
     well_conditioned = np.r_[0:8, 16:24]          # rows 8-15 are near-singular
     assert np.abs(got - jitted)[well_conditioned].max() <= SAMPLE_TOL
-    # the kernel wrapper runs exactly this plain version on CPU tensors
-    valid = torch.ones(u.shape, dtype=torch.bool)
-    wrapped = cuda_ewa.sample(t[0], t[1], t[2], t[3], valid, tuple(bg.tolist()), rect,
+    # the kernel wrapper runs exactly this plain version on CPU tensors: the
+    # Jacobian of the stacked evals, then sample_ewa
+    u3, v3, valid3 = (torch.from_numpy(a) for a in _stacked_evals(u, v, jac))
+    jac3 = tremap.ewa_jacobian(u3, v3, valid3)[3]
+    got3 = tremap.sample_ewa(t[0], t[1], t[2], jac3, t[4], rect, p32.tolist(), q32.tolist(),
+                             1000.0).numpy()
+    wrapped = cuda_ewa.sample(t[0], t[1], t[2], u3, v3, valid3, tuple(bg.tolist()), rect,
                               (p32.tolist(), q32.tolist()), 1000.0).numpy()
-    np.testing.assert_array_equal(wrapped, got)
+    np.testing.assert_array_equal(wrapped, got3)
+
+
+def _stacked_evals(u, v, jac, valid3=None):
+    """(u3, v3, valid3) numpy (3*oh, ow): the base eval (u, v) and the +eps
+    evals whose differences make the Jacobian jac (du/dx, du/dy, dv/dx,
+    dv/dy)."""
+    eps = np.float32(tremap.EWA_EPS)
+    u3 = np.concatenate([u, u + eps * jac[..., 0], u + eps * jac[..., 1]]).astype(np.float32)
+    v3 = np.concatenate([v, v + eps * jac[..., 2], v + eps * jac[..., 3]]).astype(np.float32)
+    return u3, v3, np.ones(u3.shape, bool) if valid3 is None else valid3
 
 
 @pytest.mark.parametrize("bad", ["dtype", "jac_shape", "contiguity", "coeffs"])
 def test_wrapper_rejects_bad_input(bad):
+    """Bad inputs raise: the plane's dtype, the stacked evals' shape (the
+    Jacobian's source), a non-contiguous eval, the coefficients."""
     img, u, v, jac, bg, rect = sample_inputs(1, seed=0)
-    img, u, v, jac = (torch.from_numpy(a) for a in (img, u, v, jac))
-    valid = torch.ones(u.shape, dtype=torch.bool)
+    u3, v3, valid3 = (torch.from_numpy(a) for a in _stacked_evals(u, v, jac))
+    img, u, v = (torch.from_numpy(a) for a in (img, u, v))
     coeffs = tuple(tuple(float(x) for x in c) for c in jremap.ewa_coeffs(11))
     exc = ValueError
     if bad == "dtype":
         img, exc = img.to(torch.int32), TypeError
     elif bad == "jac_shape":
-        jac = jac[..., :3].contiguous()
+        u3 = u3[:-1].contiguous()
     elif bad == "contiguity":
-        jac = jac.transpose(0, 1).contiguous().transpose(0, 1)
+        v3 = v3.transpose(0, 1).contiguous().transpose(0, 1)
     else:
         coeffs = coeffs[:1]
     with pytest.raises(exc):
-        cuda_ewa.sample(img, u, v, jac, valid, (float(bg[0]),), rect, coeffs, 1000.0)
+        cuda_ewa.sample(img, u, v, u3, v3, valid3, (float(bg[0]),), rect, coeffs, 1000.0)
+
+
+def _jax_ewa_of_evals(img, u, v, u3, v3, valid3, bg, rect, interpolation):
+    """JAX: the Jacobian of the stacked evals as remap_plane_pallas forms it
+    (remap.py:842-845, op by op), then eager remap.sample_ewa at (u, v);
+    pixels whose base eval is not valid get bg."""
+    h, w = img.shape[:2]
+    oh = u.shape[0]
+    eps = 0.01                              # remap.py:772
+    uv = jnp.stack([jnp.asarray(u3[:oh]), jnp.asarray(v3[:oh])], -1)
+    uv_x = jnp.stack([jnp.asarray(u3[oh:2 * oh]), jnp.asarray(v3[oh:2 * oh])], -1)
+    uv_y = jnp.stack([jnp.asarray(u3[2 * oh:]), jnp.asarray(v3[2 * oh:])], -1)
+    dx = jnp.where(jnp.asarray(valid3[oh:2 * oh])[..., None], uv_x, 0.0) - uv
+    dy = jnp.where(jnp.asarray(valid3[2 * oh:])[..., None], uv_y, 0.0) - uv
+    jac = jnp.stack([dx[..., 0] / eps, dy[..., 0] / eps, dx[..., 1] / eps, dy[..., 1] / eps], -1)
+    p, q = jremap.ewa_coeffs(interpolation)
+    cfg = KernelConfig(width=w, height=h, output_width=w, output_height=h,
+                       interpolation=interpolation, source_rect=rect)
+    dyn = KernelDynamics.make(ewa_coeffs_p=np.asarray(p, np.float32),
+                              ewa_coeffs_q=np.asarray(q, np.float32), pixel_value_limit=1000.0)
+    out = jremap.sample_ewa(jnp.asarray(img), jnp.stack([jnp.asarray(u), jnp.asarray(v)], -1),
+                            jac, jnp.asarray(bg), cfg, dyn)
+    return np.where(valid3[:oh, :, None], np.asarray(out), bg)
+
+
+def _port_ewa_of_evals(img, u, v, u3, v3, valid3, bg, rect, interpolation):
+    coeffs = tuple(tuple(float(x) for x in np.asarray(k, np.float32))
+                   for k in jremap.ewa_coeffs(interpolation))
+    t = [torch.from_numpy(np.ascontiguousarray(a)) for a in (img, u, v, u3, v3, valid3)]
+    return cuda_ewa.sample(*t, tuple(float(b) for b in bg), rect, coeffs, 1000.0).numpy()
+
+
+@pytest.mark.parametrize("positions", ["base", "feather"])
+@pytest.mark.parametrize("c,interpolation", [(1, 11), (2, 13)])
+def test_stacked_evals_vs_jax(c, interpolation, positions):
+    """The EWA kernel's plain version on stacked evals vs JAX's Jacobian and
+    eager sample_ewa: at the base eval's positions, and at background mode
+    3's second-sample positions with the base eval's Jacobian. A tenth of
+    the +eps evals are not valid, never both of one pixel's: with both
+    invalid the Jacobian's columns are equal, f0 = 0, and the ellipse is
+    rounding noise of 1e8-sized terms, on which XLA's compiled tap loop and
+    torch's op-by-op one differ by tens of codes."""
+    img, u, v, jac, bg, rect = sample_inputs(c, seed=40 + c)
+    rng = np.random.default_rng(c)
+    valid3 = rng.uniform(size=(3 * u.shape[0], u.shape[1])) > 0.1
+    oh = u.shape[0]
+    valid3[2 * oh:] |= ~valid3[oh:2 * oh]
+    u3, v3, valid3 = _stacked_evals(u, v, jac, valid3)
+    if positions == "feather":
+        h, w = img.shape[:2]
+        u = (((u / w - 0.5) * 0.9 + 0.5) * w).astype(np.float32)
+        v = (((v / h - 0.5) * 0.9 + 0.5) * h).astype(np.float32)
+    got = _port_ewa_of_evals(img, u, v, u3, v3, valid3, bg, rect, interpolation)
+    want = _jax_ewa_of_evals(img, u, v, u3, v3, valid3, bg, rect, interpolation)
+    assert got.shape == want.shape == u.shape + (c,) and np.isfinite(got).all()
+    assert np.abs(got - want).max() <= SAMPLE_TOL
+
+
+def test_non_finite_evals_vs_jax():
+    """inf, -inf, NaN and +-1e30 in the evals of valid pixels (the +eps
+    evals' u and v, the base eval, and pairs that make inf - inf): the
+    plain version keeps NaN through its clamps as JAX does, and agrees with
+    JAX wherever the bbox is defined. Pixels whose bbox edge is NaN are left
+    out: remap._floor_i32 casts that NaN to int32, which torch's CPU cast
+    leaves undefined."""
+    img, u, v, jac, bg, rect = sample_inputs(1, seed=3)
+    jac = np.asarray([1.1, 0.0, 0.0, 1.1]) + 0.05 * jac
+    u3, v3, valid3 = _stacked_evals(u, v, jac)
+    oh = u.shape[0]
+    for j, x in enumerate([np.inf, -np.inf, np.nan, 1e30, -1e30]):
+        u3[oh + j, :8] = x
+        v3[2 * oh + j, 8:16] = x
+        u3[2 * oh + j, 16:24] = x
+        u3[j + 5, 24:] = x
+    u3[oh + 10, :8], u3[2 * oh + 10, :8] = np.inf, -np.inf
+    v3[oh + 11, :8], v3[2 * oh + 11, :8] = 1e30, -1e30
+    jx, jy, jz, jw = tremap.ewa_jacobian(*(torch.from_numpy(a) for a in (u3, v3, valid3)))[3] \
+        .unbind(-1)
+    keep = ~(torch.maximum((jx + jy).abs(), (jx - jy).abs()).isnan()
+             | torch.maximum((jz + jw).abs(), (jz - jw).abs()).isnan()).numpy()
+    assert 0 < int((~keep).sum()) and int(keep.sum()) > keep.size // 2
+    got = _port_ewa_of_evals(img, u3[:oh], v3[:oh], u3, v3, valid3, bg, rect, 11)[keep]
+    want = _jax_ewa_of_evals(img, u3[:oh], v3[:oh], u3, v3, valid3, bg, rect, 11)[keep]
+    assert np.isfinite(got).all()
+    assert np.abs(got - want).max() <= SAMPLE_TOL
 
 
 # ---- (b) coords_pre with a given row index ----------------------------------

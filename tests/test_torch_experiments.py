@@ -55,6 +55,7 @@ from gyroflow_torch.experiments import perf_probe8 as p8
 from gyroflow_torch.experiments import probe_sampler as ps
 from gyroflow_torch.ops import kernel_params as tkp
 from gyroflow_torch.ops import remap as tremap
+from test_torch_threads import one_torch_thread  # noqa: F401 (autouse fixture)
 
 REPO = Path(__file__).resolve().parents[1]
 F32_TOL = 0.25          # 10-bit codes: Taylor-pair weights vs the LUT, and the order of sums

@@ -30,6 +30,7 @@ from gyroflow_torch.ops import cuda_fused
 from gyroflow_torch.ops import remap as tremap
 
 from test_torch_remap import F32_TOL, MAXV, U16_TOL, make_case
+from test_torch_threads import one_torch_thread  # noqa: F401 (autouse fixture)
 
 
 def _port(pcfg, pdyn, mats, img, fused, out_dtype="f32"):

@@ -30,6 +30,7 @@ from gyroflow_torch.ops.kernel_params import HAS_DIGITAL_LENS, HAS_MESH_DATA, dy
 
 from test_torch_coords import _out_c_f
 from test_torch_remap import make_case
+from test_torch_threads import one_torch_thread  # noqa: F401 (autouse fixture)
 
 UV_TOL_PX = 0.05
 TILE_H, TILE_W = 8, 128

@@ -33,6 +33,7 @@ from gyroflow_torch.core import lens_profile as tlp
 from gyroflow_torch.core.manager import StabilizationManager
 
 from test_end_to_end import DUR_S, H, W, gcsv_path  # noqa: F401 (fixture)
+from test_torch_threads import one_torch_thread  # noqa: F401 (autouse fixture)
 
 REPO = Path(__file__).resolve().parents[1]
 TS_US = (500_000, 833_333)

@@ -27,6 +27,7 @@ from gyroflow_tpu.ops.kernel_params import (ANY_UNDERWATER, FIX_COLOR_RANGE, HAS
                                             KernelDynamics)
 from gyroflow_torch.ops import kernel_params as tkp
 from gyroflow_torch.ops import remap as tremap
+from test_torch_threads import one_torch_thread  # noqa: F401 (autouse fixture)
 
 W, H = 96, 64               # luma plane
 K = [0.25, -0.07, 0.02, -0.003]

@@ -21,6 +21,7 @@ from gyroflow_tpu.ops import pallas_sampler
 from gyroflow_tpu.ops import remap as jremap
 from gyroflow_tpu.ops.kernel_params import KernelConfig, KernelDynamics
 from gyroflow_torch.ops import cuda_sampler
+from test_torch_threads import one_torch_thread  # noqa: F401 (autouse fixture)
 
 TOL = 0.01
 PH, PW = 40, 56                 # plane
