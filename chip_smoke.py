@@ -32,6 +32,21 @@ exits non-zero without the final line):
 4d. the self-contained coords path: the 3 frames' planes through
    cuda_coords.project_gen, held within 0.05 px (valid identical) of
    coords_pre + the coords kernel, one launch per plane;
+4e. the frame window: process_pixels_window over 8 timestamps of the 4K Y
+   and UV planes (lanczos4; 16 coords and 16 sampler launches), each frame 0
+   codes from process_pixels of the same frame and frame 0 within 1 code of
+   the plain torch path; then an EWA window of 2 (4 coords and 4 EWA
+   launches), checked the same way;
+4f. decode -> stabilize -> encode: a seeded 8-frame 3840x2160 10-bit YUV420
+   .y4m written to a temporary directory, rendered by render.renderer.render
+   on the manager (8-frame windows; 16 coords and 16 sampler launches), each
+   output frame within 1 code of process_pixels on the same decoded planes;
+   then the same clip through gyroflow_torch.cli (-g gyro log, lens profile,
+   --device cuda:0), which must return 0, write 8 frames and launch the
+   kernels 16 times each;
+4g. ST maps: utils.stmap.export_stmaps on cuda:0 (one coords launch), the
+   undistort projection held within 0.05 px (valid identical) of the plain
+   undistort_coord on the card;
 5. times: each kernel (experiments.perf_probe.cuda_ms: median of 10 CUDA
    event pairs, each call behind an L2-flushing read and a device spin that
    covers the host's wrapper work) and its plain version (CUDA events around
@@ -42,6 +57,12 @@ exits non-zero without the final line):
    project_gen against the eager output grid + coords_pre + the coords
    kernel (the kernels' timer), then the eager stage's and project_gen's
    device busy time (torch.profiler);
+5d. ms per frame (Y+UV, host clock) through process_pixels_window with 8
+   frames pre-staged on the card against 8 process_pixels calls, phase 4f's
+   render fps and per-stage ms per frame, and the parts of a render's
+   stabilize stage: the upload of a window's decoded planes, the window's
+   device busy time (torch.profiler), each frame's download (printed, not
+   claimed);
 6. where a lanczos4 and an EWA frame's device time goes (torch.profiler, by
    kernel), and the concatenation copies of each frame;
 7. the experiments' kernels (gyroflow_torch/experiments: the fused kernel
@@ -71,8 +92,9 @@ its definition so that it compares across runs.
 Second-to-last lines: the card's name and power limit, then one JSON object
 with the kernels; last line: {"ok": true, "device": {...}}. Needs one card and
 nvcc; a copy of the kernel library is built under gyroflow_torch/build/.
-About 75 s on an H100, the kernels' build (one nvcc per source, run
-together, ~15 s) and Triton's compile included.
+60-105 s on an H100, the kernels' build (one nvcc per source, run
+together, 15-30 s), Triton's compile and phase 4g's host-side ST maps
+(9-12 s) included: the host's share varies with the machine's load.
 """
 from __future__ import annotations
 
@@ -97,6 +119,8 @@ COORDS_TOL_PX = 0.05        # |du|, |dv| over valid pixels
 SAMPLER_TOL = 0.01          # 10-bit codes, same u/v into both
 FRAME_TOL_CODES = 1         # uint16 output, kernel path vs plain path
 EWA_INTERP = 11             # Robidoux
+WINDOW = 8                  # frames of a production window (the renderer's default)
+EWA_WINDOW = 2
 
 # H100 SXM published peaks (NVIDIA data sheet): HBM bandwidth, FP32 rate
 PEAK_BYTES_S = 3.35e12
@@ -190,6 +214,32 @@ def make_manager(dev, workdir):
     mgr.recompute_blocking()
     print(f"manager: {W}x{H} @ {FPS} fps, recompute_blocking {time.perf_counter() - t0:.2f} s")
     return mgr
+
+
+def lens_profile_json():
+    """The main path's fisheye lens as a lens-profile file's JSON (the CLI's
+    input)."""
+    return json.dumps({
+        "camera_brand": "chip_smoke", "camera_model": "synthetic", "lens_model": "fisheye",
+        "calib_dimension": {"w": W, "h": H}, "frame_readout_time": 8.0,
+        "fisheye_params": {"camera_matrix": [[W * 0.6, 0, W / 2], [0, W * 0.6, H / 2], [0, 0, 1]],
+                           "distortion_coeffs": [0.25, -0.05, 0.01, -0.001]},
+        "sync_settings": {}, "calibrator_version": "1"})
+
+
+def write_clip(path, planes, n):
+    """n frames of the main path's planes as a 10-bit YUV420 .y4m, frame i
+    rolled 4i px (Y) and 2i px (UV) to the right."""
+    import numpy as np
+    from gyroflow_torch.render.y4m_io import Y4MWriter
+    y, uv = planes["Y"][1], planes["UV"][1]
+    w = Y4MWriter(str(path), W, H, FPS, "yuv420p10le")
+    try:
+        for i in range(n):
+            uvi = np.roll(uv, 2 * i, axis=1)
+            w.write_planes([np.roll(y, 4 * i, axis=1), uvi[..., :1], uvi[..., 1:]])
+    finally:
+        w.close()
 
 
 def plane_setup(mgr, planes, ts_us, name, interpolation=8):
@@ -745,7 +795,7 @@ def main() -> int:
                       (cuda_fused, "remap_fused_plain"))
 
     @contextlib.contextmanager
-    def driven(label, expected):
+    def driven(label, expected, frames=FRAMES):
         """Every launch count set to 0 on entry and read on exit, and the
         wrappers' plain versions replaced by functions that count and raise
         in between: a CUDA tensor must never reach a plain version."""
@@ -768,7 +818,7 @@ def main() -> int:
                 setattr(mod, name, fn)
         torch.cuda.synchronize()
         counts.update({k: fn.launches for k, fn in counters.items()})
-        print(f"{label} launch counts over {FRAMES} frames: {counts} (expected {expected}); "
+        print(f"{label} launch counts over {frames} frames: {counts} (expected {expected}); "
               f"plain versions called: {len(plain_calls)} (expected 0)")
         check(not plain_calls, f"{label}: a plain version ran on the card's tensors")
         check(counts == expected, f"{label}: the path did not launch each of its kernels "
@@ -846,6 +896,122 @@ def main() -> int:
         x, y, idx = pre_coords(cfg, dyn, mats)
         compare_uv(f"gen frame ts {ts} us {name:2s} vs coords_pre + coords kernel", got,
                    cuda_coords.project(x, y, idx, mats, cfg, dyn), mats.shape[0])
+
+    # ---- 4e. the frame window ------------------------------------------------
+    import numpy as np
+    win_ts = [int(round((i + 20) * 1e6 / FPS)) for i in range(WINDOW)]
+
+    def drive_window(interpolation, n, expected):
+        """process_pixels_window over n timestamps of the Y and UV planes
+        inside driven(); each frame held against process_pixels, frame 0
+        against the plain torch path."""
+        outs = {}
+        with driven(f"process_pixels_window (F = {n})", expected, frames=n) as counts:
+            for name in ("Y", "UV"):
+                pi, host = planes[name]
+                outs[name] = mgr.process_pixels_window(
+                    win_ts[:n], np.stack([host] * n), None, interpolation=interpolation,
+                    plane_index=pi, max_pixel_value=MAXV, plane_rects=True)
+        for name, (out, info) in outs.items():
+            pi, host = planes[name]
+            check(tuple(out.shape) == (n,) + host.shape and out.dtype == torch.uint16
+                  and out.device == dev, f"window {name}: {tuple(out.shape)} {out.dtype} on "
+                                         f"{out.device}")
+            check(info["backend"] == "cuda-window", f"window {name}: backend {info['backend']}")
+            d_pf = 0
+            for i, ts in enumerate(win_ts[:n]):
+                one, _ = mgr.process_pixels(ts, host, interpolation=interpolation, plane_index=pi,
+                                            max_pixel_value=MAXV, plane_rects=True)
+                d_pf = max(d_pf, int((out[i].to(torch.int32) - one.to(torch.int32)).abs().max()))
+            cfg, dyn, mats = plane_setup(mgr, planes, win_ts[0], name, interpolation)
+            ref = remap.remap_plane(dev_planes[name], mats, cfg, dyn, out_dtype="uint16")
+            d0 = int((out[0].to(torch.int32) - ref.to(torch.int32)).abs().max())
+            print(f"window {name:2s}: {tuple(out.shape)} {out.dtype} on {out.device}; vs "
+                  f"process_pixels per frame max|d| {d_pf} codes (limit 0); frame 0 vs plain "
+                  f"path max|d| {d0} codes (limit {FRAME_TOL_CODES})")
+            check(d_pf == 0, f"window {name}: differs from process_pixels")
+            check(d0 <= FRAME_TOL_CODES, f"window {name}: frame 0 differs from the plain path")
+        return counts
+
+    phase(f"frame window: process_pixels_window, {WINDOW} timestamps of 4K 10-bit YUV420, "
+          f"lanczos4")
+    launches_window = drive_window(8, WINDOW, expect(coords=2 * WINDOW, sampler=2 * WINDOW))
+    phase(f"EWA frame window: process_pixels_window, {EWA_WINDOW} timestamps, interpolation 11")
+    launches_window_ewa = drive_window(EWA_INTERP, EWA_WINDOW,
+                                       expect(coords=2 * EWA_WINDOW, ewa=2 * EWA_WINDOW))
+
+    # ---- 4f. decode -> stabilize -> encode -----------------------------------
+    from gyroflow_torch import cli
+    from gyroflow_torch.render.formats import RAW_FORMATS
+    from gyroflow_torch.render.renderer import RenderOptions, _plane_backgrounds, render
+    from gyroflow_torch.render.y4m_io import Y4MReader
+    phase(f"render: an {WINDOW}-frame {W}x{H} 10-bit YUV420 .y4m through render.renderer.render "
+          f"and gyroflow_torch.cli")
+    work = Path(tmp.name)
+    clip, rendered = work / "chip_smoke.y4m", work / "chip_smoke_render.y4m"
+    cli_out = work / "chip_smoke_stabilized.y4m"
+    t0 = time.perf_counter()
+    write_clip(clip, planes, WINDOW)
+    print(f"wrote {clip.name}: {clip.stat().st_size} B in {time.perf_counter() - t0:.2f} s "
+          f"(host clock; {smi})")
+    with driven("render", expect(coords=2 * WINDOW, sampler=2 * WINDOW), frames=WINDOW):
+        render_stats = render(mgr, str(clip), str(rendered),
+                              RenderOptions(interpolation=8, frame_window=WINDOW))
+    print(f"render stats: {json.dumps(render_stats)} ({smi})")
+    check(render_stats["frames"] == WINDOW and render_stats["backend"] == "cuda-window"
+          and render_stats["frame_window"] == WINDOW, "render: stats")
+    bgs = _plane_backgrounds(RAW_FORMATS["yuv420p10le"], mgr.params.background, True)
+    rin, rout = Y4MReader(str(clip)), Y4MReader(str(rendered))
+    n_out, d_render = 0, 0
+    try:
+        for (ts, p_in), (_, p_out) in zip(rin, rout):
+            for pi, src, got in ((0, p_in[0], p_out[0]),
+                                 (1, np.concatenate(p_in[1:], -1), np.concatenate(p_out[1:], -1))):
+                want, _ = mgr.process_pixels(ts, src, interpolation=8, plane_index=pi,
+                                             max_pixel_value=MAXV, plane_rects=True,
+                                             background_override=bgs[pi])
+                d_render = max(d_render, int(np.abs(want.cpu().numpy().astype(np.int32)
+                                                    - got.astype(np.int32)).max()))
+            n_out += 1
+        n_out += sum(1 for _ in rout)
+    finally:
+        rin.close()
+        rout.close()
+    print(f"render: {n_out} frames out (expected {WINDOW}); vs process_pixels on the decoded "
+          f"planes max|d| {d_render} codes (limit {FRAME_TOL_CODES})")
+    check(n_out == WINDOW and d_render <= FRAME_TOL_CODES, "render: output frames")
+    lens = work / "chip_smoke_lens.json"
+    lens.write_text(lens_profile_json())
+    with driven("cli", expect(coords=2 * WINDOW, sampler=2 * WINDOW), frames=WINDOW):
+        rc = cli.main([str(clip), "-g", str(work / "chip_smoke.gcsv"), str(lens), "-f",
+                       "--device", "cuda:0"])
+    r = Y4MReader(str(cli_out))
+    n_cli = sum(1 for _ in r)
+    r.close()
+    print(f"cli: exit {rc}, {n_cli} frames in {cli_out.name} (expected 0, {WINDOW})")
+    check(rc == 0 and n_cli == WINDOW, "cli: render failed")
+    for f in (clip, rendered, cli_out):
+        f.unlink()
+
+    # ---- 4g. ST maps ---------------------------------------------------------
+    from gyroflow_torch.utils import stmap
+    phase("ST maps: utils.stmap.export_stmaps on cuda:0, the undistort projection through the "
+          "coords kernel")
+    st_dir = work / "stmaps"
+    t0 = time.perf_counter()
+    with driven("export_stmaps", expect(coords=1), frames=1):
+        stmap.export_stmaps(mgr, str(st_dir), single_frame=True, ext=".npy")
+    files = sorted(f.name for f in st_dir.iterdir())
+    und = np.load(st_dir / next(f for f in files if "undistort" in f))
+    print(f"export_stmaps: {files} in {time.perf_counter() - t0:.2f} s (host clock; {smi}); "
+          f"undistort map {und.shape}")
+    check(len(files) == 2 and bool(np.isfinite(und).all()) and und.shape[0] >= H
+          and und.shape[1] >= W, "export_stmaps: files or undistort map")
+    ox, oy, smats, scfg, sdyn, out_c, out_f = stmap.undistort_inputs(mgr, 0.0)
+    compare_uv("stmap undistort (coords kernel) vs plain undistort_coord",
+               stmap.undistort_uv(mgr, 0.0),
+               remap.undistort_coord(ox, oy, smats, scfg, dyn_to_torch(sdyn, dev), out_c, out_f),
+               smats.shape[0])
     check("jax" not in sys.modules, "jax was imported")
     print("jax in sys.modules: False")
 
@@ -997,6 +1163,73 @@ def main() -> int:
         print(f"{label} Y+UV under torch.profiler: device busy {busy[label][0]:.4f} ms over "
               f"{busy[label][1]:.0f} kernels per frame")
     split_ms["device busy"] = busy
+
+    # ---- 5d. the frame window's times ----------------------------------------
+    phase(f"frame window times on {smi}")
+    win_dev = {name: dev_planes[name][None].expand(WINDOW, *dev_planes[name].shape).contiguous()
+               for name in ("Y", "UV")}
+
+    def window_pass():
+        for name in ("Y", "UV"):
+            mgr.process_pixels_window(win_ts, win_dev[name], None, interpolation=8,
+                                      plane_index=planes[name][0], max_pixel_value=MAXV,
+                                      plane_rects=True)
+
+    def per_frame_pass():
+        for ts in win_ts:
+            frame_kernel(ts, 8)
+
+    def per_frame_ms(fn, fresh=True, reps=3):
+        """Median host-clock ms per frame of fn over the window's timestamps;
+        fresh: the frame transforms rebuilt each time (as a render meets
+        them)."""
+        ms = []
+        for _ in range(reps):
+            if fresh:
+                mgr._stab_cache.clear()
+                mgr._mats_dev.clear()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            ms.append((time.perf_counter() - t0) * 1e3 / WINDOW)
+        return statistics.median(ms)
+
+    window_pass()
+    per_frame_pass()
+    wms = [per_frame_ms(per_frame_pass), per_frame_ms(window_pass), per_frame_ms(window_pass),
+           per_frame_ms(per_frame_pass)]
+    print(f"Y+UV per frame (host clock, median of 3, frames on the card; per-frame, window, "
+          f"window, per-frame): 8 process_pixels calls {wms[0]:.3f}, process_pixels_window "
+          f"(F = {WINDOW}) {wms[1]:.3f}, {wms[2]:.3f}, 8 process_pixels calls {wms[3]:.3f} ms; "
+          f"render (4f, decode + stabilize + encode of a .y4m) {render_stats['fps']} fps, "
+          f"ms per frame {render_stats.get('stage_ms_per_frame')}; {smi}")
+
+    # where a render's stabilize stage goes: the host stack and upload of a
+    # window's decoded planes, the window on the card, each frame's download
+    win_out = [mgr.process_pixels_window(win_ts, win_dev[name], None, interpolation=8,
+                                         plane_index=planes[name][0], max_pixel_value=MAXV,
+                                         plane_rects=True)[0] for name in ("Y", "UV")]
+    up_ms = per_frame_ms(lambda: [torch.as_tensor(np.stack([planes[name][1]] * WINDOW)).to(dev)
+                                  for name in ("Y", "UV")], fresh=False)
+    down_ms = per_frame_ms(lambda: [out[i].cpu().numpy() for out in win_out
+                                    for i in range(WINDOW)], fresh=False)
+    del win_out
+    mgr._stab_cache.clear()
+    mgr._mats_dev.clear()
+    win_wall, win_rows = device_rows(lambda i: window_pass(), 1)
+    win_busy = sum(r[1] for r in win_rows) / WINDOW
+    win_wall /= WINDOW
+    print(f"a render's stabilize stage per frame (Y+UV, host clock, median of 3): host stack + "
+          f"upload of the decoded planes {up_ms:.3f} ms; the window on the card {wms[1]:.3f} ms "
+          f"(under torch.profiler {win_wall:.3f} ms, device busy {win_busy:.3f} ms = "
+          f"{100.0 * win_busy / win_wall:.1f}%); download with .cpu() {down_ms:.3f} ms; {smi}")
+    report.update(window_ms={"per_frame": [wms[0], wms[3]], "window": [wms[1], wms[2]],
+                             "upload": up_ms, "download": down_ms,
+                             "profiled_wall": win_wall, "device_busy": win_busy},
+                  render=render_stats, launches_window=launches_window,
+                  launches_window_ewa=launches_window_ewa)
+    del win_dev
     report.update(frame_ms={"kernel": [fk1, fk2], "plain": [fp1, fp2]},
                   ewa_frame_ms={"kernel": [ek1, ek2], "plain": [ep1, ep2]},
                   launches=launches, launches_ewa=launches_ewa, launches_fused=launches_fused,

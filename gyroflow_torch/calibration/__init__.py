@@ -1,2 +1,3 @@
-"""Lens calibration: only ``drawing`` (the chessboard overlay) is carried by
-the port so far."""
+from .calibrator import LensCalibrator
+
+__all__ = ["LensCalibrator"]

@@ -4,9 +4,10 @@ A copy of gyroflow_tpu.core.manager (port of gyroflow src/core/lib.rs:82+)
 that imports only this package: its host modules are this package's copies.
 Rewritten for torch: the device (``torch.device``: ``cuda:0`` unless the
 caller names another card or the CPU), its listing, the per-frame matrix
-upload, and ``process_pixels``, which runs the CUDA kernels
+upload, ``process_pixels``, which runs the CUDA kernels
 (remap.remap_plane_cuda) on a CUDA device and the plain torch remap on the
-CPU. ``process_pixels_window`` is not ported yet.
+CPU, and ``process_pixels_window``, which runs a window of frames through
+parallel.pipeline's window step on the same device.
 """
 from __future__ import annotations
 
@@ -39,6 +40,26 @@ def _cuda_device(i: int) -> torch.device:
     return torch.device("cuda", i)
 
 
+def _resolve_device(device) -> torch.device:
+    """The manager's device: cuda:0 when none is named; a named card must
+    exist."""
+    if device is None:
+        return _cuda_device(0)
+    device = torch.device(device)
+    return _cuda_device(device.index or 0) if device.type == "cuda" else device
+
+
+def _plane_dtypes(dtype: torch.dtype, max_pixel_value: float):
+    """(remap out_dtype, dtype the plane is sampled in) of an uploaded plane:
+    uint8 with max_pixel_value 255 stays uint8, uint16 stays uint16, any
+    other plane is sampled as float32 and comes back float32."""
+    if dtype == torch.uint8 and max_pixel_value == 255.0:
+        return "uint8", dtype
+    if dtype == torch.uint16:
+        return "uint16", dtype
+    return "f32", torch.float32
+
+
 class StabilizationManager:
     def __init__(self, device=None):
         self.gyro = GyroSource()
@@ -55,7 +76,7 @@ class StabilizationManager:
         self.pose_estimator = None        # retained by autosync for overlays
         self.sync_lpf = 0.0               # lib.rs:1105 offset-search LPF
         # lib.rs:1978 accelerator pick: cuda:0 unless the caller names a device
-        self.device = torch.device(device) if device is not None else _cuda_device(0)
+        self.device = _resolve_device(device)
         self._compute_params: Optional[ComputeParams] = None
         self._stab_cache: Dict[int, object] = {}     # ts_us -> FrameTransform
         # guards _stab_cache: frame_transform_at is called concurrently from
@@ -1361,19 +1382,67 @@ class StabilizationManager:
                 self.params.get_scaled_fps(), 1e-9)
         return ts_ms
 
-    def process_pixels_window(self, timestamps_us, frames,
-                              device_mesh, interpolation: int = 8,
-                              plane_index: int = 0,
+    def process_pixels_window(self, timestamps_us, frames, device_mesh=None,
+                              interpolation: int = 8, plane_index: int = 0,
                               max_pixel_value: float = 255.0,
                               plane_rects: bool = False,
-                              background_override=None,
-                              use_pallas: Optional[bool] = None):
-        """Stabilize a window of frames (gyroflow_tpu manager.py:1351). Not
-        ported yet: the window pipeline and the renderer are ROADMAP queue 1,
-        items 4 and 5. Call process_pixels per frame instead."""
-        raise NotImplementedError(
-            "process_pixels_window is not ported to gyroflow_torch yet "
-            "(ROADMAP queue 1, items 4-5: window pipeline and renderer)")
+                              background_override=None):
+        """Stabilize a window of F frames of one plane (gyroflow_tpu
+        manager.py:1351; render_queue.rs:677).
+
+        frames: (F, H, W, C) numpy array or tensor, uint8/uint16/float32,
+        uploaded to ``self.device`` in one copy; timestamps_us: F video
+        timestamps. device_mesh: parallel.pipeline.make_frame_mesh's one
+        device (None: ``self.device``). Returns (out (F, OH, OW, C) tensor on
+        ``self.device`` in the output dtype of process_pixels, info dict).
+        Each frame comes out as process_pixels would give it: on a CUDA device
+        through the coords kernel and the sampler or EWA kernel, on the CPU
+        through the plain torch remap. A window whose kernel configs differ
+        goes through process_pixels frame by frame. Mesh and focal-plane
+        data raise NotImplementedError (ROADMAP queue 1, item 6)."""
+        from ..parallel.pipeline import (make_frame_mesh, stabilize_window_production,
+                                         stack_dynamics)
+
+        if device_mesh is not None and device_mesh.device != self.device:
+            raise ValueError(f"frame mesh on {device_mesh.device}, manager on {self.device}")
+        imgs = torch.as_tensor(frames).to(self.device)
+        if not self.params.stab_enabled:
+            return imgs, {"fov": 1.0, "backend": "none"}
+
+        self._lazy_recompute_if_invalidated()
+        fts = [self.frame_transform_at(self._adjusted_ts_ms(ts)) for ts in timestamps_us]
+        if any(ft.mesh_data is not None for ft in fts):
+            raise NotImplementedError("mesh / focal-plane correction is not ported to "
+                                      "gyroflow_torch yet (ROADMAP queue 1, item 6)")
+        plane_shape = tuple(imgs.shape[1:])
+        cfgs, dyns = zip(*(self._plane_cfg_dyn(ft, plane_shape, interpolation, plane_index,
+                                               max_pixel_value, plane_rects,
+                                               background_override, None) for ft in fts))
+        if any(c != cfgs[0] for c in cfgs):
+            # one step needs one config for the whole window: process the
+            # frames one by one instead of aborting the render
+            log.info("frame window not batchable (kernel configs differ); per-frame fallback")
+            outs, info = [], {}
+            for ts, img in zip(timestamps_us, imgs):
+                o, info = self.process_pixels(
+                    ts, img, interpolation=interpolation, plane_index=plane_index,
+                    max_pixel_value=max_pixel_value, plane_rects=plane_rects,
+                    background_override=background_override)
+                outs.append(o)
+            info = dict(info)
+            info["backend"] = str(info.get("backend", "")) + "+per-frame"
+            return torch.stack(outs), info
+
+        out_dtype, in_dtype = _plane_dtypes(imgs.dtype, max_pixel_value)
+        mats = np.stack([ft.matrices for ft in fts]).astype(np.float32)
+        out, backend = stabilize_window_production(
+            device_mesh or make_frame_mesh(device=self.device), imgs.to(in_dtype), mats,
+            cfgs[0], stack_dynamics(dyns), out_dtype=out_dtype)
+        info = {"fov": fts[0].fov, "minimal_fov": fts[0].minimal_fov,
+                "backend": backend,
+                "xla_fallbacks": self.stats["xla_fallbacks"],
+                "window_reprobes": self.stats["window_reprobes"]}
+        return out, info
 
     def process_pixels(self, timestamp_us: int, frame_plane,
                        interpolation: int = 8, plane_index: int = 0,
@@ -1415,14 +1484,8 @@ class StabilizationManager:
             ft, tuple(img.shape), interpolation, plane_index, max_pixel_value,
             plane_rects, background_override, drawing)
 
-        if img.dtype == torch.uint8 and max_pixel_value == 255.0:
-            out_dtype = "uint8"
-        elif img.dtype == torch.uint16:
-            out_dtype = "uint16"
-        else:
-            out_dtype = "f32"
-            if img.dtype != torch.float32:
-                img = img.to(torch.float32)
+        out_dtype, in_dtype = _plane_dtypes(img.dtype, max_pixel_value)
+        img = img.to(in_dtype)
         mats, mesh = self._mats_on_device(ts_ms, ft)
         if self.device.type == "cuda":
             out = remap.remap_plane_cuda(img, mats, cfg, dyn, mesh, drawing=drawing,

@@ -1,2 +1,3 @@
-"""Gyro-to-video synchronization: only ``optimsync`` (sync-point picking) is
-carried by the port so far."""
+from . import autosync, pose_estimator
+
+__all__ = ["autosync", "pose_estimator"]

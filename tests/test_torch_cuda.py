@@ -716,3 +716,71 @@ def test_experiments_run_all_on_the_card(dev):
     for name in ("Y", "UV"):
         assert r["fused_bbox"][name]["bbox_err_px"] <= 1e-4
         assert r["fused_bbox"][name]["valid_mismatches"] == 0
+
+
+def _card_manager(dev, tmp_path):
+    """A StabilizationManager on the card: W x H, a fisheye lens, 8 ms
+    rolling shutter, a seeded synthetic gyro log."""
+    from gyroflow_torch.core.lens_profile import CameraParams, Dimensions, LensProfile
+    from gyroflow_torch.core.manager import StabilizationManager
+
+    rng = np.random.default_rng(4)
+    rows = ["GYROFLOW IMU LOG", "tscale,0.001", "gscale,1.0", "ascale,1.0", "t,gx,gy,gz"]
+    rows += [f"{i},{0.3 * math.sin(i / 30):.5f},{rng.normal(0, 0.05):.5f},0.01"
+             for i in range(1200)]
+    gcsv = tmp_path / "card.gcsv"
+    gcsv.write_text("\n".join(rows))
+    m = StabilizationManager(device=dev)
+    m.init_from_video_data(1000.0, 30.0, 30, (W, H))
+    m.lens = LensProfile(calib_dimension=Dimensions(W, H), fisheye_params=CameraParams(
+        camera_matrix=[[W * 0.6, 0, W / 2], [0, W * 0.6, H / 2], [0, 0, 1]],
+        distortion_coeffs=[0.25, -0.05, 0.01, -0.001]), distortion_model="opencv_fisheye")
+    m.lens.init()
+    m.params.frame_readout_time = 8.0
+    m.load_gyro_data(str(gcsv))
+    m.recompute_blocking()
+    return m
+
+
+@pytest.mark.parametrize("dtype,interpolation", [("uint16", 8), ("uint16", 11), ("uint8", 8),
+                                               ("float32", 8)])
+@pytest.mark.parametrize("plane", ["Y", "UV"])
+def test_window_vs_per_frame_on_the_card(dev, tmp_path, plane, dtype, interpolation):
+    """A 2-frame process_pixels_window on the card: one coords and one
+    sampler (or EWA) launch per frame, each frame 0 codes from its own
+    process_pixels, in the plane's output dtype."""
+    m = _card_manager(dev, tmp_path)
+    shape = (H, W, 1) if plane == "Y" else (H // 2, W // 2, 2)
+    maxv = 255.0 if dtype == "uint8" else 1023.0
+    frames = np.random.default_rng(6).integers(0, int(maxv) + 1, (2,) + shape).astype(dtype)
+    ts = [500_000, 533_333]
+    kw = dict(interpolation=interpolation, plane_index=0 if plane == "Y" else 1,
+              max_pixel_value=maxv, plane_rects=True)
+    sample = cuda_ewa.sample if interpolation > 8 else cuda_sampler.sample
+    n0 = (cuda_coords.project.launches, sample.launches)
+    out, info = m.process_pixels_window(ts, frames, None, **kw)
+    torch.cuda.synchronize()
+    assert (cuda_coords.project.launches - n0[0], sample.launches - n0[1]) == (2, 2)
+    assert info["backend"] == "cuda-window"
+    assert out.dtype == getattr(torch, dtype) and out.device == dev
+    assert tuple(out.shape) == frames.shape
+    for i in range(2):
+        one, _ = m.process_pixels(ts[i], frames[i], **kw)
+        assert torch.equal(out[i], one)
+
+
+def test_undistort_stmap_on_the_card(dev, tmp_path):
+    """utils/stmap's undistort projection through the coords kernel against
+    the plain undistort_coord on the same card tensors."""
+    from gyroflow_torch.ops.kernel_params import dyn_to_torch as to_dev
+    from gyroflow_torch.utils import stmap
+
+    m = _card_manager(dev, tmp_path)
+    n0 = cuda_coords.project.launches
+    u, v, valid = stmap.undistort_uv(m, 500.0)
+    assert cuda_coords.project.launches == n0 + 1
+    ox, oy, mats, cfg, dyn, out_c, out_f = stmap.undistort_inputs(m, 500.0)
+    up, vp, validp = remap.undistort_coord(ox, oy, mats, cfg, to_dev(dyn, dev), out_c, out_f)
+    assert torch.equal(valid, validp)
+    assert float((u - up).abs()[valid].max()) <= 1e-4
+    assert float((v - vp).abs()[valid].max()) <= 1e-4

@@ -13,8 +13,9 @@ seeded .gcsv of test_end_to_end.py).
 - The device is explicit: cuda:0 by default, an error when that card (or
   the one set_device names) is missing, the CPU only when asked for.
 - With jax and gyroflow_tpu blocked by an import hook, every module of the
-  port imports and the manager renders: the card's machine has no jax, and
-  the port carries its own copies of the host modules.
+  port imports, the manager renders and the renderer writes a y4m: the
+  card's machine has no jax, and the port carries its own copies of the host
+  modules.
 """
 import os
 import subprocess
@@ -155,12 +156,6 @@ def test_process_pixels_ewa_matches_jax(managers, plane):
     assert np.abs(got.numpy().astype(np.int32) - want.astype(np.int32)).max() <= 1
 
 
-def test_window_entry_is_not_ported(managers):
-    tm, _ = managers
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tm.process_pixels_window([0], np.zeros((1, H, W, 1), np.uint16), None)
-
-
 _NO_JAX_SCRIPT = textwrap.dedent('''
     import importlib, importlib.abc, pkgutil, sys
 
@@ -205,6 +200,20 @@ _NO_JAX_SCRIPT = textwrap.dedent('''
     uv, _ = m.process_pixels(500_000, rng.integers(0, 1024, (H // 2, W // 2, 2)).astype(np.uint16),
                              plane_index=1, max_pixel_value=1023.0, plane_rects=True)
     assert tuple(y.shape) == (H, W, 1) and tuple(uv.shape) == (H // 2, W // 2, 2)
+
+    # a 4-frame 10-bit y4m through the renderer (one padded 8-frame window)
+    from gyroflow_torch.render.renderer import RenderOptions, render
+    from gyroflow_torch.render.y4m_io import Y4MReader, Y4MWriter
+    w = Y4MWriter("in.y4m", W, H, 30.0, "yuv420p10le")
+    for _ in range(4):
+        w.write_planes([rng.integers(0, 1024, s).astype("<u2")
+                        for s in ((H, W, 1), (H // 2, W // 2, 1), (H // 2, W // 2, 1))])
+    w.close()
+    stats = render(m, "in.y4m", "out.y4m", RenderOptions())
+    assert stats["frames"] == 4 and stats["frame_window"] == 8, stats
+    r = Y4MReader("out.y4m")
+    assert len(list(r)) == 4
+    r.close()
     assert not any(k.split(".")[0] in BLOCKED for k in sys.modules)
     print("NO_JAX_OK", len(mods))
 ''')
