@@ -76,14 +76,28 @@ exits non-zero without the final line):
    samplers against remap.sample_input, sampler.cu against probe 4's full
    mode, the coords kernel against rotate_and_distort); times are the
    probes' own (CUDA events around each call, L2 flushed before it), with
-   each kernel's bound.
+   each kernel's bound;
+8. every lens model and digital lens (csrc/lens.cuh): each of the 14
+   models as the main model and each of the 5 digital lenses on the fisheye
+   base through the coords kernel at the 4K Y plane's shapes (the main
+   manager's frame transform with the lens swapped in), gf_coords_gen
+   (models) and gf_fused, each against its plain version (0.01 px, valid
+   identical; 0.01 codes), with each one's time and bound; insta360's
+   lens-correction coords_pre in eager torch (timed, not fixed); then the
+   slice's frames through a manager built with each lens: (a) Sony, (b) a
+   GoPro HERO 4K SuperView clip (fisheye + gopro_superview, lens correction
+   0.5), (c) Canon (opencv_standard), (d) EWA (interpolation 11) with (a);
+   3 frames of Y and UV through process_pixels and a process_pixels_window
+   (F = 8; 2 for EWA), held as phases 4-4e hold the fisheye render, with
+   launch counts, ms per frame and device time per frame.
 
 Each kernel's bound (the least time the card could take for the same work)
 is the larger of its bytes (each input read once, each output written once)
 over 3.35 TB/s and its FP32 operations (counted from the kernel source, at
 this run's inputs: taps only for valid pixels, EWA taps only inside each
 pixel's bbox, and their weights and sums only where dr < 4, the taps with a
-nonzero weight) over 67 TFLOP/s, the H100 SXM's published peaks. The 67
+nonzero weight; a lens's masked loop only for the steps before each pixel
+is done, counted on the plain version's run) over 67 TFLOP/s, the H100 SXM's published peaks. The 67
 TFLOP/s counts a fused multiply-add as two operations; the kernels are built
 with --fmad=false, so each multiply and add issues on its own and an
 operation-bound kernel can reach at most half that rate. The bound keeps
@@ -92,9 +106,10 @@ its definition so that it compares across runs.
 Second-to-last lines: the card's name and power limit, then one JSON object
 with the kernels; last line: {"ok": true, "device": {...}}. Needs one card and
 nvcc; a copy of the kernel library is built under gyroflow_torch/build/.
-60-105 s on an H100, the kernels' build (one nvcc per source, run
-together, 15-30 s), Triton's compile and phase 4g's host-side ST maps
-(9-12 s) included: the host's share varies with the machine's load.
+A few minutes on an H100, the kernels' build (one nvcc per source, run
+together; ~55 s, fused.cu's 72 instantiations the longest), Triton's
+compile, phase 4g's host-side ST maps and phase 8's three extra managers
+included: the host's share varies with the machine's load.
 """
 from __future__ import annotations
 
@@ -133,6 +148,54 @@ PEAK_FP32_S = 67e12
 PROJECT_OPS = 77
 POST_OPS = 16               # fused: source-rect map 8, guard 6, tap offset 2
 GEN_PRE_OPS = 18            # gen: position 3, out-rect map 8, t2d 2, rint index 4, select 1
+# FP32 operations of each model's distort_xy (csrc/lens.cuh), counted as
+# PROJECT_OPS is: (outside its loop, per loop step). A masked loop (gopro's
+# Newton, a digital lens's fixed point: its map + 10) is counted at the
+# steps this run's inputs need (lens_ops), not at its 10 or 12. The rest of
+# the projection (3x3, validity, f, c, stretch) is PROJECT_OPS less
+# fisheye's 46; a digital lens adds its test and its map after c.
+DISTORT_OPS = {"opencv_fisheye": (46, 0), "opencv_standard": (48, 0), "poly3": (9, 0),
+               "poly5": (12, 0), "ptlens": (15, 0), "insta360": (43, 0), "sony": (49, 0),
+               "generic_polynomial": (78, 0), "gopro": (42, 31), "gopro_superview": (11, 28),
+               "gopro6_superview": (10, 25), "gopro_hyperview": (11, 34),
+               "gopro_warp": (61, 49), "digital_stretch": (2, 0)}
+# the plain loop (distortion_models) each iterative model runs
+LOOP_OF = {"gopro": "_gopro_poly_invert", "gopro_superview": "_fixed_point_invert",
+           "gopro6_superview": "_fixed_point_invert", "gopro_hyperview": "_fixed_point_invert",
+           "gopro_warp": "_fixed_point_invert"}
+PROJECT_BASE_OPS = PROJECT_OPS - DISTORT_OPS["opencv_fisheye"][0]
+LENS_TOL_PX = 0.01          # phase 8: kernel vs plain, the same float32 ops (0 expected)
+# the lenses of phase 8: coefficient shapes of real profiles
+# (tests/test_distortion_models.py COEFFS) and digital-lens parameters
+LENS_K = {"opencv_fisheye": [0.25, -0.1, 0.03, -0.004],
+          "opencv_standard": [-0.28, 0.09, 0.0001, -0.0002, -0.015],
+          "poly3": [0.08], "poly5": [0.05, -0.01], "ptlens": [0.01, -0.03, 0.02],
+          "insta360": [0.05, -0.01, 0.002, 0.0005, -0.0003, 1.1],
+          "sony": [1.0, 0.02, 0.1, -0.05, 0.01, -0.001],
+          "generic_polynomial": [1.0, 0.0, 0.16, 0.0, 0.012],
+          "gopro": [0.0, 1.1, 0.05, 0.22, -0.1, 0.02, 0.0]}
+LENS_DLP = {"digital_stretch": [1.333333, 1.0],
+            "gopro_warp": [1.05, 0.2, -0.1, 0.05, -0.01, 0.002, -0.0001, 0.02,
+                           1.02, 0.05, -0.01, 0.03, -0.005, 0.001, 1.3333, 0.0]}
+
+
+def lenses():
+    """Phase 8's lenses: each model as the main model, in the kernels' id
+    order (distortion_models.MODEL_IDS), then each digital lens on the
+    fisheye base."""
+    from gyroflow_torch.ops.distortion_models import MODEL_IDS, get_model
+    return ([(m, None) for m in MODEL_IDS]
+            + [("opencv_fisheye", m) for m in MODEL_IDS if get_model(m).is_digital])
+
+
+# resources/camera_presets/GoPro_HERO11_Black_wide_3840x2160_59940.json
+GOPRO_HERO11 = dict(k=[0.262, -0.0587, 0.0222, -0.0034], f=1714.944)
+# the slice's frames: (label, lens of make_manager, interpolation)
+SLICES = (("a: Sony", dict(model="sony", k=LENS_K["sony"]), 8),
+          ("b: GoPro HERO 4K SuperView", dict(digital="gopro_superview", lens_correction=0.5,
+                                              **GOPRO_HERO11), 8),
+          ("c: Canon", dict(model="opencv_standard", k=LENS_K["opencv_standard"]), 8),
+          ("d: Sony, EWA", dict(model="sony", k=LENS_K["sony"]), 11))
 
 
 def sampler_ops(C, taps=8):
@@ -192,27 +255,32 @@ def make_planes():
             "UV": (1, smooth_plane(rng, H // 2, W // 2, 2))}
 
 
-def make_manager(dev, workdir):
-    """The main path's StabilizationManager on dev: W x H at FPS, a fisheye
-    lens, 8 ms rolling shutter, the seeded gyro log written to workdir."""
+def make_manager(dev, workdir, model="opencv_fisheye", k=(0.25, -0.05, 0.01, -0.001),
+                 f=None, digital=None, lens_correction=1.0):
+    """The main path's StabilizationManager on dev: W x H at FPS, a lens
+    (by default the main path's fisheye, f = 0.6 W), 8 ms rolling shutter,
+    the seeded gyro log written to workdir."""
     from gyroflow_torch.core.lens_profile import CameraParams, Dimensions, LensProfile
     from gyroflow_torch.core.manager import StabilizationManager
     gcsv = Path(workdir) / "chip_smoke.gcsv"
     write_gcsv(gcsv)
+    f = W * 0.6 if f is None else f
     mgr = StabilizationManager(device=dev)
     mgr.init_from_video_data(1000.0, FPS, int(FPS), (W, H))
     mgr.lens = LensProfile(
         calib_dimension=Dimensions(W, H),
         fisheye_params=CameraParams(
-            camera_matrix=[[W * 0.6, 0, W / 2], [0, W * 0.6, H / 2], [0, 0, 1]],
-            distortion_coeffs=[0.25, -0.05, 0.01, -0.001]),
-        distortion_model="opencv_fisheye")
+            camera_matrix=[[f, 0, W / 2], [0, f, H / 2], [0, 0, 1]],
+            distortion_coeffs=list(k)),
+        distortion_model=model, digital_lens=digital)
     mgr.lens.init()
     mgr.params.frame_readout_time = 8.0
+    mgr.params.lens_correction_amount = lens_correction
     mgr.load_gyro_data(str(gcsv))
     t0 = time.perf_counter()
     mgr.recompute_blocking()
-    print(f"manager: {W}x{H} @ {FPS} fps, recompute_blocking {time.perf_counter() - t0:.2f} s")
+    print(f"manager: {W}x{H} @ {FPS} fps, {model}{'+' + digital if digital else ''}, lens "
+          f"correction {lens_correction}, recompute_blocking {time.perf_counter() - t0:.2f} s")
     return mgr
 
 
@@ -261,28 +329,42 @@ def plane_bg(dyn, img):
 
 
 # mangled names of the kernels the driven paths launch (uint16 planes, C=1/2;
-# the experiments' float32 planes)
-MAIN_PATH_KERNELS = {"coords": "coords_kernel", "sampler<u16,C1,8>": "sampler_kernelItLi1ELi8E",
+# the experiments' float32 planes): coords, coords_gen and fused are the
+# fisheye instantiations; phase 8's lenses follow (lens_kernels)
+MAIN_PATH_KERNELS = {"coords": "coords_kernelILi0ELb0EE",
+                     "sampler<u16,C1,8>": "sampler_kernelItLi1ELi8E",
                      "sampler<u16,C2,8>": "sampler_kernelItLi2ELi8E",
                      "ewa<u16,C1>": "ewa_kernelItLi1EE", "ewa<u16,C2>": "ewa_kernelItLi2EE",
-                     "fused<u16,C1,8>": "fused_kernelItLi1ELi8E",
-                     "fused<u16,C2,8>": "fused_kernelItLi2ELi8E",
-                     "coords_gen": "coords_gen_kernel",
+                     "fused<u16,C1,8>": "fused_kernelItLi1ELi8ELb0EE",
+                     "fused<u16,C2,8>": "fused_kernelItLi2ELi8ELb0EE",
+                     "coords_gen": "coords_gen_kernelILi0EE",
                      "fused_bbox<C1,8>": "fused_bbox_kernelILi1ELi8E",
                      "fused_bbox<C2,8>": "fused_bbox_kernelILi2ELi8E",
                      "window_colsum": "window_colsum_kernel",
                      "probe_sampler<C1,full,fp32>": "probe_sampler_kernelILi1ELi3ELi0EE",
                      "probe_sampler<C1,full,bf16>": "probe_sampler_kernelILi1ELi3ELi1EE",
                      "probe_sampler<C1,full,bf16x3>": "probe_sampler_kernelILi1ELi3ELi2EE",
-                     "probe_sampler<C2,full,fp32>": "probe_sampler_kernelILi2ELi3ELi0EE"}
+                     "probe_sampler<C2,full,fp32>": "probe_sampler_kernelILi2ELi3ELi0EE",
+                     "fused<u16,C1,8,any lens>": "fused_kernelItLi1ELi8ELb1EE"}
+
+
+def lens_kernels():
+    """Mangled names of phase 8's instantiations, by model id
+    (distortion_models.MODEL_IDS, lens.cuh's ModelId)."""
+    from gyroflow_torch.ops.distortion_models import MODEL_IDS
+    return {**{f"coords<{m}>": f"coords_kernelILi{i}ELb0EE" for m, i in MODEL_IDS.items() if i},
+            **{f"coords<{m},digital>": f"coords_kernelILi{i}ELb1EE" for m, i in MODEL_IDS.items()},
+            **{f"coords_gen<{m}>": f"coords_gen_kernelILi{i}EE"
+               for m, i in MODEL_IDS.items() if i}}
 
 
 def ptxas_summary(log):
-    """Registers and spills of the main path's kernels from nvcc -Xptxas -v."""
+    """Registers and spills of the driven paths' kernels from nvcc -Xptxas -v."""
+    names = {**MAIN_PATH_KERNELS, **lens_kernels()}
     out, current = {}, None
     for ln in log.splitlines():
         if "Compiling entry function" in ln:
-            current = next((k for k, m in MAIN_PATH_KERNELS.items() if m in ln), None)
+            current = next((k for k, m in names.items() if m in ln), None)
         elif current and ("spill" in ln or "registers" in ln):
             out[current] = (out.get(current, "") + " " + ln.split(":")[-1].strip()).strip()
     return out
@@ -605,6 +687,247 @@ def experiments_phase(dev, smi):
                      "bounds": {k: bound(v) for k, v in parts.items()}}
 
 
+def lens_name(model, digital):
+    return model if digital is None else f"{model}+{digital}"
+
+
+def with_lens(cfg, dyn, model, digital, lens_correction=1.0):
+    """A plane's (cfg, dyn) with the lens (model, digital) and its
+    coefficients (LENS_K, LENS_DLP) swapped in."""
+    from gyroflow_torch.ops.kernel_params import HAS_DIGITAL_LENS, KernelDynamics
+    lens = KernelDynamics.make(k=LENS_K.get(model), lens_correction_amount=lens_correction,
+                               digital_lens_params=LENS_DLP.get(digital or model))
+    cfg = cfg._replace(distortion_model=model, digital_lens=digital,
+                       flags=(cfg.flags & ~HAS_DIGITAL_LENS) | (HAS_DIGITAL_LENS if digital else 0),
+                       lens_correction=lens_correction < 1.0)
+    dyn = dyn._replace(k=lens.k, digital_lens_params=lens.digital_lens_params,
+                       lens_correction_amount=lens.lens_correction_amount)
+    return cfg, dyn
+
+
+def loop_steps(fn):
+    """(fn(), lane-steps) of a plain run: each masked loop of the lens math
+    (distortion_models' _gopro_poly_invert and _fixed_point_invert) counts,
+    step by step, the lanes not yet done at the step's start, which are the
+    steps the function needs; {loop name: lane-steps summed over the run}."""
+    import functools
+    from gyroflow_torch.ops import distortion_models as tdm
+    live = {name: [] for name in set(LOOP_OF.values())}
+    saved = {name: getattr(tdm, name) for name in live}
+    try:
+        for name, f in saved.items():
+            setattr(tdm, name, functools.partial(f, live=live[name]))
+        out = fn()
+    finally:
+        for name, f in saved.items():
+            setattr(tdm, name, f)
+    return out, {name: sum(int(n) for n in counts) for name, counts in live.items()}
+
+
+def lens_ops(model, digital, n_proj, steps):
+    """FP32 operations of n_proj projections with the lens, each masked loop
+    at the lane-steps this run needs (steps, from loop_steps)."""
+    loops = [LOOP_OF[m] for m in (model, digital) if m in LOOP_OF]
+    check(len(set(loops)) == len(loops), f"{model}+{digital}: two loops of one kind")
+    ops = n_proj * (PROJECT_BASE_OPS + DISTORT_OPS[model][0]
+                    + (1 + DISTORT_OPS[digital][0] if digital else 0))
+    for m in (model, digital):
+        if m in LOOP_OF:
+            ops += DISTORT_OPS[m][1] * steps[LOOP_OF[m]]
+    return ops
+
+
+def compare_lens_uv(label, k, p):
+    """Phase 8's check of a projection against its plain version: valid
+    masks identical, the same non-finite values (a fixed point that
+    diverges), finite u and v within LENS_TOL_PX. Returns max |du|, |dv|."""
+    import torch
+    (uk, vk, valk), (up, vp, valp) = k, p
+    check(torch.equal(valk, valp), f"{label}: valid masks differ")
+    d = 0.0
+    for a, b in ((uk, up), (vk, vp)):
+        fin = torch.isfinite(b)
+        check(torch.equal(torch.isfinite(a), fin)
+              and torch.equal(a[~fin].isnan(), b[~fin].isnan()),
+              f"{label}: non-finite values differ")
+        ok = valk & fin
+        if bool(ok.any()):
+            d = max(d, float((a - b).abs()[ok].max()))
+    check(d <= LENS_TOL_PX, f"{label}: u/v differ by {d}")
+    return d
+
+
+def lens_phase(dev, smi, workdir, mgr, planes, dev_planes, kernel_ms, pre_coords, out_cf,
+               drive, drive_window, expect, device_rows):
+    """Phase 8: every lens model and digital lens through gf_coords,
+    gf_coords_gen and gf_fused against their plain versions at the 4K Y
+    plane's shapes, with times and bounds; then the slice's frames (a)-(d)
+    through process_pixels and the window of a manager built with each lens.
+    Returns (entries for the kernels line, report)."""
+    import torch
+    from gyroflow_torch.ops import cuda_coords, cuda_fused, remap
+    from gyroflow_torch.ops.kernel_params import dyn_to_torch
+
+    phase("every lens model and digital lens: gf_coords (4K Y), gf_coords_gen and gf_fused vs "
+          "plain torch on the card")
+    cfg0, dyn0, mats = plane_setup(mgr, planes, 500_000, "Y", 8)
+    img = dev_planes["Y"]
+    bg = plane_bg(dyn0, img)
+    ow, oh = cfg0.out_buffer
+    n_px, C = ow * oh, img.shape[2]
+    table, plane_bytes = mats.numel() * 4, img.numel() * img.element_size()
+    rows = {}
+    for model, digital in lenses():
+        name = lens_name(model, digital)
+        cfg, dyn = with_lens(cfg0, dyn0, model, digital)
+        x, y, idx = pre_coords(cfg, dyn, mats)
+        k = cuda_coords.project(x, y, idx, mats, cfg, dyn)
+        p, steps = loop_steps(lambda: cuda_coords.project_plain(x, y, idx, mats, cfg, dyn))
+        torch.cuda.synchronize()
+        n_valid = int(p[2].sum())
+        ops = lens_ops(model, digital, n_px, steps)
+        r = {"model": model, "digital": digital,
+             "loop_steps_per_px": {m: steps[LOOP_OF[m]] / n_px
+                                   for m in (model, digital) if m in LOOP_OF},
+             "coords": {"err": compare_lens_uv(f"coords {name}", k, p),
+                        "ms": kernel_ms(lambda: cuda_coords.project(x, y, idx, mats, cfg, dyn)),
+                        "plain_ms": cuda_ms(lambda: cuda_coords.project_plain(
+                            x, y, idx, mats, cfg, dyn), reps=3, warm=1),
+                        "bound": bound([(n_px * 21 + table, ops)])}}
+        if digital is None:
+            cf = out_cf(cfg, dyn_to_torch(dyn, dev))
+            gk = cuda_coords.project_gen(cfg, dyn, mats, oh, 0, *cf)
+            gp, gsteps = loop_steps(lambda: cuda_coords.project_gen_plain(cfg, dyn, mats, oh, 0,
+                                                                          *cf))
+            torch.cuda.synchronize()
+            r["coords_gen"] = {
+                "err": compare_lens_uv(f"gen {name}", gk, gp),
+                "ms": kernel_ms(lambda: cuda_coords.project_gen(cfg, dyn, mats, oh, 0, *cf)),
+                "plain_ms": cuda_ms(lambda: cuda_coords.project_gen_plain(
+                    cfg, dyn, mats, oh, 0, *cf), reps=3, warm=1),
+                "bound": bound([(table + n_px * 9,
+                                 n_px * GEN_PRE_OPS + lens_ops(model, digital, 2 * n_px, gsteps))])}
+        fk = cuda_fused.remap_fused(img, x, y, idx, mats, cfg, dyn, bg, MAXV)
+        fp = cuda_fused.remap_fused_plain(img, x, y, idx, mats, cfg, dyn, bg, MAXV)
+        torch.cuda.synchronize()
+        df = float((fk - fp).abs().max())
+        check(bool(torch.isfinite(fk).all()) and df <= SAMPLER_TOL,
+              f"fused {name}: differs from its plain version by {df}")
+        r["fused"] = {"err": df,
+                      "ms": kernel_ms(lambda: cuda_fused.remap_fused(img, x, y, idx, mats, cfg,
+                                                                     dyn, bg, MAXV)),
+                      "plain_ms": cuda_ms(lambda: cuda_fused.remap_fused_plain(
+                          img, x, y, idx, mats, cfg, dyn, bg, MAXV), reps=3, warm=1),
+                      "bound": bound([(plane_bytes + table + n_px * (12 + 4 * C),
+                                       ops + n_valid * (POST_OPS + sampler_ops(C)))])}
+        loops = "".join(f" {m} loop steps {v:.3f}/px of {10 if m == 'gopro' else 12};"
+                        for m, v in r["loop_steps_per_px"].items())
+        print(f"{name:32s} valid {n_valid / n_px:.4f};{loops} " + "; ".join(
+            f"{kind} max|d| {v['err']:.3g} kernel {v['ms']:.4f} ms plain {v['plain_ms']:.4f} ms "
+            f"bound {v['bound'][0]:.4f} ({v['bound'][1]}, "
+            f"{100.0 * v['bound'][0] / v['ms']:.1f}%)"
+            for kind, v in r.items() if kind in ("coords", "coords_gen", "fused")))
+        rows[name] = r
+
+    cfg, dyn = with_lens(cfg0, dyn0, "insta360", None, lens_correction=0.5)
+    pre_ms = cuda_ms(lambda: pre_coords(cfg, dyn, mats), reps=1, warm=1)
+    _, pre_rows = device_rows(lambda i: pre_coords(cfg, dyn, mats), 1)
+    print(f"insta360 with lens correction 0.5: coords_pre (eager torch, 200 masked fixed-point "
+          f"steps) on the 4K Y plane {pre_ms:.1f} ms (CUDA events), device busy "
+          f"{sum(r[1] for r in pre_rows):.1f} ms over {sum(r[2] for r in pre_rows):.0f} kernels "
+          f"(torch.profiler); not fixed here ({smi})")
+
+    # ---- the slice's frames through a manager with each lens ----------------
+    slices, lens_mgrs = {}, {}
+    win_ts = [int(round((i + 20) * 1e6 / FPS)) for i in range(WINDOW)]
+    for label, lens, interpolation in SLICES:
+        key = lens_name(lens.get("model", "opencv_fisheye"), lens.get("digital"))
+        phase(f"slice frame {label} ({key}, interpolation {interpolation}): process_pixels and "
+              f"process_pixels_window, 4K 10-bit YUV420")
+        if key not in lens_mgrs:
+            lens_mgrs[key] = make_manager(dev, workdir, **lens)
+        lm = lens_mgrs[key]
+        sampler = "ewa" if interpolation in remap.EWA_BC else "sampler"
+        n_win = EWA_WINDOW if sampler == "ewa" else WINDOW
+        counts = drive(interpolation, expect(coords=2 * FRAMES, **{sampler: 2 * FRAMES}), m=lm)
+        wcounts = drive_window(interpolation, n_win,
+                               expect(coords=2 * n_win, **{sampler: 2 * n_win}), m=lm)
+
+        def frame(i):
+            for nm in ("Y", "UV"):
+                lm.process_pixels(int(round((i + 10) * 1e6 / FPS)), dev_planes[nm],
+                                  interpolation=interpolation, plane_index=planes[nm][0],
+                                  max_pixel_value=MAXV, plane_rects=True)
+
+        win = {nm: dev_planes[nm][None].expand(n_win, *dev_planes[nm].shape).contiguous()
+               for nm in ("Y", "UV")}
+
+        def window():
+            for nm in ("Y", "UV"):
+                lm.process_pixels_window(win_ts[:n_win], win[nm], None,
+                                         interpolation=interpolation,
+                                         plane_index=planes[nm][0], max_pixel_value=MAXV,
+                                         plane_rects=True)
+
+        def host_ms(fn, n, per):
+            ms = []
+            for i in range(n):
+                lm._stab_cache.clear()
+                lm._mats_dev.clear()
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                fn(i)
+                torch.cuda.synchronize()
+                ms.append((time.perf_counter() - t0) * 1e3 / per)
+            return statistics.median(ms)
+
+        frame(0)
+        window()
+        frame_ms = host_ms(frame, 5, 1)
+        window_ms = host_ms(lambda i: window(), 3, n_win)
+        lm._stab_cache.clear()
+        lm._mats_dev.clear()
+        wall, dev_rows = device_rows(lambda i: frame(i + 40), 3)
+        busy = sum(r[1] for r in dev_rows)
+        del win
+        slices[label] = {"lens": key, "interpolation": interpolation, "launches": counts,
+                         "window_launches": wcounts, "frame_ms": frame_ms,
+                         "window_ms_per_frame": window_ms, "profiled_wall_ms": wall,
+                         "device_ms": busy, "kernels_per_frame": sum(r[2] for r in dev_rows)}
+        print(f"slice {label}: process_pixels Y+UV {frame_ms:.3f} ms/frame (host clock, median "
+              f"of 5), process_pixels_window (F = {n_win}) {window_ms:.3f} ms/frame (median of "
+              f"3); under torch.profiler {wall:.3f} ms/frame, device busy {busy:.3f} ms "
+              f"({100.0 * busy / wall:.1f}%) over {slices[label]['kernels_per_frame']:.0f} "
+              f"kernels; {smi}")
+
+    # ---- the kernels line's entries: the instantiations besides fisheye ------
+    launched = {}
+    for sl in slices.values():
+        launched[sl["lens"]] = (launched.get(sl["lens"], 0) + sl["launches"]["coords"]
+                                + sl["window_launches"]["coords"])
+    sources = {"coords": ("gyroflow_torch/csrc/coords.cu", "gyroflow_tpu/ops/pallas_coords.py:68"),
+               "coords_gen": ("gyroflow_torch/csrc/coords.cu",
+                              "gyroflow_tpu/ops/pallas_coords.py:257"),
+               "fused": ("gyroflow_torch/csrc/fused.cu", "gyroflow_tpu/ops/pallas_fused.py:57")}
+    entries = []
+    for name, r in rows.items():
+        if name == "opencv_fisheye":       # the existing coords, coords_gen, fused entries
+            continue
+        for kind in ("coords", "coords_gen", "fused"):
+            if kind not in r:
+                continue
+            v = r[kind]
+            entries.append({"name": f"{kind}<{name}>", "route": "cuda",
+                            "source": sources[kind][0], "replaces": sources[kind][1],
+                            "launches": launched.get(name, 0) if kind == "coords" else 0,
+                            "max_abs_err": v["err"], "ms": v["ms"], "plain_ms": v["plain_ms"],
+                            "bound_ms": v["bound"][0], "bound_by": v["bound"][1],
+                            "library_ms": None})
+    check("jax" not in sys.modules, "jax was imported")
+    return entries, {"lenses": rows, "insta360_lens_correction_coords_pre_ms": pre_ms,
+                     "slices": slices}
+
+
 def main() -> int:
     t_start = time.perf_counter()
     import torch
@@ -827,17 +1150,19 @@ def main() -> int:
     def expect(**kw):
         return {k: kw.get(k, 0) for k in counters}
 
-    def drive(interpolation, expected):
-        """3 frames of Y and UV through process_pixels inside driven(); each
-        plane held against the plain torch path."""
+    def drive(interpolation, expected, m=None):
+        """3 frames of Y and UV through process_pixels of m (the main
+        manager by default) inside driven(); each plane held against the
+        plain torch path."""
+        m = m or mgr
         outs = []
         with driven("process_pixels", expected) as counts:
             for ts in ts_list:
                 for name in ("Y", "UV"):
                     pi, host = planes[name]
-                    out, info = mgr.process_pixels(ts, host, interpolation=interpolation,
-                                                   plane_index=pi, max_pixel_value=MAXV,
-                                                   plane_rects=True)
+                    out, info = m.process_pixels(ts, host, interpolation=interpolation,
+                                                 plane_index=pi, max_pixel_value=MAXV,
+                                                 plane_rects=True)
                     outs.append((ts, name, out, info))
         for ts, name, out, info in outs:
             want_shape = (H, W, 1) if name == "Y" else (H // 2, W // 2, 2)
@@ -845,7 +1170,7 @@ def main() -> int:
             check(out.dtype == torch.uint16 and out.device.type == "cuda",
                   f"{name}: {out.dtype} on {out.device}")
             check(info["backend"] == "cuda", f"{name}: backend {info['backend']}")
-            cfg, dyn, mats = plane_setup(mgr, planes, ts, name, interpolation)
+            cfg, dyn, mats = plane_setup(m, planes, ts, name, interpolation)
             ref = remap.remap_plane(dev_planes[name], mats, cfg, dyn, out_dtype="uint16")
             d = int((out.to(torch.int32) - ref.to(torch.int32)).abs().max())
             n_diff = int((out.to(torch.int32) != ref.to(torch.int32)).sum())
@@ -901,15 +1226,16 @@ def main() -> int:
     import numpy as np
     win_ts = [int(round((i + 20) * 1e6 / FPS)) for i in range(WINDOW)]
 
-    def drive_window(interpolation, n, expected):
-        """process_pixels_window over n timestamps of the Y and UV planes
-        inside driven(); each frame held against process_pixels, frame 0
-        against the plain torch path."""
+    def drive_window(interpolation, n, expected, m=None):
+        """process_pixels_window of m (the main manager by default) over n
+        timestamps of the Y and UV planes inside driven(); each frame held
+        against process_pixels, frame 0 against the plain torch path."""
+        m = m or mgr
         outs = {}
         with driven(f"process_pixels_window (F = {n})", expected, frames=n) as counts:
             for name in ("Y", "UV"):
                 pi, host = planes[name]
-                outs[name] = mgr.process_pixels_window(
+                outs[name] = m.process_pixels_window(
                     win_ts[:n], np.stack([host] * n), None, interpolation=interpolation,
                     plane_index=pi, max_pixel_value=MAXV, plane_rects=True)
         for name, (out, info) in outs.items():
@@ -920,10 +1246,10 @@ def main() -> int:
             check(info["backend"] == "cuda-window", f"window {name}: backend {info['backend']}")
             d_pf = 0
             for i, ts in enumerate(win_ts[:n]):
-                one, _ = mgr.process_pixels(ts, host, interpolation=interpolation, plane_index=pi,
-                                            max_pixel_value=MAXV, plane_rects=True)
+                one, _ = m.process_pixels(ts, host, interpolation=interpolation, plane_index=pi,
+                                          max_pixel_value=MAXV, plane_rects=True)
                 d_pf = max(d_pf, int((out[i].to(torch.int32) - one.to(torch.int32)).abs().max()))
-            cfg, dyn, mats = plane_setup(mgr, planes, win_ts[0], name, interpolation)
+            cfg, dyn, mats = plane_setup(m, planes, win_ts[0], name, interpolation)
             ref = remap.remap_plane(dev_planes[name], mats, cfg, dyn, out_dtype="uint16")
             d0 = int((out[0].to(torch.int32) - ref.to(torch.int32)).abs().max())
             print(f"window {name:2s}: {tuple(out.shape)} {out.dtype} on {out.device}; vs "
@@ -1320,6 +1646,12 @@ def main() -> int:
     exp_entries, report["experiments"] = experiments_phase(dev, smi)
     check("jax" not in sys.modules, "jax was imported")
     kernels += exp_entries
+
+    # ---- 8. every lens model and digital lens ---------------------------------
+    lens_entries, report["lenses"] = lens_phase(
+        dev, smi, tmp.name, mgr, planes, dev_planes, kernel_ms, pre_coords, out_cf, drive,
+        drive_window, expect, device_rows)
+    kernels += lens_entries
     OUT_DIR.mkdir(exist_ok=True)
     (OUT_DIR / "chip_smoke.json").write_text(json.dumps({**report, "bounds": bound_of,
                                                          "kernels": kernels}, indent=1))
@@ -1329,7 +1661,9 @@ def main() -> int:
           "1920x1080x2); coords, sampler, fused and coords_gen at lanczos4, ewa at "
           "interpolation 11; the experiments' kernels at their probes' shapes (fused_bbox Y+UV "
           "float32 planes, window the four cases summed, probe4 the full mode, probe5 Y+UV, "
-          "probe6 the bf16 mode, triton the four calls summed); every kernel ms from "
+          "probe6 the bf16 mode, triton the four calls summed); coords<lens>, "
+          "coords_gen<model> and fused<lens> (phase 8) on the 4K Y plane alone, the "
+          "lens's instantiation, launches from the slice frames' drives; every kernel ms from "
           "experiments.perf_probe.cuda_ms (L2 flushed and the card spinning before each "
           "call), every plain_ms from CUDA events around each call")
     print(smi)

@@ -39,7 +39,10 @@ class CoordParams(ctypes.Structure):
     _fields_ = [("k", ctypes.c_float * 12), ("f", ctypes.c_float * 2),
                 ("c", ctypes.c_float * 2), ("t3d", ctypes.c_float * 3),
                 ("r_limit", ctypes.c_float), ("lrc", ctypes.c_float),
-                ("stretch_h", ctypes.c_float), ("stretch_v", ctypes.c_float)]
+                ("stretch_h", ctypes.c_float), ("stretch_v", ctypes.c_float),
+                ("dlp", ctypes.c_float * 16), ("width", ctypes.c_float),
+                ("height", ctypes.c_float), ("output_width", ctypes.c_float),
+                ("output_height", ctypes.c_float)]
 
 
 class SamplerArgs(ctypes.Structure):
@@ -157,7 +160,7 @@ def lib() -> ctypes.CDLL:
         if _lib is None:
             L = ctypes.CDLL(str(build()))
             vp, ci = ctypes.c_void_p, ctypes.c_int
-            L.gf_coords.argtypes = [vp, vp, vp, vp, ci, CoordParams, ci, ci, ci,
+            L.gf_coords.argtypes = [vp, vp, vp, vp, ci, CoordParams, ci, ci, ci, ci, ci,
                                     vp, vp, vp, vp]
             L.gf_coords.restype = ci
             L.gf_sampler.argtypes = [vp, ci, ci, ci, ci, vp, vp, vp, ci, ci, ci, vp,
@@ -167,9 +170,10 @@ def lib() -> ctypes.CDLL:
                                  vp]
             L.gf_ewa.restype = ci
             L.gf_fused.argtypes = [vp, ci, ci, ci, ci, vp, vp, vp, vp, ci, CoordParams, ci,
-                                   ci, ci, ci, vp, FusedArgs, vp, vp]
+                                   ci, ci, ci, ci, ci, vp, FusedArgs, vp, vp]
             L.gf_fused.restype = ci
-            L.gf_coords_gen.argtypes = [vp, ci, CoordParams, ci, GenArgs, ci, ci, vp, vp, vp, vp]
+            L.gf_coords_gen.argtypes = [vp, ci, CoordParams, ci, ci, GenArgs, ci, ci, vp, vp, vp,
+                                        vp]
             L.gf_coords_gen.restype = ci
             L.gf_fused_bbox.argtypes = [vp, ci, ci, ci, vp, vp, vp, vp, ci, CoordParams, ci, ci,
                                         ci, ci, ci, ci, FusedArgs, vp, vp, vp, vp]

@@ -3,13 +3,17 @@
 // Replaces gyroflow_tpu/ops/pallas_coords.py::_coords_kernel (driven by
 // _coords_call and project_tiles). For each output pixel it fetches row
 // idx of the (rows, 14) matrix table and runs rotate_and_distort_core
-// (fisheye model) -> u, v, valid.
+// (project_point, lens.cuh) -> u, v, valid, for every distortion model and
+// digital lens of the reference: one instantiation per main model (the
+// fisheye one is the code it always was), each in two forms, without and
+// with the digital-lens step, whose lens is chosen at run time.
 //
 // What bounds it on an H100: the float32 ALU chain per pixel (3x3 projection,
-// two IEEE divisions and a sqrt, the Cephes arctangent polynomial, the
-// fisheye polynomial, then f/c/stretch), about 60 dependent operations. The
-// memory traffic is small: x, y, idx in (12 B) and u, v, valid out (9 B) per
-// pixel, and the matrix table (121 KB at 4K) stays in L2.
+// two IEEE divisions and a sqrt, then the model: for fisheye the Cephes
+// arctangent and the polynomial, ~60 dependent operations; gopro adds a
+// 10-step Newton, a digital lens a 12-step fixed point; then f/c/stretch).
+// The memory traffic is small: x, y, idx in (12 B) and u, v, valid out (9 B)
+// per pixel, and the matrix table (121 KB at 4K) stays in L2.
 //
 // What the simple design does about it: one thread per output pixel on a
 // 2-D grid of 32x8 blocks, so a warp covers 32 neighbouring pixels of one
@@ -26,7 +30,8 @@
 // (ox = column, oy = oy0 + row of the band; the TPU kernel's float floor-div
 // over tile ids is not needed), then runs coords_pre's plain form
 // (remap.py:187: the out-rect map, +translation2d; no lens-correction
-// blend, so the wrapper refuses lens correction, mesh and digital lenses),
+// blend, so the wrapper refuses lens correction, mesh and digital lenses,
+// as JAX gates project_tiles_gen; it admits every main model),
 // the rolling-shutter probe through the centre matrix row, the row select
 // min(where(pvalid, clip(rint(probe)), clip(rint(fallback))), rows - 1),
 // and the projection through the selected row. The matrix-window DMA, its
@@ -55,10 +60,11 @@ struct GenArgs {
 
 namespace {
 
+template <int MODEL, bool DIGITAL>
 __global__ void coords_kernel(const float* __restrict__ xs, const float* __restrict__ ys,
                               const int32_t* __restrict__ idx,
                               const float* __restrict__ mats, int rows,
-                              gf::CoordParams p, int flags, int oh, int ow,
+                              gf::CoordParams p, int flags, int digital, int oh, int ow,
                               float* __restrict__ us, float* __restrict__ vs,
                               uint8_t* __restrict__ valid_out) {
     const int col = blockIdx.x * blockDim.x + threadIdx.x;
@@ -75,7 +81,7 @@ __global__ void coords_kernel(const float* __restrict__ xs, const float* __restr
 
     float u, v;
     bool valid;
-    gf::project_point(xs[i], ys[i], m, p, flags, u, v, valid);
+    gf::project_point<MODEL, DIGITAL>(xs[i], ys[i], m, p, flags, u, v, valid, MODEL, digital);
     us[i] = u;
     vs[i] = v;
     valid_out[i] = valid ? 1 : 0;
@@ -89,6 +95,7 @@ __device__ __forceinline__ int rint_index(float a, float lim) {
     return static_cast<int>(r);
 }
 
+template <int MODEL>
 __global__ void coords_gen_kernel(const float* __restrict__ mats, int rows, gf::CoordParams p,
                                   int flags, GenArgs g, int out_rows, int ow,
                                   float* __restrict__ us, float* __restrict__ vs,
@@ -118,7 +125,7 @@ __global__ void coords_gen_kernel(const float* __restrict__ mats, int rows, gf::
         for (int j = 0; j < 14; ++j) mc[j] = __ldg(crow + j);
         float pu, pv;
         bool pvalid;
-        gf::project_point(x, y, mc, p, flags, pu, pv, pvalid);
+        gf::project_point<MODEL, false>(x, y, mc, p, flags, pu, pv, pvalid);
         if (pvalid) sy = rint_index(horizontal ? pu : pv, g.lim);
     }
     const int r = sy < rows - 1 ? sy : rows - 1;
@@ -129,40 +136,89 @@ __global__ void coords_gen_kernel(const float* __restrict__ mats, int rows, gf::
     for (int j = 0; j < 14; ++j) m[j] = __ldg(mrow + j);
     float u, v;
     bool valid;
-    gf::project_point(x, y, m, p, flags, u, v, valid);
+    gf::project_point<MODEL, false>(x, y, m, p, flags, u, v, valid);
     us[i] = u;
     vs[i] = v;
     valid_out[i] = valid ? 1 : 0;
 }
 
+// The launches of each entry point, for gf::with_model: run<M>() launches
+// the instantiation of main model M.
+struct CoordsLaunch {
+    const void *x, *y, *idx, *mats;
+    int rows;
+    const gf::CoordParams* p;
+    int flags, digital, oh, ow;
+    void *u, *v, *valid;
+    cudaStream_t s;
+
+    template <int M>
+    void run() const {
+        const dim3 block(32, 8);
+        const dim3 grid((ow + block.x - 1) / block.x, (oh + block.y - 1) / block.y);
+        const auto* xf = static_cast<const float*>(x);
+        const auto* yf = static_cast<const float*>(y);
+        const auto* ii = static_cast<const int32_t*>(idx);
+        const auto* mf = static_cast<const float*>(mats);
+        auto* uf = static_cast<float*>(u);
+        auto* vf = static_cast<float*>(v);
+        auto* vo = static_cast<uint8_t*>(valid);
+        if (digital >= 0) {
+            coords_kernel<M, true><<<grid, block, 0, s>>>(xf, yf, ii, mf, rows, *p, flags,
+                                                          digital, oh, ow, uf, vf, vo);
+        } else {
+            coords_kernel<M, false><<<grid, block, 0, s>>>(xf, yf, ii, mf, rows, *p, flags, -1,
+                                                           oh, ow, uf, vf, vo);
+        }
+    }
+};
+
+struct CoordsGenLaunch {
+    const void* mats;
+    int rows;
+    const gf::CoordParams* p;
+    int flags;
+    const GenArgs* g;
+    int out_rows, ow;
+    void *u, *v, *valid;
+    cudaStream_t s;
+
+    template <int M>
+    void run() const {
+        const dim3 block(32, 8);
+        const dim3 grid((ow + block.x - 1) / block.x, (out_rows + block.y - 1) / block.y);
+        coords_gen_kernel<M><<<grid, block, 0, s>>>(
+            static_cast<const float*>(mats), rows, *p, flags, *g, out_rows, ow,
+            static_cast<float*>(u), static_cast<float*>(v), static_cast<uint8_t*>(valid));
+    }
+};
+
 }  // namespace
 
 // x, y: float32 (oh, ow); idx: int32 (oh, ow); mats: float32 (rows, 14);
 // u, v: float32 (oh, ow); valid: uint8/bool (oh, ow). All device pointers,
-// contiguous. Launches on `stream`; returns cudaGetLastError().
+// contiguous. model: the main model's ModelId (lens.cuh); digital: the
+// digital lens's ModelId, or -1 for none. Launches on `stream`; returns -1
+// for a model id out of range, else cudaGetLastError().
 extern "C" int gf_coords(const void* x, const void* y, const void* idx, const void* mats,
-                         int rows, gf::CoordParams params, int flags, int oh, int ow,
-                         void* u, void* v, void* valid, void* stream) {
-    const dim3 block(32, 8);
-    const dim3 grid((ow + block.x - 1) / block.x, (oh + block.y - 1) / block.y);
-    coords_kernel<<<grid, block, 0, static_cast<cudaStream_t>(stream)>>>(
-        static_cast<const float*>(x), static_cast<const float*>(y),
-        static_cast<const int32_t*>(idx), static_cast<const float*>(mats), rows, params,
-        flags, oh, ow, static_cast<float*>(u), static_cast<float*>(v),
-        static_cast<uint8_t*>(valid));
+                         int rows, gf::CoordParams params, int flags, int model, int digital,
+                         int oh, int ow, void* u, void* v, void* valid, void* stream) {
+    if (digital >= gf::kNumModels) return -1;
+    const CoordsLaunch l{x, y, idx, mats, rows, &params, flags, digital, oh, ow, u, v, valid,
+                         static_cast<cudaStream_t>(stream)};
+    if (!gf::with_model(model, l)) return -1;
     return static_cast<int>(cudaGetLastError());
 }
 
 // mats: float32 (rows, 14); u, v: float32 (out_rows, ow); valid: uint8/bool
-// (out_rows, ow). Device pointers, contiguous. Launches on `stream`; returns
-// cudaGetLastError().
+// (out_rows, ow). Device pointers, contiguous. model: the main model's
+// ModelId. Launches on `stream`; returns -1 for a model id out of range,
+// else cudaGetLastError().
 extern "C" int gf_coords_gen(const void* mats, int rows, gf::CoordParams params, int flags,
-                             GenArgs args, int out_rows, int ow, void* u, void* v, void* valid,
-                             void* stream) {
-    const dim3 block(32, 8);
-    const dim3 grid((ow + block.x - 1) / block.x, (out_rows + block.y - 1) / block.y);
-    coords_gen_kernel<<<grid, block, 0, static_cast<cudaStream_t>(stream)>>>(
-        static_cast<const float*>(mats), rows, params, flags, args, out_rows, ow,
-        static_cast<float*>(u), static_cast<float*>(v), static_cast<uint8_t*>(valid));
+                             int model, GenArgs args, int out_rows, int ow, void* u, void* v,
+                             void* valid, void* stream) {
+    const CoordsGenLaunch l{mats, rows, &params, flags, &args, out_rows, ow, u, v, valid,
+                            static_cast<cudaStream_t>(stream)};
+    if (!gf::with_model(model, l)) return -1;
     return static_cast<int>(cudaGetLastError());
 }

@@ -66,6 +66,7 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "aten.cuh"
 #include "taps.cuh"
 
 constexpr int kEwaCap = 4;
@@ -90,18 +91,11 @@ using gf::guard_uv;   // taps.cuh
 // neighbouring pixels of one row, whose bboxes and taps are alike.
 constexpr int kBlockX = 32, kBlockY = 8;
 
-// torch's float32 clamp_min, clamp_max and maximum on the card (ATen's
-// kernels): a NaN operand comes out as NaN, anything else goes through
-// fmaxf / fminf. fmaxf alone returns the operand that is not NaN.
-__device__ __forceinline__ float clamp_min_t(float x, float lo) {
-    return isnan(x) ? x : fmaxf(x, lo);
-}
-__device__ __forceinline__ float clamp_max_t(float x, float hi) {
-    return isnan(x) ? x : fminf(x, hi);
-}
-__device__ __forceinline__ float maximum_t(float a, float b) {
-    return isnan(a) ? a : (isnan(b) ? b : fmaxf(a, b));
-}
+// torch's float32 clamp_min, clamp_max and maximum on the card (aten.cuh):
+// a NaN stays NaN
+using gf::clamp_max_t;
+using gf::clamp_min_t;
+using gf::maximum_t;
 
 // float -> int32 conversions saturate (cvt.rzi.s32.f32), as in remap._floor_i32.
 __device__ __forceinline__ int floor_i32(float a) { return static_cast<int>(floorf(a)); }

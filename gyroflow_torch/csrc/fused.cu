@@ -7,7 +7,16 @@
 // (x, y, idx) of coords_pre, it does pallas_fused.py:98-186 without the TPU
 // machinery:
 //   1. read matrix row idx straight from the (rows, 14) table and run the
-//      projection (project_point, lens.cuh) -> u, v, valid;
+//      projection (project_point, lens.cuh) -> u, v, valid, for any
+//      distortion model and digital lens: the fisheye render without a
+//      digital lens (the default) takes an instantiation specialised on it,
+//      every other lens the instantiation that chooses the model and the
+//      digital lens at run time (distort_xy_any; specialising 14 models x 2
+//      on top of the 36 dtype/channel/tap instantiations would build 1008
+//      kernels). The projection's parameters are a __grid_constant__ kernel
+//      parameter, so that out-of-line call reads them where they are, with
+//      no copy to each thread's stack (one form for every lens, fisheye
+//      included, read 7.5% slower on the fisheye render: PERF.md);
 //   2. coords_post_uv (remap.py:255): input rotation (the rotated frame size
 //      comes from the host), background modes 0-2, the source-rect map;
 //   3. the guard (_guard_uv_kernel, pallas_fused.py:51), then the tap offset,
@@ -53,11 +62,12 @@ using gf::Interp;
 
 namespace {
 
-template <typename T, int C, int TAPS>
+template <typename T, int C, int TAPS, bool ANY_LENS>
 __global__ void fused_kernel(const T* __restrict__ img, int H, int W,
                              const float* __restrict__ xs, const float* __restrict__ ys,
                              const int32_t* __restrict__ idx, const float* __restrict__ mats,
-                             int rows, gf::CoordParams p, int flags,
+                             int rows, const __grid_constant__ gf::CoordParams p, int flags,
+                             int model, int digital,
                              const float* __restrict__ lut, FusedArgs a, int oh, int ow,
                              float* __restrict__ out) {
     __shared__ __align__(16) float s_lut[gf::kSliceSize<TAPS>];
@@ -78,7 +88,12 @@ __global__ void fused_kernel(const T* __restrict__ img, int H, int W,
 
     float u, v;
     bool valid;
-    gf::project_point(xs[i], ys[i], m, p, flags, u, v, valid);
+    if constexpr (ANY_LENS) {
+        gf::project_point<gf::kAnyModel, true>(xs[i], ys[i], m, p, flags, u, v, valid, model,
+                                               digital);
+    } else {
+        gf::project_point<gf::kOpencvFisheye, false>(xs[i], ys[i], m, p, flags, u, v, valid);
+    }
     if (!valid) {
 #pragma unroll
         for (int c = 0; c < C; ++c) o[c] = a.s.bg[c];
@@ -97,19 +112,28 @@ __global__ void fused_kernel(const T* __restrict__ img, int H, int W,
 struct Launch {
     const void* img; int H, W;
     const void *x, *y, *idx, *mats; int rows;
-    const gf::CoordParams* p; int flags; const float* lut;
+    const gf::CoordParams* p; int flags, model, digital; const float* lut;
     const FusedArgs* a; int oh, ow; void* out; cudaStream_t s;
 };
 
-template <typename T, int C, int TAPS>
-void launch(const Launch& l) {
+template <typename T, int C, int TAPS, bool ANY_LENS>
+void launch_lens(const Launch& l) {
     const dim3 block(32, 8);
     const dim3 grid((l.ow + block.x - 1) / block.x, (l.oh + block.y - 1) / block.y);
-    fused_kernel<T, C, TAPS><<<grid, block, 0, l.s>>>(
+    fused_kernel<T, C, TAPS, ANY_LENS><<<grid, block, 0, l.s>>>(
         static_cast<const T*>(l.img), l.H, l.W, static_cast<const float*>(l.x),
         static_cast<const float*>(l.y), static_cast<const int32_t*>(l.idx),
-        static_cast<const float*>(l.mats), l.rows, *l.p, l.flags, l.lut, *l.a, l.oh, l.ow,
-        static_cast<float*>(l.out));
+        static_cast<const float*>(l.mats), l.rows, *l.p, l.flags, l.model, l.digital, l.lut,
+        *l.a, l.oh, l.ow, static_cast<float*>(l.out));
+}
+
+template <typename T, int C, int TAPS>
+void launch(const Launch& l) {
+    if (l.model == gf::kOpencvFisheye && l.digital < 0) {
+        launch_lens<T, C, TAPS, false>(l);
+    } else {
+        launch_lens<T, C, TAPS, true>(l);
+    }
 }
 
 template <typename T, int C>
@@ -139,13 +163,17 @@ bool dispatch_channels(int C, int taps, const Launch& l) {
 // x, y: float32 (oh, ow) and idx: int32 (oh, ow) from coords_pre; mats:
 // float32 (rows, 14); out: float32 (oh, ow, C). taps: 2, 4 or 8; lut: the
 // interpolation's LUT slice, float32 COEFFS[ind : ind + 32 * taps], 16-byte
-// aligned. All device pointers, contiguous. Returns -1 for an unsupported
-// dtype/C/taps, else cudaGetLastError() after the launch.
+// aligned. model: the main model's ModelId (lens.cuh); digital: the digital
+// lens's ModelId, or -1 for none. All device pointers, contiguous. Returns
+// -1 for an unsupported dtype/C/taps or model id, else cudaGetLastError()
+// after the launch.
 extern "C" int gf_fused(const void* img, int dtype, int H, int W, int C, const void* x,
                         const void* y, const void* idx, const void* mats, int rows,
-                        gf::CoordParams params, int flags, int oh, int ow, int taps,
-                        const void* lut, FusedArgs args, void* out, void* stream) {
-    const Launch l{img, H, W, x, y, idx, mats, rows, &params, flags,
+                        gf::CoordParams params, int flags, int model, int digital, int oh,
+                        int ow, int taps, const void* lut, FusedArgs args, void* out,
+                        void* stream) {
+    if (model < 0 || model >= gf::kNumModels || digital >= gf::kNumModels) return -1;
+    const Launch l{img, H, W, x, y, idx, mats, rows, &params, flags, model, digital,
                    static_cast<const float*>(lut), &args, oh, ow, out,
                    static_cast<cudaStream_t>(stream)};
     bool ok = false;

@@ -5,7 +5,8 @@
 // _fused_call :154, pallas_call :185), the JAX package's earlier fused
 // experiment. Per output pixel, from the (x, y, idx) of coords_pre:
 //   1. read matrix row idx from the (rows, 14) table and run the projection
-//      (project_point, lens.cuh) -> u, v, valid (:72-78);
+//      (project_point, lens.cuh, its opencv_fisheye instantiation: the
+//      experiment's configuration) -> u, v, valid (:72-78);
 //   2. coords_post_uv (post_uv.cuh), then non-finite -> 0 and clip to
 //      +-32768 (:79-81);
 //   3. the tap offset, rint((u - offset) * 32) phases, weights from the
@@ -79,7 +80,7 @@ fused_bbox_kernel(const float* __restrict__ img, int H, int W, const float* __re
 
         float u, v;
         bool valid;
-        gf::project_point(xs[i], ys[i], m, p, flags, u, v, valid);
+        gf::project_point<gf::kOpencvFisheye, false>(xs[i], ys[i], m, p, flags, u, v, valid);
         gf::post_uv(u, v, a);
         u = gf::guard_uv(u);
         v = gf::guard_uv(v);

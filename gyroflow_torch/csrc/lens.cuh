@@ -1,15 +1,32 @@
 // Shared __device__ lens math for the gyroflow_torch kernels.
 //
 // The same float32 operations, in the same order, as
-// gyroflow_tpu/ops/distortion_models.py (_atanf, fisheye_distort_xy) and
-// gyroflow_tpu/ops/remap.py (_forward_refraction, rotate_and_distort_core),
-// and as their torch twins in gyroflow_torch/ops/. Built without fast math and
-// with --fmad=false, so every multiply and add rounds on its own, as the
-// elementwise torch ops do: sqrtf and '/' are IEEE-exact.
+// gyroflow_tpu/ops/distortion_models.py (_atanf and every model's
+// distort_xy) and gyroflow_tpu/ops/remap.py (_forward_refraction,
+// rotate_and_distort_core), and as their torch twins in gyroflow_torch/ops/.
+// Built without fast math and with --fmad=false, so every multiply and add
+// rounds on its own, as the elementwise torch ops do: sqrtf and '/' are
+// IEEE-exact. Where the torch twin divides by a Python number (a plane size,
+// 1 + tan^2), torch on the card multiplies by the number's float32
+// reciprocal, and so does the code here; a Python number is rounded to
+// float32 from its double (f32 below), as torch and JAX round it.
+//
+// Each kernel is specialised on the main distortion model (MODEL, a ModelId:
+// the id the fisheye render takes compiles to the code it always had), and
+// its digital-lens form chooses the digital lens at run time with a switch
+// (distort_xy_switch) that is uniform across the launch. The fused kernel's
+// form for any lens chooses both at run time through distort_xy_any, the
+// same switch kept out of line: inlined twice into each of its 36
+// dtype/channel/tap instantiations it would multiply their build time. That
+// call takes CoordParams by reference, so the kernel declares it
+// __grid_constant__: otherwise each thread copies the struct to its stack
+// (a digital step called that way made the coords kernel 6x slower, PERF.md).
 #pragma once
 
 #include <cuda_runtime.h>
 #include <math.h>
+
+#include "aten.cuh"
 
 namespace gf {
 
@@ -18,9 +35,31 @@ constexpr int HORIZONTAL_RS = 16;
 constexpr int HAS_IBIS_DATA = 256;
 constexpr int ANY_UNDERWATER = 2048;
 
+// Distortion model ids: the JAX registry's order (distortion_models.py:691,
+// MODEL_IDS; gyroflow_torch.ops.distortion_models.MODEL_IDS).
+enum ModelId : int {
+    kOpencvFisheye = 0,
+    kOpencvStandard,
+    kPoly3,
+    kPoly5,
+    kPtlens,
+    kInsta360,
+    kSony,
+    kGenericPolynomial,
+    kGopro,
+    kGoproSuperview,
+    kGopro6Superview,
+    kGoproHyperview,
+    kGoproWarp,
+    kDigitalStretch,
+    kNumModels,
+    kAnyModel = -1,   // the main model chosen at run time
+};
+
 // Dynamic operands of the projection, in pallas_coords.pack_params order
-// (k, f, c, translation3d[:3], r_limit, light_refraction_coefficient,
-// input stretch h/v). Passed to the kernel by value.
+// (k, f, c, translation3d[:3], r_limit, light_refraction_coefficient, input
+// stretch h/v, digital_lens_params), then the plane sizes the digital models
+// read (LensParams, remap.py:62-67). Passed to the kernel by value.
 struct CoordParams {
     float k[12];
     float f[2];
@@ -30,7 +69,15 @@ struct CoordParams {
     float lrc;
     float stretch_h;
     float stretch_v;
+    float dlp[16];
+    float width;
+    float height;
+    float output_width;
+    float output_height;
 };
+
+// A Python float as torch and JAX take it into float32 arithmetic.
+__host__ __device__ constexpr float f32(double d) { return static_cast<float>(d); }
 
 // Cephes-style float32 arctangent (distortion_models.py:64). Not atanf: the
 // reference's numbers come from this polynomial.
@@ -48,6 +95,12 @@ __device__ __forceinline__ float atanf_cephes(float x) {
                      + 1.99777106478e-1f) * z2 - 3.33329491539e-1f;
     return sign * (y0 + (p * z2 * z + z));
 }
+
+__device__ __forceinline__ bool k4_zero(const float* k) {
+    return k[0] == 0.0f && k[1] == 0.0f && k[2] == 0.0f && k[3] == 0.0f;
+}
+
+// ---- the physical models: (x, y, z) camera space -> normalised (u, v) ----
 
 // OpenCV fisheye forward model (distortion_models.py:129).
 __device__ __forceinline__ void fisheye_distort(float x, float y, float z, const float* k,
@@ -68,6 +121,331 @@ __device__ __forceinline__ void fisheye_distort(float x, float y, float z, const
     v = y * scale;
 }
 
+// OpenCV standard (distortion_models.py:167).
+__device__ __forceinline__ void opencv_standard_distort(float x, float y, float z,
+                                                        const float* k, float& u, float& v) {
+    x = x / z;
+    y = y / z;
+    const float r2 = x * x + y * y;
+    const float r4 = r2 * r2;
+    const float r6 = r4 * r2;
+    const float a1 = 2.0f * x * y;
+    const float a2 = r2 + 2.0f * x * x;
+    const float a3 = r2 + 2.0f * y * y;
+    const float cdist = 1.0f + k[0] * r2 + k[1] * r4 + k[4] * r6;
+    const float icdist2 = 1.0f / (1.0f + k[5] * r2 + k[6] * r4 + k[7] * r6);
+    u = x * cdist * icdist2 + k[2] * a1 + k[3] * a2 + k[8] * r2 + k[9] * r4;
+    v = y * cdist * icdist2 + k[2] * a3 + k[3] * a1 + k[10] * r2 + k[11] * r4;
+}
+
+// LensFun poly3 (distortion_models.py:223).
+__device__ __forceinline__ void poly3_distort(float x, float y, float z, const float* k,
+                                              float& u, float& v) {
+    x = x / z;
+    y = y / z;
+    const float poly2 = k[0] * (x * x + y * y) + 1.0f;
+    u = x * poly2;
+    v = y * poly2;
+}
+
+// LensFun poly5 (distortion_models.py:246).
+__device__ __forceinline__ void poly5_distort(float x, float y, float z, const float* k,
+                                              float& u, float& v) {
+    x = x / z;
+    y = y / z;
+    const float ru2 = x * x + y * y;
+    const float poly4 = 1.0f + k[0] * ru2 + k[1] * ru2 * ru2;
+    u = x * poly4;
+    v = y * poly4;
+}
+
+// LensFun ptlens (distortion_models.py:270).
+__device__ __forceinline__ void ptlens_distort(float x, float y, float z, const float* k,
+                                               float& u, float& v) {
+    x = x / z;
+    y = y / z;
+    const float ru2 = x * x + y * y;
+    const float r = sqrtf(ru2);
+    const float poly3 = k[0] * ru2 * r + k[1] * ru2 + k[2] * r + 1.0f;
+    u = x * poly3;
+    v = y * poly3;
+}
+
+// Insta360 unified sphere (distortion_models.py:284).
+__device__ __forceinline__ void insta360_distort(float x, float y, float z, const float* k,
+                                                 float& u, float& v) {
+    const float k1 = k[0], k2 = k[1], k3 = k[2], p1 = k[3], p2 = k[4], xi = k[5];
+    const float ln = sqrtf(x * x + y * y + z * z);
+    const float d = (z / ln) + xi;
+    const float xs = (x / ln) / d;
+    const float ys = (y / ln) / d;
+    const float r2 = xs * xs + ys * ys;
+    const float r4 = r2 * r2;
+    const float r6 = r4 * r2;
+    const float radial = 1.0f + k1 * r2 + k2 * r4 + k3 * r6;
+    u = xs * radial + 2.0f * p1 * xs * ys + p2 * (r2 + 2.0f * xs * xs);
+    v = ys * radial + 2.0f * p2 * xs * ys + p1 * (r2 + 2.0f * ys * ys);
+}
+
+// Sony: a polynomial in theta with k0 as scale (distortion_models.py:353).
+__device__ __forceinline__ void sony_distort(float x, float y, float z, const float* k,
+                                             float& u, float& v) {
+    x = x / z;
+    y = y / z;
+    const float r = sqrtf(x * x + y * y);
+    const float t = atanf_cephes(r);
+    const float t2 = t * t;
+    const float t3 = t2 * t;
+    const float t4 = t2 * t2;
+    const float t5 = t2 * t3;
+    const float t6 = t3 * t3;
+    const float theta_d = t * k[0] + t2 * k[1] + t3 * k[2] + t4 * k[3] + t5 * k[4] + t6 * k[5];
+    const float scale = (k4_zero(k) || r == 0.0f) ? 1.0f : theta_d / r;
+    u = x * scale;
+    v = y * scale;
+}
+
+// Generic polynomial, theta^1..theta^12 (distortion_models.py:403); its
+// zero test covers all 12 coefficients.
+__device__ __forceinline__ void generic_poly_distort(float x, float y, float z, const float* k,
+                                                     float& u, float& v) {
+    x = x / z;
+    y = y / z;
+    const float r = sqrtf(x * x + y * y);
+    const float t = atanf_cephes(r);
+    float theta_d = 0.0f;
+    float tp = t;
+    bool k_zero = true;
+#pragma unroll
+    for (int i = 0; i < 12; ++i) {
+        theta_d = theta_d + tp * k[i];
+        tp = tp * t;
+        k_zero = k_zero && k[i] == 0.0f;
+    }
+    const float scale = (k_zero || r == 0.0f) ? 1.0f : theta_d / r;
+    u = x * scale;
+    v = y * scale;
+}
+
+// GoPro native POLY model (distortion_models.py:424-475): theta, then pp
+// with POLY(pp) = theta by 10 masked Newton steps.
+// _GOPRO_TMAX, math.tan(_GOPRO_TMAX) and the reciprocal of 1 + tan^2 (by
+// which torch on the card multiplies where the model divides), as float32
+constexpr double kGoproTanTmaxD = 57.14902157208012;
+constexpr float kGoproTmax = f32(1.5533);
+constexpr float kGoproTanTmax = f32(kGoproTanTmaxD);
+constexpr float kGoproInvSec2 = 1.0f / f32(1.0 + kGoproTanTmaxD * kGoproTanTmaxD);
+
+__device__ __forceinline__ float gopro_poly_eval(float pp, const float* k) {
+    return k[0] + pp * (k[1] + pp * (k[2] + pp * (k[3] + pp * (k[4] + pp * (k[5] + pp * k[6])))));
+}
+
+__device__ __forceinline__ float gopro_poly_deriv(float pp, const float* k) {
+    return k[1] + pp * (2.0f * k[2] + pp * (3.0f * k[3] + pp * (4.0f * k[4]
+                                                             + pp * (5.0f * k[5] + pp * (6.0f * k[6])))));
+}
+
+__device__ __forceinline__ void gopro_distort(float x, float y, float z, const float* k,
+                                              float& u, float& v) {
+    x = x / z;
+    y = y / z;
+    const float r = sqrtf(x * x + y * y);
+    const float tt = kGoproTanTmax;
+    const float theta = r < tt ? atanf_cephes(clamp_max_t(r, tt))
+                               : kGoproTmax + (r - tt) * kGoproInvSec2;
+    // _gopro_poly_invert
+    float pp = (theta - k[0]) / k[1];
+    bool done = false;
+#pragma unroll 1
+    for (int i = 0; i < 10; ++i) {
+        const float d = gopro_poly_deriv(pp, k);
+        const bool flat = fabsf(d) < f32(1e-12);
+        done = done || flat;
+        const float fix = (gopro_poly_eval(pp, k) - theta) / (flat ? 1.0f : d);
+        if (!done) pp = pp - fix;
+        done = done || fabsf(fix) < f32(1e-7);
+    }
+    const float r_norm = k[1] * pp;
+    const bool small = r < f32(1e-9);
+    float scale = small ? 1.0f : r_norm / (small ? 1.0f : r);
+    if (k[1] == 0.0f) scale = 1.0f;
+    u = x * scale;
+    v = y * scale;
+}
+
+// ---- the digital lenses: pixel coordinates -> pixel coordinates ----------
+
+// _fixed_point_invert (distortion_models.py:483): 12 masked steps.
+template <typename Fn>
+__device__ __forceinline__ void fixed_point_invert(const Fn& fn, float tx, float ty, float& px,
+                                                   float& py) {
+    px = tx;
+    py = ty;
+    bool done = false;
+#pragma unroll 1
+    for (int i = 0; i < 12; ++i) {
+        float fx, fy;
+        fn(px, py, fx, fy);
+        const float dx = fx - tx;
+        const float dy = fy - ty;
+        done = done || (fabsf(dx) < f32(1e-6) && fabsf(dy) < f32(1e-6));
+        if (!done) {
+            px = px - dx;
+            py = py - dy;
+        }
+    }
+}
+
+struct SuperviewFn {   // _superview_fn
+    __device__ void operator()(float x, float y, float& fx, float& fy) const {
+        const float x2 = x * x;
+        const float y2 = y * y;
+        fx = x * (f32(1.2100393) + x2 * (f32(-1.2758402) + x2 * f32(1.7751845)));
+        fy = y * (f32(0.9364505) + (f32(0.4465308) - f32(0.7683315) * y2) * y2
+                  + (f32(-0.3574087) + f32(1.1584653) * y2 + f32(0.3529348) * x2) * x2);
+    }
+};
+
+struct Superview6Fn {  // _superview6_fn
+    __device__ void operator()(float x, float y, float& fx, float& fy) const {
+        x = x * (1.0f - f32(0.48) * fabsf(x));
+        fx = x * (f32(0.943396) * (1.0f + f32(0.157895) * fabsf(x)));
+        fy = y * (f32(0.943396) * (1.0f + f32(0.060000) * fabsf(y * 2.0f)));
+    }
+};
+
+struct HyperviewFn {   // _hyperview_fn
+    __device__ void operator()(float x, float y, float& fx, float& fy) const {
+        const float x2 = x * x;
+        const float y2 = y * y;
+        fx = x * (f32(1.5805143) + x2 * (f32(-8.1668825) + x2 * (f32(74.5198746) + x2 * (
+                 f32(-451.5002441) + x2 * (f32(1551.2922363) + x2 * (f32(-2735.5422363)
+                 + x2 * f32(1923.1572266)))))) + y2 * f32(-0.1086027));
+        fy = y * (f32(1.0238225) + y2 * f32(-0.1025671) + x2 * (f32(-0.2639930)
+                                                               + x2 * f32(0.2979266)));
+    }
+};
+
+struct GoproWarpFn {   // _gopro_warp_fn(dl); torch's clamp keeps a NaN
+    const float* dl;
+    __device__ void operator()(float u, float v, float& fx, float& fy) const {
+        const float x = clamp_t(u, -0.5f, 0.5f);
+        const float y = clamp_t(v, -0.5f, 0.5f);
+        const float x2 = x * x;
+        const float y2 = y * y;
+        const float poly_x = dl[0] + x2 * (dl[1] + x2 * (dl[2] + x2 * (dl[3] + x2 * (dl[4]
+                             + x2 * (dl[5] + x2 * dl[6])))));
+        fx = x * (poly_x + dl[7] * y2) + (u - x);
+        fy = y * (dl[8] + dl[9] * y2 + dl[10] * y2 * y2 + x2 * (dl[11] + dl[12] * y2
+                                                               + dl[13] * x2)) + (v - y);
+    }
+};
+
+// superview / superview6 / hyperview distort_xy (distortion_models.py:513,
+// :535, :559): centred unit coordinates, x scaled by x_mul (1: none), the
+// fixed point of Fn, back to pixels.
+template <typename Fn>
+__device__ __forceinline__ void digital_distort(float x, float y, const CoordParams& p,
+                                                float x_mul, float& u, float& v) {
+    float cu = x * (1.0f / p.width) - 0.5f;
+    const float cv = y * (1.0f / p.height) - 0.5f;
+    if (x_mul != 1.0f) cu = cu * x_mul;
+    float px, py;
+    fixed_point_invert(Fn{}, cu, cv, px, py);
+    u = (px + 0.5f) * p.width;
+    v = (py + 0.5f) * p.height;
+}
+
+// gopro_warp (distortion_models.py:591): a point whose inverse misses by
+// more than 0.02 gets the reference's -99999 sentinel (background).
+__device__ __forceinline__ void gopro_warp_distort(float x, float y, const CoordParams& p,
+                                                   float& u, float& v) {
+    const float* dl = p.dlp;
+    const float factor = dl[14] != 0.0f ? dl[14] : 1.0f;
+    const float cu = x * (1.0f / p.width) - 0.5f;
+    const float cv = y * (1.0f / p.height) - 0.5f;
+    const GoproWarpFn fn{dl};
+    const float tx = cu * factor;
+    float px, py, rx, ry;
+    fixed_point_invert(fn, tx, cv, px, py);
+    fn(px, py, rx, ry);
+    const bool bad = fabsf(rx - tx) > f32(0.02) || fabsf(ry - cv) > f32(0.02);
+    u = bad ? -99999.0f : (px + 0.5f) * p.width;
+    v = bad ? -99999.0f : (py + 0.5f) * p.height;
+}
+
+// ---- dispatch ------------------------------------------------------------
+
+// model M's distort_xy(x, y, z, p) (distortion_models.py:674-689).
+template <int M>
+__device__ __forceinline__ void distort_xy(float x, float y, float z, const CoordParams& p,
+                                           float& u, float& v) {
+    static_assert(M >= 0 && M < kNumModels, "a ModelId");
+    if constexpr (M == kOpencvFisheye) fisheye_distort(x, y, z, p.k, u, v);
+    else if constexpr (M == kOpencvStandard) opencv_standard_distort(x, y, z, p.k, u, v);
+    else if constexpr (M == kPoly3) poly3_distort(x, y, z, p.k, u, v);
+    else if constexpr (M == kPoly5) poly5_distort(x, y, z, p.k, u, v);
+    else if constexpr (M == kPtlens) ptlens_distort(x, y, z, p.k, u, v);
+    else if constexpr (M == kInsta360) insta360_distort(x, y, z, p.k, u, v);
+    else if constexpr (M == kSony) sony_distort(x, y, z, p.k, u, v);
+    else if constexpr (M == kGenericPolynomial) generic_poly_distort(x, y, z, p.k, u, v);
+    else if constexpr (M == kGopro) gopro_distort(x, y, z, p.k, u, v);
+    else if constexpr (M == kGoproSuperview)
+        digital_distort<SuperviewFn>(x, y, p, f32(1.333333333), u, v);
+    else if constexpr (M == kGopro6Superview) digital_distort<Superview6Fn>(x, y, p, 1.0f, u, v);
+    else if constexpr (M == kGoproHyperview)
+        digital_distort<HyperviewFn>(x, y, p, f32(1.555555555), u, v);
+    else if constexpr (M == kGoproWarp) gopro_warp_distort(x, y, p, u, v);
+    else {   // kDigitalStretch
+        u = x * p.dlp[0];
+        v = y * p.dlp[1];
+    }
+}
+
+// distort_xy of a model chosen at run time (any id, as get_model takes
+// any).
+__device__ __forceinline__ void distort_xy_switch(int model, float x, float y, float z,
+                                                  const CoordParams& p, float& u, float& v) {
+    switch (model) {   // aligned with distort_xy's chain, fisheye last
+        case kOpencvStandard: distort_xy<kOpencvStandard>(x, y, z, p, u, v); break;
+        case kPoly3: distort_xy<kPoly3>(x, y, z, p, u, v); break;
+        case kPoly5: distort_xy<kPoly5>(x, y, z, p, u, v); break;
+        case kPtlens: distort_xy<kPtlens>(x, y, z, p, u, v); break;
+        case kInsta360: distort_xy<kInsta360>(x, y, z, p, u, v); break;
+        case kSony: distort_xy<kSony>(x, y, z, p, u, v); break;
+        case kGenericPolynomial: distort_xy<kGenericPolynomial>(x, y, z, p, u, v); break;
+        case kGopro: distort_xy<kGopro>(x, y, z, p, u, v); break;
+        case kGoproSuperview: distort_xy<kGoproSuperview>(x, y, z, p, u, v); break;
+        case kGopro6Superview: distort_xy<kGopro6Superview>(x, y, z, p, u, v); break;
+        case kGoproHyperview: distort_xy<kGoproHyperview>(x, y, z, p, u, v); break;
+        case kGoproWarp: distort_xy<kGoproWarp>(x, y, z, p, u, v); break;
+        case kDigitalStretch: distort_xy<kDigitalStretch>(x, y, z, p, u, v); break;
+        default: distort_xy<kOpencvFisheye>(x, y, z, p, u, v); break;
+    }
+}
+
+// The same, out of line: see the note at the top.
+inline __device__ __noinline__ void distort_xy_any(int model, float x, float y, float z,
+                                                   const CoordParams& p, float& u, float& v) {
+    distort_xy_switch(model, x, y, z, p, u, v);
+}
+
+// Calls launch.run<M>() for M == model; false for an id out of range.
+template <int M = 0, typename L>
+bool with_model(int model, const L& launch) {
+    if constexpr (M < kNumModels) {
+        if (model == M) {
+            launch.template run<M>();
+            return true;
+        }
+        return with_model<M + 1>(model, launch);
+    } else {
+        return false;
+    }
+}
+
+// ---- the projection --------------------------------------------------------
+
 // Underwater forward refraction scaling of w (remap.py:70).
 __device__ __forceinline__ float forward_refraction(float x, float y, float w, float lrc) {
     const bool active = (lrc != 1.0f) && (lrc > 0.0f) && (w != 0.0f);
@@ -81,11 +459,16 @@ __device__ __forceinline__ float forward_refraction(float x, float y, float w, f
     return w * scale;
 }
 
-// rotate_and_distort_core (remap.py:95) for the fisheye model: matrix row m
-// (14 floats: 3x3 inverse rotation-intrinsics, then IBIS/OIS shifts).
+// rotate_and_distort_core (remap.py:95): matrix row m (14 floats: 3x3
+// inverse rotation-intrinsics, then IBIS/OIS shifts). MODEL is the main
+// model's ModelId, or kAnyModel to take `model`; with DIGITAL, `digital`
+// is the digital lens's ModelId (-1: none), applied after c and before the
+// stretch (remap.py:146-147). With kAnyModel both go out of line.
+template <int MODEL, bool DIGITAL>
 __device__ __forceinline__ void project_point(float px, float py, const float* m,
-                                              const CoordParams& p, int flags,
-                                              float& u, float& v, bool& valid) {
+                                              const CoordParams& p, int flags, float& u,
+                                              float& v, bool& valid, int model = kOpencvFisheye,
+                                              int digital = -1) {
     const float x = px * m[0] + py * m[1] + m[2] + p.t3d[0];
     const float y = px * m[3] + py * m[4] + m[5] + p.t3d[1];
     float w = px * m[6] + py * m[7] + m[8] + p.t3d[2];
@@ -96,7 +479,11 @@ __device__ __forceinline__ void project_point(float px, float py, const float* m
 
     if (flags & ANY_UNDERWATER) w = forward_refraction(x, y, w, p.lrc);
 
-    fisheye_distort(x, y, valid ? w : 1.0f, p.k, u, v);
+    if constexpr (MODEL == kAnyModel) {
+        distort_xy_any(model, x, y, valid ? w : 1.0f, p, u, v);
+    } else {
+        distort_xy<MODEL>(x, y, valid ? w : 1.0f, p, u, v);
+    }
     u = u * p.f[0];
     v = v * p.f[1];
 
@@ -115,6 +502,15 @@ __device__ __forceinline__ void project_point(float px, float py, const float* m
 
     u = u + p.c[0];
     v = v + p.c[1];
+    if constexpr (DIGITAL) {
+        if (digital >= 0) {
+            if constexpr (MODEL == kAnyModel) {
+                distort_xy_any(digital, u, v, 1.0f, p, u, v);
+            } else {
+                distort_xy_switch(digital, u, v, 1.0f, p, u, v);
+            }
+        }
+    }
     if (p.stretch_h > 0.001f) u = u / p.stretch_h;
     if (p.stretch_v > 0.001f) v = v / p.stretch_v;
 }

@@ -12,7 +12,9 @@ output pixels, the exact (umin, umax, vmin, vmax) over its valid pixels,
 
 The experiment's window plan, matrix window and post-hoc overflow check
 (``_posthoc_overflow``) are TPU window machinery and are not ported; the
-bbox is an output. ``fused_bbox_plain`` is the same function in torch.
+bbox is an output. The kernel projects through the opencv_fisheye
+instantiation of ``csrc/lens.cuh`` (the experiment's lens); another lens
+raises ValueError. ``fused_bbox_plain`` is the same function in torch.
 
 ``fused_bbox`` checks its inputs, then runs the plain version for CPU
 tensors only; for CUDA tensors it launches the kernel or raises.
@@ -80,6 +82,9 @@ def fused_bbox_plain(img, x, y, idx, matrices, cfg: KernelConfig, dyn: KernelDyn
 
 def _check(img, x, y, idx, matrices, cfg: KernelConfig, bg, tile_h: int, tile_w: int):
     cuda_coords._check(x, y, idx, matrices, cfg)
+    if cuda_coords.lens_ids(cfg) != (0, -1):
+        raise ValueError("fused bbox kernel: the experiment's lens only (opencv_fisheye, no "
+                         f"digital lens), got {cfg.distortion_model!r}, {cfg.digital_lens!r}")
     if cfg.interpolation not in INTERP_INFO or cfg.background_mode == 3:
         raise ValueError(f"fused bbox kernel: interpolation {cfg.interpolation} (2, 4 or 8) "
                          f"and background mode {cfg.background_mode} (0-2)")
@@ -137,7 +142,8 @@ def fused_bbox(img, x, y, idx, matrices, cfg: KernelConfig, dyn: KernelDynamics,
         # the experiment clamps nothing: the sampler's limit is not read
         err = L.gf_fused_bbox(img.data_ptr(), H, W, C, x.data_ptr(),
                               y.data_ptr(), idx.data_ptr(), matrices.data_ptr(),
-                              matrices.shape[0], cuda_coords.coord_params(dyn), int(cfg.flags),
+                              matrices.shape[0], cuda_coords.coord_params(cfg, dyn),
+                              int(cfg.flags),
                               oh, ow, tile_h, tile_w, INTERP_INFO[cfg.interpolation]["taps"],
                               cuda_fused.fused_args(cfg, bg, 0.0), out.data_ptr(),
                               valid.data_ptr(), bbox.data_ptr(),

@@ -2,17 +2,21 @@
 
 ``project`` replaces ``gyroflow_tpu/ops/pallas_coords.py::_coords_kernel``
 with the CUDA kernel ``gf_coords`` of ``csrc/coords.cu`` (one thread per
-output pixel, its matrix row read straight from the (rows, 14) table).
+output pixel, its matrix row read straight from the (rows, 14) table), for
+every distortion model and digital lens (``lens_ids``: the kernel is
+specialised on the main model, the digital lens is chosen at run time).
 ``project_plain`` is the same function in plain torch
-(``remap.rotate_and_distort``).
+(``remap.rotate_and_distort``). Mesh and focal-plane data raise
+NotImplementedError (ROADMAP queue 1, item 6).
 
 ``project_gen`` replaces ``pallas_coords.py::_coords_kernel_gen`` (the
 self-contained form behind ``project_tiles_gen``) with ``gf_coords_gen``:
 no x/y/idx input, the kernel builds each pixel's output position, runs
 coords_pre's out-rect map and translation2d, the rolling-shutter probe and
 row select, then the projection. ``project_gen_plain`` is ``remap.coords_pre``
-plus ``project_plain`` on the same grid. As in the JAX package, no render
-path calls it yet.
+plus ``project_plain`` on the same grid. It takes every main model; as in
+the JAX package it refuses lens correction, mesh and digital lenses, and no
+render path calls it yet.
 
 Each wrapper checks its inputs, then runs its plain version for CPU tensors
 only; for CUDA tensors it launches its kernel or raises. ``project.launches``
@@ -28,17 +32,16 @@ from . import remap
 from .kernel_params import (HAS_DIGITAL_LENS, HAS_FPD_DATA, HAS_MESH_DATA, HORIZONTAL_RS,
                             KernelConfig, KernelDynamics, dyn_to_torch)
 
-_UNSUPPORTED_FLAGS = HAS_DIGITAL_LENS | HAS_MESH_DATA | HAS_FPD_DATA
-
 
 def project_plain(x, y, idx, matrices, cfg: KernelConfig, dyn: KernelDynamics):
     """(x, y, idx) -> (u, v, valid) in plain torch on x's device."""
     return remap.rotate_and_distort(x, y, idx, matrices, cfg, dyn_to_torch(dyn, x.device))
 
 
-def coord_params(dyn: KernelDynamics):
-    """The kernel's by-value parameter struct (pallas_coords.pack_params
-    fields) from host dynamics."""
+def coord_params(cfg: KernelConfig, dyn: KernelDynamics):
+    """The kernel's by-value parameter struct: pallas_coords.pack_params'
+    fields (k .. stretch, digital_lens_params) from host dynamics, then the
+    plane sizes of remap._lens_params."""
     from .._build import CoordParams
 
     def h(a):
@@ -53,23 +56,26 @@ def coord_params(dyn: KernelDynamics):
     p.lrc = float(h(dyn.light_refraction_coefficient)[0])
     p.stretch_h = float(h(dyn.input_horizontal_stretch)[0])
     p.stretch_v = float(h(dyn.input_vertical_stretch)[0])
+    p.dlp[:] = h(dyn.digital_lens_params)[:16].tolist()
+    p.width, p.height = float(cfg.width), float(cfg.height)
+    p.output_width, p.output_height = float(cfg.output_width), float(cfg.output_height)
     return p
 
 
-def _check_model(cfg: KernelConfig, kernel: str):
-    """csrc/lens.cuh has the fisheye model only."""
-    if dm.get_model(cfg.distortion_model).id != "opencv_fisheye":
-        raise NotImplementedError(
-            f"{kernel}: distortion model {cfg.distortion_model!r} is not ported to "
-            "gyroflow_torch yet (ROADMAP queue 1, item 3)")
+def lens_ids(cfg: KernelConfig):
+    """(model, digital): the kernels' ids (csrc/lens.cuh ModelId, the order
+    of distortion_models.MODEL_IDS) of the main model and of the digital
+    lens the remap applies, -1 for none. Any name resolves, as get_model
+    resolves it."""
+    digital = remap.digital_lens(cfg)
+    return (dm.MODEL_IDS[dm.get_model(cfg.distortion_model).id],
+            -1 if digital is None else dm.MODEL_IDS[digital.id])
 
 
 def _check(x, y, idx, matrices, cfg: KernelConfig):
-    if cfg.flags & _UNSUPPORTED_FLAGS or cfg.digital_lens:
+    if cfg.flags & (HAS_MESH_DATA | HAS_FPD_DATA):
         raise NotImplementedError(
-            "coords kernel: digital lens / mesh / FPD are not ported yet "
-            "(ROADMAP queue 1, items 3 and 6)")
-    _check_model(cfg, "coords kernel")
+            "coords kernel: mesh / FPD are not ported yet (ROADMAP queue 1, item 6)")
     for name, t, dt in (("x", x, torch.float32), ("y", y, torch.float32),
                         ("idx", idx, torch.int32), ("matrices", matrices, torch.float32)):
         if t.device != x.device:
@@ -106,8 +112,8 @@ def project(x, y, idx, matrices, cfg: KernelConfig, dyn: KernelDynamics):
     L = lib()
     with torch.cuda.device(x.device):
         err = L.gf_coords(x.data_ptr(), y.data_ptr(), idx.data_ptr(), matrices.data_ptr(),
-                          matrices.shape[0], coord_params(dyn), int(cfg.flags), oh, ow,
-                          u.data_ptr(), v.data_ptr(), valid.data_ptr(),
+                          matrices.shape[0], coord_params(cfg, dyn), int(cfg.flags),
+                          *lens_ids(cfg), oh, ow, u.data_ptr(), v.data_ptr(), valid.data_ptr(),
                           torch.cuda.current_stream(x.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"coords kernel launch failed: cudaError {err}")
@@ -143,7 +149,6 @@ def _check_gen(cfg: KernelConfig, matrices, out_rows: int, oy0: int):
             "coords gen kernel: no lens-correction blend, mesh or digital lens (the JAX "
             "package gates project_tiles_gen off for them, pallas_coords.py:234-236); "
             "use remap.coords_pre with project")
-    _check_model(cfg, "coords gen kernel")
     if matrices.dtype != torch.float32 or not matrices.is_contiguous():
         raise TypeError("coords gen kernel: matrices must be contiguous float32")
     if matrices.dim() != 2 or matrices.shape[1] != 14 or matrices.shape[0] < 1:
@@ -197,8 +202,9 @@ def project_gen(cfg: KernelConfig, dyn: KernelDynamics, matrices, out_rows: int,
         return u, v, valid
     L = lib()
     with torch.cuda.device(u.device):
-        err = L.gf_coords_gen(matrices.data_ptr(), matrices.shape[0], coord_params(dyn),
-                              int(cfg.flags), gen_args(cfg, dyn, oy0, pos_dx, pos_dy),
+        err = L.gf_coords_gen(matrices.data_ptr(), matrices.shape[0], coord_params(cfg, dyn),
+                              int(cfg.flags), lens_ids(cfg)[0],
+                              gen_args(cfg, dyn, oy0, pos_dx, pos_dy),
                               out_rows, ow, u.data_ptr(), v.data_ptr(), valid.data_ptr(),
                               torch.cuda.current_stream(u.device).cuda_stream)
     if err != 0:

@@ -4,8 +4,9 @@ Replaces ``gyroflow_tpu/ops/pallas_fused.py::_fused_kernel`` with the CUDA
 kernel of ``csrc/fused.cu``: per output pixel, from coords_pre's (x, y, idx),
 the matrix-row projection, coords_post_uv, the guard and the separable LUT
 taps (the split sampler's loop, shared through ``csrc/taps.cuh``), so u, v
-and valid never reach device memory. ``remap_fused_plain`` is the same
-function in plain torch.
+and valid never reach device memory; every distortion model and digital
+lens (``cuda_coords.lens_ids``). ``remap_fused_plain`` is the same function
+in plain torch.
 
 ``remap_fused`` checks its inputs, then runs the plain version for CPU
 tensors only; for CUDA tensors it launches the kernel or raises.
@@ -114,7 +115,8 @@ def remap_fused(img, x, y, idx, matrices, cfg: KernelConfig, dyn: KernelDynamics
     with torch.cuda.device(img.device):
         err = L.gf_fused(img.data_ptr(), _DTYPES[img.dtype], H, W, C, x.data_ptr(),
                          y.data_ptr(), idx.data_ptr(), matrices.data_ptr(), matrices.shape[0],
-                         cuda_coords.coord_params(dyn), int(cfg.flags), oh, ow,
+                         cuda_coords.coord_params(cfg, dyn), int(cfg.flags),
+                         *cuda_coords.lens_ids(cfg), oh, ow,
                          INTERP_INFO[cfg.interpolation]["taps"], lut.data_ptr(),
                          fused_args(cfg, bg, limit), out.data_ptr(),
                          torch.cuda.current_stream(img.device).cuda_stream)

@@ -91,11 +91,16 @@ def _inverse_refraction(nx, ny, lrc):
 def _check_supported(cfg: KernelConfig):
     if cfg.has(HAS_MESH_DATA) or cfg.has(HAS_FPD_DATA):
         raise NotImplementedError("mesh / focal-plane correction " + _NOT_PORTED.format(6))
-    if cfg.has(HAS_DIGITAL_LENS) or cfg.digital_lens:
-        raise NotImplementedError(f"digital lens {cfg.digital_lens!r} " + _NOT_PORTED.format(3))
     if cfg.interpolation not in INTERP_INFO and cfg.interpolation not in EWA_BC:
         raise ValueError(f"unknown interpolation {cfg.interpolation}")
-    dm.torch_model(cfg.distortion_model)    # raises for models not ported
+
+
+def digital_lens(cfg: KernelConfig):
+    """The digital lens the remap applies, or None: HAS_DIGITAL_LENS with a
+    named lens (remap.py:104, :146, :210). Any id resolves, as get_model does."""
+    if cfg.has(HAS_DIGITAL_LENS) and cfg.digital_lens:
+        return dm.get_model(cfg.digital_lens)
+    return None
 
 
 def rotate_and_distort_core(px, py, m, cfg: KernelConfig, dyn: KernelDynamics,
@@ -103,8 +108,9 @@ def rotate_and_distort_core(px, py, m, cfg: KernelConfig, dyn: KernelDynamics,
     """Project output-space points through matrix row(s) ``m`` (remap.py:95).
 
     ``m``: 14 broadcastable tensors (one per matrix column). Returns
-    (u, v, valid). Mesh, FPD and digital lenses are rejected upstream."""
-    model = dm.torch_model(cfg.distortion_model)
+    (u, v, valid). Mesh and FPD are rejected upstream."""
+    model = dm.get_model(cfg.distortion_model)
+    digital = digital_lens(cfg)
 
     _x = px * m[0] + py * m[1] + m[2] + dyn.translation3d[0]
     _y = px * m[3] + py * m[4] + m[5] + dyn.translation3d[1]
@@ -136,6 +142,9 @@ def rotate_and_distort_core(px, py, m, cfg: KernelConfig, dyn: KernelDynamics,
 
     u = u + dyn.c[0]
     v = v + dyn.c[1]
+
+    if digital is not None:     # remap.py:146-147
+        u, v = digital.distort_xy(u, v, torch.ones_like(u), lp)
 
     sh = dyn.input_horizontal_stretch
     sv = dyn.input_vertical_stretch
@@ -194,9 +203,18 @@ def coords_pre(ox, oy, matrices, cfg: KernelConfig, dyn: KernelDynamics, out_c, 
 
     # ---- lens correction blend (remap.py:208-229) ----
     if cfg.lens_correction:
-        nx = (x - out_c[0]) / out_f[0]
-        ny = (y - out_c[1]) / out_f[1]
-        model = dm.torch_model(cfg.distortion_model)
+        nx, ny = x, y
+        digital = digital_lens(cfg)
+        if digital is not None:
+            # the digital warp FOV-independently: un-zoom, warp, re-zoom
+            uzx = (nx - out_c[0]) * dyn.fov + out_c[0]
+            uzy = (ny - out_c[1]) * dyn.fov + out_c[1]
+            dpt, dvalid = digital.undistort(torch.stack([uzx, uzy], dim=-1), lp)
+            nx = torch.where(dvalid, (dpt[..., 0] - out_c[0]) / dyn.fov + out_c[0], nx)
+            ny = torch.where(dvalid, (dpt[..., 1] - out_c[1]) / dyn.fov + out_c[1], ny)
+        nx = (nx - out_c[0]) / out_f[0]
+        ny = (ny - out_c[1]) / out_f[1]
+        model = dm.get_model(cfg.distortion_model)
         upt, uvalid = model.undistort(torch.stack([nx, ny], dim=-1), lp)
         nx = torch.where(uvalid, upt[..., 0], nx)
         ny = torch.where(uvalid, upt[..., 1], ny)

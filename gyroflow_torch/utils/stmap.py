@@ -12,9 +12,9 @@ single-frame export. Files are named
 A copy of gyroflow_tpu.utils.stmap whose undistort map runs on the
 manager's torch device: the output grid is built there, and the projection
 goes through the coords kernel (``cuda_coords.project``) on a CUDA device,
-or the plain ``remap.undistort_coord`` on the CPU. Mesh and focal-plane
-data, digital lenses and lens models without torch math raise
-NotImplementedError.
+or the plain ``remap.undistort_coord`` on the CPU, for every lens model and
+digital lens. Mesh and focal-plane data raise NotImplementedError (ROADMAP
+queue 1, item 6).
 """
 from __future__ import annotations
 
@@ -101,8 +101,7 @@ def undistort_inputs(mgr, timestamp_ms: float, per_frame: bool = False,
     ft = frame_transform_at(cp, timestamp_ms, frame)
     cfg = ft.kernel_cfg._replace(flags=_stmap_flags(ft.kernel_cfg),
                                  lens_correction=False)
-    # raises NotImplementedError for mesh/FPD, digital lenses and the lens
-    # models without torch math
+    # raises NotImplementedError for mesh/FPD
     remap._check_supported(cfg)
     dyn = ft.kernel_dyn
 

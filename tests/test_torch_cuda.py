@@ -17,12 +17,14 @@ import numpy as np
 import pytest
 import torch
 
+from chip_smoke import LENS_DLP, LENS_K, lenses   # chip_smoke.py phase 8's lenses
 from gyroflow_torch.ops import cuda_coords, cuda_ewa, cuda_fused, cuda_sampler
+from gyroflow_torch.ops import distortion_models as tdm
 from gyroflow_torch.ops import remap
-from gyroflow_torch.ops.kernel_params import (ANY_UNDERWATER, FIX_COLOR_RANGE, HAS_IBIS_DATA,
-                                              HAS_MESH_DATA, HAS_OUTPUT_RECT, HAS_SOURCE_RECT,
-                                              HORIZONTAL_RS, KernelConfig, KernelDynamics,
-                                              dyn_to_torch)
+from gyroflow_torch.ops.kernel_params import (ANY_UNDERWATER, FIX_COLOR_RANGE, HAS_DIGITAL_LENS,
+                                              HAS_IBIS_DATA, HAS_MESH_DATA, HAS_OUTPUT_RECT,
+                                              HAS_SOURCE_RECT, HORIZONTAL_RS, KernelConfig,
+                                              KernelDynamics, dyn_to_torch)
 
 pytestmark = pytest.mark.cuda
 
@@ -557,6 +559,99 @@ def test_coords_gen_kernel_vs_plain(dev, plane, flags, out_rows, oy0, pos_dx):
     assert torch.equal(valk, valp) and bool(valk.any())
     assert float((uk - up).abs()[valk].max()) <= 1e-4
     assert float((vk - vp).abs()[valk].max()) <= 1e-4
+
+
+# ---- every lens model and digital lens (csrc/lens.cuh) -----------------------
+
+# each model as the main model, then each digital lens on the fisheye base
+LENSES = lenses()
+
+
+def _lens_case(plane, model, digital, lens_correction_amount=1.0, **kw):
+    """_case with the lens (model, digital) and its coefficients."""
+    cfg, dyn, mats, img = _case(plane, **kw)
+    cfg = cfg._replace(distortion_model=model, digital_lens=digital,
+                       flags=cfg.flags | (HAS_DIGITAL_LENS if digital else 0),
+                       lens_correction=lens_correction_amount < 1.0)
+    lens = KernelDynamics.make(k=LENS_K.get(model), digital_lens_params=LENS_DLP.get(digital or model),
+                               lens_correction_amount=lens_correction_amount)
+    dyn = dyn._replace(k=lens.k, digital_lens_params=lens.digital_lens_params,
+                       lens_correction_amount=lens.lens_correction_amount)
+    return cfg, dyn, mats, img
+
+
+def _same_coords(k, p):
+    """Valid masks identical, the same non-finite values, finite u and v
+    within 0.01 px (the same float32 ops in the same order: 0 expected)."""
+    (uk, vk, valk), (up, vp, valp) = k, p
+    assert torch.equal(valk, valp)
+    for a, b in ((uk, up), (vk, vp)):
+        fin = torch.isfinite(b)
+        assert torch.equal(torch.isfinite(a), fin)
+        assert torch.equal(a[~fin].isnan(), b[~fin].isnan())
+        ok = valk & fin
+        if bool(ok.any()):
+            assert float((a - b).abs()[ok].max()) <= 0.01
+
+
+@pytest.mark.parametrize("model,digital", LENSES)
+def test_coords_kernel_every_lens_vs_plain(dev, model, digital):
+    cfg, dyn, mats, _ = _lens_case("Y", model, digital)
+    x, y, idx, m = _coords_inputs(cfg, dyn, mats, dev)
+    n0 = cuda_coords.project.launches
+    k = cuda_coords.project(x, y, idx, m, cfg, dyn)
+    p = cuda_coords.project_plain(x, y, idx, m, cfg, dyn)
+    torch.cuda.synchronize()
+    assert cuda_coords.project.launches == n0 + 1
+    _same_coords(k, p)
+
+
+@pytest.mark.parametrize("model", list(tdm.MODEL_IDS))
+def test_coords_gen_kernel_every_model_vs_plain(dev, model):
+    cfg, dyn, mats, _ = _lens_case("Y", model, None, flags=HAS_IBIS_DATA)
+    m = torch.from_numpy(mats).to(dev)
+    out_c, out_f = (W / 2.0, H / 2.0), (F[0] / 1.05, F[1] / 1.05)
+    n0 = cuda_coords.project_gen.launches
+    k = cuda_coords.project_gen(cfg, dyn, m, 40, 20, out_c, out_f, pos_dx=0.01)
+    p = cuda_coords.project_gen_plain(cfg, dyn, m, 40, 20, out_c, out_f, pos_dx=0.01)
+    torch.cuda.synchronize()
+    assert cuda_coords.project_gen.launches == n0 + 1
+    _same_coords(k, p)
+
+
+@pytest.mark.parametrize("model,digital", LENSES)
+def test_remap_plane_cuda_fused_every_lens_vs_plain(dev, monkeypatch, model, digital):
+    """fused=True: one fused launch (the any-lens instantiation for every
+    lens but the plain fisheye), the uint16 frame within 1 code of the same
+    route with the fused kernel's plain version (0 expected). Not the split
+    path: where a lens's fixed point diverges (hyperview) the positions are
+    non-finite, and the fused guard-then-offset order samples them apart
+    from the split order (test_torch_fused.py::test_guard_orders)."""
+    cfg, dyn, mats, img = _lens_case("UV", model, digital)
+    timg, m = torch.from_numpy(img).to(dev), torch.from_numpy(mats).to(dev)
+    n0 = cuda_fused.remap_fused.launches
+    got = remap.remap_plane_cuda(timg, m, cfg, dyn, out_dtype="uint16", fused=True)
+    assert cuda_fused.remap_fused.launches == n0 + 1
+    monkeypatch.setattr(cuda_fused, "remap_fused", cuda_fused.remap_fused_plain)
+    want = remap.remap_plane_cuda(timg, m, cfg, dyn, out_dtype="uint16", fused=True)
+    assert int((got.to(torch.int32) - want.to(torch.int32)).abs().max()) <= 1
+
+
+@pytest.mark.parametrize("model,digital,interpolation,lc", [
+    *[(m, d, 8, 1.0) for m, d in LENSES],
+    ("opencv_fisheye", "gopro_superview", 8, 0.5), ("sony", None, 11, 1.0),
+    ("opencv_fisheye", "gopro_superview", 11, 0.5)])
+def test_remap_plane_cuda_every_lens_vs_plain(dev, model, digital, interpolation, lc):
+    """The split path (the coords kernel, then the sampler or EWA kernel),
+    with the digital lens's un-zoom, warp and re-zoom in coords_pre where
+    lens correction is on: the uint16 frame within 1 code of the plain path
+    (0 expected)."""
+    cfg, dyn, mats, img = _lens_case("Y", model, digital, lens_correction_amount=lc,
+                                     interpolation=interpolation)
+    timg, m = torch.from_numpy(img).to(dev), torch.from_numpy(mats).to(dev)
+    got = remap.remap_plane_cuda(timg, m, cfg, dyn, out_dtype="uint16")
+    want = remap.remap_plane(timg, m, cfg, dyn, out_dtype="uint16")
+    assert int((got.to(torch.int32) - want.to(torch.int32)).abs().max()) <= 1
 
 
 def test_new_kernels_raise_instead_of_falling_back(dev):

@@ -29,7 +29,7 @@ from gyroflow_tpu.ops.kernel_params import (FIX_COLOR_RANGE, HAS_IBIS_DATA, HORI
 from gyroflow_torch.ops import cuda_fused
 from gyroflow_torch.ops import remap as tremap
 
-from test_torch_remap import F32_TOL, MAXV, U16_TOL, make_case
+from test_torch_remap import F32_TOL, MAXV, U16_TOL, lens_kw, make_case
 from test_torch_threads import one_torch_thread  # noqa: F401 (autouse fixture)
 
 
@@ -46,9 +46,10 @@ def _jax_fused(cfg, dyn, mats, img, out_dtype="f32"):
     return np.asarray(out)
 
 
-def _case(plane, interpolation, bg_mode, flags, rotation=0.0):
+def _case(plane, interpolation, bg_mode, flags, rotation=0.0, **lens):
     cfg, dyn, pcfg, pdyn, mats, img = make_case(plane, interpolation=interpolation,
-                                                background_mode=bg_mode, flags=flags, fov=1.1)
+                                                background_mode=bg_mode, flags=flags, fov=1.1,
+                                                **lens)
     if rotation:
         cfg, pcfg = cfg._replace(input_rotation=rotation), pcfg._replace(input_rotation=rotation)
     return cfg, dyn, pcfg, pdyn, mats, img
@@ -70,6 +71,19 @@ def test_fused_vs_pallas_fused(plane, interpolation, bg_mode, flags, rotation):
     got = _port(pcfg, pdyn, mats, img, fused=True)
     assert got.shape == want.shape == (cfg.out_buffer[1], cfg.out_buffer[0], img.shape[2])
     assert np.abs(got - want).max() <= F32_TOL
+
+
+@pytest.mark.parametrize("model,digital", [("sony", None), ("opencv_fisheye", "gopro_superview")])
+def test_fused_vs_pallas_fused_other_lens(model, digital):
+    """A main model other than fisheye, and a digital lens on a fisheye base:
+    the fused kernel's any-lens instantiation (csrc/fused.cu)."""
+    cfg, dyn, pcfg, pdyn, mats, img = _case("Y", 8, 0, 0, **lens_kw(model, digital))
+    assert tremap.use_fused(pcfg, torch.from_numpy(mats))
+    want = _jax_fused(cfg, dyn, mats, img)
+    got = _port(pcfg, pdyn, mats, img, fused=True)
+    assert got.shape == want.shape
+    assert np.abs(got - want).max() <= F32_TOL
+    np.testing.assert_array_equal(got, _port(pcfg, pdyn, mats, img, fused=False))
 
 
 def test_fused_uint16_vs_pallas_fused():

@@ -8,8 +8,9 @@ JAX package's ``pallas_coords.project_tiles_gen``, on the CPU.
   eval) and a band with ``oy0 > 0`` and ``out_rows < oh``.
 - ``project_gen`` against ``remap.coords_pre`` + ``cuda_coords.project`` on
   the same band (the split path it replaces): bit-identical on the CPU.
-- The configurations the kernel does not compute (lens correction, mesh,
-  digital lens) raise ValueError instead of a different answer.
+- Every main model (one case: opencv_standard); the configurations the
+  kernel does not compute (lens correction, mesh, digital lens, as JAX
+  gates project_tiles_gen) raise ValueError instead of a different answer.
 
 Tolerances: u/v within 0.05 px (the ROADMAP's coordinate tolerance; the
 JAX kernel's in-kernel probe and XLA round the same chain a few ulp apart),
@@ -29,7 +30,7 @@ from gyroflow_torch.ops import remap as tremap
 from gyroflow_torch.ops.kernel_params import HAS_DIGITAL_LENS, HAS_MESH_DATA, dyn_to_torch
 
 from test_torch_coords import _out_c_f
-from test_torch_remap import make_case
+from test_torch_remap import lens_kw, make_case
 from test_torch_threads import one_torch_thread  # noqa: F401 (autouse fixture)
 
 UV_TOL_PX = 0.05
@@ -57,6 +58,7 @@ CASES = [
     ("Y", {}, None, 0, 0.0),
     ("UV", dict(translation2d=(1.5, -2.0)), None, 0, 0.01),
     ("Y", dict(flags=HORIZONTAL_RS, fov=1.2), 24, 16, 0.0),
+    ("Y", lens_kw("opencv_standard"), 40, 8, 0.0),      # a main model other than fisheye
 ]
 
 

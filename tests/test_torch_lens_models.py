@@ -7,9 +7,9 @@ into the JAX package's manager, the same seeded gyro log is loaded and both
 recompute (smoothing, zooming). The five digital lenses (GoPro Superview,
 Hyperview, warp, digital stretch) sit on a fisheye base, as real profiles
 carry them. The port must give the JAX manager's fovs exactly (the host
-layers are copies), and rendering a plane must raise NotImplementedError
-that cites ROADMAP queue 1, item 3 for every model but opencv_fisheye, whose
-render runs.
+layers are copies), and each renders a smooth 10-bit plane through
+``process_pixels`` within 1 code of the JAX manager's XLA path (the uint16
+cast rounds float results that differ by float rounding).
 """
 import json
 
@@ -25,6 +25,7 @@ from gyroflow_torch.ops import distortion_models as tdm
 
 from test_distortion_models import COEFFS, DIGITAL
 from test_end_to_end import DUR_S, H, W, gcsv_path  # noqa: F401 (fixture)
+from test_torch_remap import smooth_image
 from test_torch_threads import one_torch_thread  # noqa: F401 (autouse fixture)
 
 # the digital lenses' parameters of test_distortion_models.make_params
@@ -56,7 +57,7 @@ def _manager(m, lens_mod, model_id, gcsv):
     return m
 
 
-@pytest.mark.parametrize("model_id", tdm.REFERENCE_MODEL_IDS)
+@pytest.mark.parametrize("model_id", list(tdm.MODEL_IDS))
 def test_profile_loads_and_recomputes_like_jax(gcsv_path, model_id):  # noqa: F811
     tm = _manager(StabilizationManager(device="cpu"), tlp, model_id, gcsv_path)
     jm = _manager(JManager(), jlp, model_id, gcsv_path)
@@ -65,12 +66,10 @@ def test_profile_loads_and_recomputes_like_jax(gcsv_path, model_id):  # noqa: F8
     assert len(tm.params.fovs) == int(DUR_S * 30)
     assert tm.params.fovs == jm.params.fovs
     assert np.isfinite(tm.params.fovs).all()
-    img = np.random.default_rng(0).integers(0, 1024, (H, W, 1)).astype(np.uint16)
-    if model_id == "opencv_fisheye":
-        out, _ = tm.process_pixels(500_000, img, plane_index=0, max_pixel_value=1023.0,
-                                   plane_rects=True)
-        assert isinstance(out, torch.Tensor) and tuple(out.shape) == img.shape
-    else:
-        with pytest.raises(NotImplementedError, match="queue 1, item 3"):
-            tm.process_pixels(500_000, img, plane_index=0, max_pixel_value=1023.0,
-                              plane_rects=True)
+    img = np.rint(smooth_image(H, W, 1)).astype(np.uint16)
+    out, _ = tm.process_pixels(500_000, img, plane_index=0, max_pixel_value=1023.0,
+                               plane_rects=True)
+    want, _ = jm.process_pixels(500_000, img, use_pallas=False, plane_index=0,
+                                max_pixel_value=1023.0, plane_rects=True)
+    assert isinstance(out, torch.Tensor) and tuple(out.shape) == img.shape
+    assert np.abs(out.numpy().astype(np.int32) - np.asarray(want).astype(np.int32)).max() <= 1

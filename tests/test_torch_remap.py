@@ -21,12 +21,14 @@ import numpy as np
 import pytest
 import torch
 
+from gyroflow_tpu.ops import distortion_models as jdm
 from gyroflow_tpu.ops import remap as jremap
-from gyroflow_tpu.ops.kernel_params import (ANY_UNDERWATER, FIX_COLOR_RANGE, HAS_IBIS_DATA,
-                                            HAS_OUTPUT_RECT, HAS_SOURCE_RECT, KernelConfig,
-                                            KernelDynamics)
+from gyroflow_tpu.ops.kernel_params import (ANY_UNDERWATER, FIX_COLOR_RANGE, HAS_DIGITAL_LENS,
+                                            HAS_IBIS_DATA, HAS_OUTPUT_RECT, HAS_SOURCE_RECT,
+                                            KernelConfig, KernelDynamics)
 from gyroflow_torch.ops import kernel_params as tkp
 from gyroflow_torch.ops import remap as tremap
+from test_distortion_models import DIGITAL, make_params
 from test_torch_threads import one_torch_thread  # noqa: F401 (autouse fixture)
 
 W, H = 96, 64               # luma plane
@@ -70,18 +72,40 @@ def smooth_image(h, w, c, seed=0):
     return (img + rng.uniform(0, 0.5, img.shape)).astype(np.float32)
 
 
+# every lens of the reference: each model as the main model, then each
+# digital lens on a fisheye base
+LENS_CASES = [(m, None) for m in jdm.MODELS] + [("opencv_fisheye", d) for d in DIGITAL]
+
+
+def lens_kw(model, digital=None):
+    """make_case's lens keywords: ``model`` with the coefficients of
+    test_distortion_models.make_params, or the fisheye base with the digital
+    lens ``digital`` and its parameters."""
+    if digital:
+        return dict(digital_lens=digital,
+                    digital_lens_params=np.array(make_params(digital).digital_lens_params))
+    p = make_params(model)
+    return dict(distortion_model=model, k=np.array(p.k),
+                digital_lens_params=np.array(p.digital_lens_params))
+
+
 def make_case(plane="Y", interpolation=8, background_mode=0, flags=0, fov=0.9,
-              lens_correction_amount=1.0, lrc=1.0, translation2d=(0.0, 0.0)):
+              lens_correction_amount=1.0, lrc=1.0, translation2d=(0.0, 0.0),
+              distortion_model="opencv_fisheye", k=K, digital_lens=None,
+              digital_lens_params=None):
     """(JAX cfg, JAX dyn, port cfg, port dyn, matrices, image) for one plane.
 
     plane "UV" is the half-size 2-channel chroma plane of YUV420 with luma
-    geometry and source/output rects, as the manager builds it."""
+    geometry and source/output rects, as the manager builds it. A digital
+    lens sets HAS_DIGITAL_LENS, as frame_transform does."""
     if lrc != 1.0:
         flags |= ANY_UNDERWATER          # as frame_transform sets it
+    if digital_lens:
+        flags |= HAS_DIGITAL_LENS
     cfg = KernelConfig(width=W, height=H, output_width=W, output_height=H,
                        interpolation=interpolation, background_mode=background_mode,
-                       distortion_model="opencv_fisheye", flags=flags,
-                       lens_correction=lens_correction_amount < 1.0)
+                       distortion_model=distortion_model, digital_lens=digital_lens,
+                       flags=flags, lens_correction=lens_correction_amount < 1.0)
     if plane == "UV":
         pw, ph = W // 2, H // 2
         cfg = cfg._replace(plane_index=1, source_rect=(0, 0, pw, ph),
@@ -91,10 +115,11 @@ def make_case(plane="Y", interpolation=8, background_mode=0, flags=0, fov=0.9,
     else:
         img = smooth_image(H, W, 1)
     dyn = KernelDynamics.make(
-        f=F, c=(W / 2, H / 2), k=K, fov=fov, lens_correction_amount=lens_correction_amount,
+        f=F, c=(W / 2, H / 2), k=k, fov=fov, lens_correction_amount=lens_correction_amount,
         background=(0.1, 0.5, 0.2, 1.0), background_margin=0.1,
         background_margin_feather=0.05, translation2d=translation2d,
-        light_refraction_coefficient=lrc, max_pixel_value=MAXV, pixel_value_limit=MAXV)
+        digital_lens_params=digital_lens_params, light_refraction_coefficient=lrc,
+        max_pixel_value=MAXV, pixel_value_limit=MAXV)
     pcfg, pdyn = tkp.from_reference(cfg, dyn)
     return cfg, dyn, pcfg, pdyn, rs_matrices(fov, ibis=bool(flags & HAS_IBIS_DATA)), img
 
@@ -203,11 +228,6 @@ class TestRemapPlane:
 
 
 class TestNotPorted:
-    def test_other_model_raises(self):
-        _, _, pcfg, pdyn, mats, img = make_case("Y")
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            port_remap(pcfg._replace(distortion_model="poly3"), pdyn, mats, img)
-
     def test_mesh_raises(self):
         _, _, pcfg, pdyn, mats, img = make_case("Y")
         with pytest.raises(NotImplementedError, match="ROADMAP"):
