@@ -89,7 +89,19 @@ exits non-zero without the final line):
    0.5), (c) Canon (opencv_standard), (d) EWA (interpolation 11) with (a);
    3 frames of Y and UV through process_pixels and a process_pixels_window
    (F = 8; 2 for EWA), held as phases 4-4e hold the fisheye render, with
-   launch counts, ms per frame and device time per frame.
+   launch counts, ms per frame and device time per frame;
+9. a synthesised 4K Sony clip (sony_tagmap: 60 frames in an MP4's rtmd
+   track as KLV samples; the sony lens, IBIS, a seeded 9x9 lens mesh and
+   FPD shears): the mesh form of gf_coords (its own instantiation) and
+   the overlay kernel (csrc/overlay.cu, on tracking points from
+   manager.draw_overlays and a safe-area rect) against their plain versions
+   at the 4K Y and UV planes' shapes, bit-identical, with times and bounds;
+   then 3 frames through process_pixels (the probe on the coords kernel: 2
+   coords launches a plane), an 8-frame process_pixels_window, 3 EWA frames,
+   an 8-frame 4K y4m through render(), an ST-map export, a per-frame
+   undistort map (its rolling-shutter probe on the coords kernel) and one
+   overlay frame, each 0 codes from the plain path, and the Sony frame's
+   device time and launches under torch.profiler.
 
 Each kernel's bound (the least time the card could take for the same work)
 is the larger of its bytes (each input read once, each output written once)
@@ -164,6 +176,7 @@ LOOP_OF = {"gopro": "_gopro_poly_invert", "gopro_superview": "_fixed_point_inver
            "gopro6_superview": "_fixed_point_invert", "gopro_hyperview": "_fixed_point_invert",
            "gopro_warp": "_fixed_point_invert"}
 PROJECT_BASE_OPS = PROJECT_OPS - DISTORT_OPS["opencv_fisheye"][0]
+IBIS_OPS = 15               # the IBIS test 5, cos and sin 2, the rotation and shifts 8
 LENS_TOL_PX = 0.01          # phase 8: kernel vs plain, the same float32 ops (0 expected)
 # the lenses of phase 8: coefficient shapes of real profiles
 # (tests/test_distortion_models.py COEFFS) and digital-lens parameters
@@ -196,6 +209,82 @@ SLICES = (("a: Sony", dict(model="sony", k=LENS_K["sony"]), 8),
                                               **GOPRO_HERO11), 8),
           ("c: Canon", dict(model="opencv_standard", k=LENS_K["opencv_standard"]), 8),
           ("d: Sony, EWA", dict(model="sony", k=LENS_K["sony"]), 11))
+
+
+# phase 9: a synthesised Sony clip (the tag-map fields of
+# tests/test_sony_canon.py's fixture) with a seeded 9x9 lens mesh, focal-plane
+# shears and IBIS on every frame, written as real SMPTE KLV samples
+SONY_GRID = 9
+SONY_FRAMES = 60
+
+
+def sony_tagmap(i, w, h, grid=SONY_GRID, seed=9):
+    """Frame i's Sony tag map for a w x h clip: gyro and accelerometer at
+    990 Hz, the ILCE-7M4 imager, the sony lens polynomial, 12 IBIS and OIS
+    samples, and one seeded grid x grid mesh and FPD block shared by every
+    frame (the inverse mesh is fitted once per distinct mesh)."""
+    import numpy as np
+    rate = 990.0
+    t0 = i * 1000.0 / FPS
+    n = int(round(rate / FPS))
+    gyro = [(t0 + j / rate * 1000.0, 20.0 * math.sin((t0 + j) * 0.05),
+             10.0 * math.cos((t0 + j) * 0.04), 4.0) for j in range(n)]
+    step = 1e6 / FPS / 12.0
+    size = (6912.0, 4608.0)
+    rng = np.random.default_rng(seed)
+    gx, gy = np.meshgrid(np.linspace(0, size[0], grid), np.linspace(0, size[1], grid))
+    pts = np.stack([gx + rng.normal(0, 10.0, gx.shape), gy + rng.normal(0, 8.0, gy.shape)], -1)
+    pts = [tuple(p) for p in pts.reshape(-1, 2).tolist()]
+    sensor_h = 4608.0 * 5940.0
+    return {
+        "camera_model": "ILCE-7M4", "frame_rate": FPS, "frame_readout_time": 8.0,
+        "video_size": (w, h), "imu_orientation": "XYZ",
+        "imager": {"first_frame_ts": 2.0, "exposure_time": 2.0,
+                   "sensor_size_px": (7008, 4672), "pixel_pitch": (5940, 5940),
+                   "capture_area_origin": (48.0, 36.0), "capture_area_size": size},
+        "gyroscope": {"frequency": int(rate), "time_offset": 5.0, "scaler": 1000000,
+                      "data": gyro},
+        "accelerometer": {"data": [(t, 0.0, 0.0, 9.8) for (t, *_r) in gyro]},
+        "lens": {"focal_length": 35.0, "display_name": "FE 35mm F1.8"},
+        "lens_distortion": {"enabled": True, "data": {
+            "focal_length_nm": 35.0e6, "effective_sensor_height_nm": sensor_h,
+            "coeff_scale": 100.0,
+            "coeffs": [100.0 * math.degrees(math.atan(r / 10.0 * (sensor_h / 1e9) / 0.035))
+                       * (1.0 + 0.01 * (r / 10.0) ** 2) for r in range(1, 11)]}},
+        "ibis": {"data": [(int(j * step), int(40 * math.sin(i + j * 0.5)),
+                           int(30 * math.cos(i + j * 0.4)), 0) for j in range(12)],
+                 "data2": [(int(j * step), 0, 0, int(5 * math.sin(j))) for j in range(12)]},
+        "lens_oss": {"data": [(int(j * step), int(10 * math.sin(j + i)), int(8 * math.cos(j)), 0)
+                              for j in range(12)]},
+        "mesh_correction": {"data": {"size": size, "divisions": (grid, grid), "mesh": pts,
+                                     "raw_mesh": pts}},
+        "focal_plane_distortion": {"data": {
+            "unk1": 1, "unk2": 2, "scale": 100.0,
+            "unk4": [tuple(int(v) for v in rng.integers(-60, 61, 2)) for _ in range(8)]}},
+    }
+
+
+def make_sony_manager(dev, workdir, w=None, h=None, n=SONY_FRAMES, grid=SONY_GRID):
+    """A StabilizationManager on dev that loaded an n-frame w x h Sony clip
+    (sony_tagmap's frames in an MP4's rtmd track, KLV samples) written to
+    workdir, then the lens profile the clip carries: the sony lens, IBIS,
+    the grid x grid mesh and FPD from the clip. The host fits the inverse
+    mesh once (Nelder-Mead per grid point: ~20 s at 9x9)."""
+    from gyroflow_torch.core.manager import StabilizationManager
+    from gyroflow_torch.core.telemetry import sony
+    w, h = w or W, h or H
+    path = Path(workdir) / "chip_smoke_sony.mp4"
+    path.write_bytes(sony.build_tagmap_mp4([sony_tagmap(i, w, h, grid) for i in range(n)], FPS,
+                                           encoding="klv"))
+    t0 = time.perf_counter()
+    mgr = StabilizationManager(device=dev)
+    mgr.init_from_video_data(n / FPS * 1000.0, FPS, n, (w, h))
+    mgr.load_gyro_data(str(path))
+    mgr.load_lens_profile(json.dumps(mgr.gyro.file_metadata.lens_profile))
+    mgr.recompute_blocking()
+    print(f"Sony manager: {w}x{h} @ {FPS} fps, {n} frames, lens {mgr.lens.distortion_model}, "
+          f"loaded and recomputed in {time.perf_counter() - t0:.2f} s")
+    return mgr
 
 
 def sampler_ops(C, taps=8):
@@ -321,6 +410,13 @@ def plane_setup(mgr, planes, ts_us, name, interpolation=8):
     return cfg, dyn, mats
 
 
+def plane_mesh(mgr, ts_us):
+    """The frame's mesh buffer on the card as process_pixels reads it (None
+    for a clip without Sony mesh or focal-plane data)."""
+    ts_ms = mgr._adjusted_ts_ms(ts_us)
+    return mgr._mats_on_device(ts_ms, mgr.frame_transform_at(ts_ms))[1]
+
+
 def plane_bg(dyn, img):
     """The plane's background in codes, one value per channel."""
     import numpy as np
@@ -331,7 +427,7 @@ def plane_bg(dyn, img):
 # mangled names of the kernels the driven paths launch (uint16 planes, C=1/2;
 # the experiments' float32 planes): coords, coords_gen and fused are the
 # fisheye instantiations; phase 8's lenses follow (lens_kernels)
-MAIN_PATH_KERNELS = {"coords": "coords_kernelILi0ELb0EE",
+MAIN_PATH_KERNELS = {"coords": "coords_kernelILi0ELb0ELb0EE",
                      "sampler<u16,C1,8>": "sampler_kernelItLi1ELi8E",
                      "sampler<u16,C2,8>": "sampler_kernelItLi2ELi8E",
                      "ewa<u16,C1>": "ewa_kernelItLi1EE", "ewa<u16,C2>": "ewa_kernelItLi2EE",
@@ -345,15 +441,19 @@ MAIN_PATH_KERNELS = {"coords": "coords_kernelILi0ELb0EE",
                      "probe_sampler<C1,full,bf16>": "probe_sampler_kernelILi1ELi3ELi1EE",
                      "probe_sampler<C1,full,bf16x3>": "probe_sampler_kernelILi1ELi3ELi2EE",
                      "probe_sampler<C2,full,fp32>": "probe_sampler_kernelILi2ELi3ELi0EE",
-                     "fused<u16,C1,8,any lens>": "fused_kernelItLi1ELi8ELb1EE"}
+                     "fused<u16,C1,8,any lens>": "fused_kernelItLi1ELi8ELb1EE",
+                     "overlay<C1>": "overlay_kernelILi1EE", "overlay<C2>": "overlay_kernelILi2EE"}
 
 
 def lens_kernels():
     """Mangled names of phase 8's instantiations, by model id
     (distortion_models.MODEL_IDS, lens.cuh's ModelId)."""
     from gyroflow_torch.ops.distortion_models import MODEL_IDS
-    return {**{f"coords<{m}>": f"coords_kernelILi{i}ELb0EE" for m, i in MODEL_IDS.items() if i},
-            **{f"coords<{m},digital>": f"coords_kernelILi{i}ELb1EE" for m, i in MODEL_IDS.items()},
+    return {**{f"coords<{m}>": f"coords_kernelILi{i}ELb0ELb0EE"
+               for m, i in MODEL_IDS.items() if i},
+            **{f"coords<{m},digital>": f"coords_kernelILi{i}ELb1ELb0EE"
+               for m, i in MODEL_IDS.items()},
+            **{f"coords<{m},mesh>": f"coords_kernelILi{i}ELb1ELb1EE" for m, i in MODEL_IDS.items()},
             **{f"coords_gen<{m}>": f"coords_gen_kernelILi{i}EE"
                for m, i in MODEL_IDS.items() if i}}
 
@@ -928,6 +1028,321 @@ def lens_phase(dev, smi, workdir, mgr, planes, dev_planes, kernel_ms, pre_coords
                      "slices": slices}
 
 
+def mesh_ops(gh, mesh=True, fpd_steps=None):
+    """FP32 operations of one pixel's mesh stage (lens.cuh), counted as
+    PROJECT_OPS is: the crop maps in and out (14) and the x segment (8); per
+    channel, the x spline pieces of the gh grid rows (8 each) and the y
+    spline (the recurrence 7 a row, the backward pass 2 a row, the piece's b
+    and d 8, the rest 25). Reading segment fi's coefficients is a load, not
+    an FP32 operation: the selects by which the kernel reads them out of its
+    registers (`pick`) are not counted. fpd_steps: the focal-plane shear's
+    mean loop steps a pixel at this run's inputs (4 operations each besides
+    its 7 tests), or None without FPD (the rest 30)."""
+    ops = 0
+    if mesh:
+        spline = 7 * (gh - 2) + 2 * (gh - 1) + 8 + 25
+        ops += 22 + 2 * (8 * gh + spline)
+    if fpd_steps is not None:
+        ops += 30 + 7 + 4 * fpd_steps
+    return ops
+
+
+OVERLAY_BASE_OPS = 30       # source-rect test 4, two canvas fetches 16, safe-area dim 10
+# per blended canvas byte: its alpha 2, then per channel 5 (colour scale, blend)
+
+
+def canvas_reach(canvas, scale, points):
+    """The number of distinct canvas bytes the overlay needs: the byte under
+    each point (x, y) where its gate holds and it lies on the canvas, as
+    remap._canvas_fetch finds it; points is a list of (x, y, gate or None)."""
+    import torch
+    hc, wc = canvas.shape
+    seen = torch.zeros(hc * wc, dtype=torch.bool, device=canvas.device)
+    for x, y, gate in points:
+        xi, yi = torch.floor(x / scale), torch.floor(y / scale)
+        inb = (xi >= 0) & (yi >= 0) & (xi < wc) & (yi < hc)
+        if gate is not None:
+            inb = inb & gate
+        seen[(yi[inb].to(torch.int64) * wc + xi[inb].to(torch.int64))] = True
+    return int(seen.sum())
+
+
+def sony_phase(dev, smi, workdir, planes, dev_planes, kernel_ms, driven, expect, drive,
+               drive_window, device_rows, out_cf, ptxas):
+    """Phase 9: a synthesised 4K Sony clip (sony lens, IBIS, a 9x9 lens mesh
+    and FPD on every frame). The mesh form of gf_coords and the overlay
+    kernel against their plain versions at the 4K planes' shapes, with
+    times and bounds; then the clip's frames through process_pixels,
+    process_pixels_window (F = 8), render() of an 8-frame y4m, an EWA frame,
+    an ST-map export and one overlay frame (tracking points and a safe-area
+    rect from manager.draw_overlays), each held at 0 codes from the plain
+    path. Returns (entries for the kernels line, report)."""
+    import numpy as np
+    import torch
+    from gyroflow_torch.core.drawing import DrawCanvas
+    from gyroflow_torch.ops import cuda_coords, cuda_overlay, cuda_sampler, remap
+    from gyroflow_torch.ops.kernel_params import (DRAWING_ENABLED, HAS_FPD_DATA, HAS_IBIS_DATA,
+                                                  HAS_MESH_DATA, dyn_to_torch)
+    from gyroflow_torch.render.formats import RAW_FORMATS
+    from gyroflow_torch.render.renderer import RenderOptions, _plane_backgrounds, render
+    from gyroflow_torch.render.y4m_io import Y4MReader
+    from gyroflow_torch.sync.pose_estimator import FrameResult, PoseEstimator
+    from gyroflow_torch.utils import stmap
+
+    phase(f"Sony clip: a {SONY_FRAMES}-frame {W}x{H} clip with IBIS, a {SONY_GRID}x{SONY_GRID} "
+          f"lens mesh and FPD; the mesh form of gf_coords and the overlay kernel vs plain torch")
+    sm = make_sony_manager(dev, workdir)
+    ts0 = 500_000
+    cfg0 = sm.frame_transform_at(sm._adjusted_ts_ms(ts0)).kernel_cfg
+    check(cfg0.distortion_model == "sony" and cfg0.mesh_grid == (SONY_GRID, SONY_GRID)
+          and all(cfg0.has(f) for f in (HAS_MESH_DATA, HAS_FPD_DATA, HAS_IBIS_DATA)),
+          f"Sony clip: cfg {cfg0}")
+    rows, ov_rows = {}, {}
+    canvas = DrawCanvas(W, H, W, H)
+    est = PoseEstimator(sm.get_compute_params(), (W, H))
+    rng = np.random.default_rng(11)
+    p0 = np.stack([rng.uniform(0, W, 400), rng.uniform(0, H, 400)], -1)
+    est.results[ts0] = FrameResult(ts0, of_points=(p0, p0 + rng.normal(0, 3.0, p0.shape)),
+                                   next_ts=ts0 + 33_333, points=400)
+    sm.pose_estimator = est
+    sm.params.show_detected_features = True
+    sm.draw_overlays(canvas, ts0)
+    sm.params.show_detected_features = False
+    drawing = canvas.state(safe_area_rect=(0.1 * W, 0.1 * H, 0.9 * W, 0.9 * H))
+    check(int((drawing.canvas > 0).sum()) > 0, "overlay: draw_overlays drew nothing")
+    dcanvas = torch.from_numpy(drawing.canvas).to(dev)
+    for name in ("Y", "UV"):
+        cfg, dyn, mats = plane_setup(sm, planes, ts0, name, 8)
+        mesh = plane_mesh(sm, ts0)
+        dyn_t = dyn_to_torch(dyn, dev)
+        cf = out_cf(cfg, dyn_t)
+        ow, oh = cfg.out_buffer
+        oy, ox = torch.meshgrid(torch.arange(oh, dtype=torch.float32, device=dev),
+                                torch.arange(ow, dtype=torch.float32, device=dev), indexing="ij")
+        probe = remap.mesh_probe(mats, cfg, dyn, mesh)
+        x, y, idx = remap.coords_pre(ox, oy, mats, cfg, dyn_t, *cf, mesh=mesh, probe=probe)
+        _, _, idx_plain = remap.coords_pre(ox, oy, mats, cfg, dyn_t, *cf, mesh=mesh)
+        check(torch.equal(idx, idx_plain), f"mesh {name}: the kernel probe selected other rows")
+        k = cuda_coords.project(x, y, idx, mats, cfg, dyn, mesh)
+        p = cuda_coords.project_plain(x, y, idx, mats, cfg, dyn, mesh)
+        torch.cuda.synchronize()
+        same = all(torch.equal(a, b) for a, b in zip(k, p))
+        d = max(float((a - b).abs()[k[2]].max()) for a, b in zip(k[:2], p[:2]))
+        print(f"coords<sony,mesh+fpd> {name:2s} ({oh}x{ow}): max|d| {d:.3g} px over valid pixels, "
+              f"bit-identical {same} (limit: identical); kernel probe rows identical True")
+        check(same, f"mesh {name}: the coords kernel differs from its plain version")
+        # the FPD loop's steps at these inputs: the band index of each pixel
+        nofpd = cfg._replace(flags=cfg.flags & ~HAS_FPD_DATA)
+        um, vm, _ = cuda_coords.project_plain(x, y, idx, mats, nofpd, dyn, mesh)
+        size_y, oyc, chc = (float(mesh[i]) for i in (4, 6, 8))
+        mv = (vm * ((oyc + chc) - oyc)) * float(np.float32(1.0) / np.float32(cfg.height)) + oyc
+        fpd_steps = float(torch.clamp(torch.floor(mv / (size_y / 8.0)), 0.0, 7.0).mean())
+        n_px = ow * oh
+        ops = n_px * (PROJECT_BASE_OPS + DISTORT_OPS["sony"][0] + IBIS_OPS
+                      + mesh_ops(SONY_GRID, True, fpd_steps))
+        rows[name] = {"err": d, "fpd_steps_per_px": fpd_steps,
+                      "ms": kernel_ms(lambda: cuda_coords.project(x, y, idx, mats, cfg, dyn, mesh)),
+                      "plain_ms": cuda_ms(lambda: cuda_coords.project_plain(
+                          x, y, idx, mats, cfg, dyn, mesh), reps=3, warm=1),
+                      "bound": (n_px * 21 + mats.numel() * 4 + mesh.numel() * 4, ops)}
+        # the overlay kernel on this plane's sampled pixels and positions
+        u, v = remap.coords_post_uv(k[0], k[1], cfg)
+        img = dev_planes[name]
+        pixel = cuda_sampler.sample(img, u, v, k[2], plane_bg(dyn, img), cfg.src_rect, 8, MAXV)
+        oargs = (pixel, u, v, dcanvas, drawing.scale, drawing.safe_area_rect, cfg.src_rect, MAXV)
+        ok_ = cuda_overlay.overlay(*oargs)
+        op_ = cuda_overlay.overlay_plain(*oargs)
+        torch.cuda.synchronize()
+        same = torch.equal(ok_, op_)
+        print(f"overlay {name:2s} ({tuple(pixel.shape)} float32, canvas {tuple(dcanvas.shape)}): "
+              f"max|d| {float((ok_ - op_).abs().max()):.3g} codes, bit-identical {same}; pixels "
+              f"changed {int((op_ != pixel).any(-1).sum())}")
+        check(same, f"overlay {name}: the kernel differs from its plain version")
+        s_t = torch.full((), float(drawing.scale), dtype=torch.float32, device=dev)
+        d_in = remap._canvas_fetch(dcanvas, u, v, s_t)
+        d_out = remap._canvas_fetch(dcanvas, ox, oy, s_t)
+        src_in = ((v >= cfg.src_rect[1]) & (v < cfg.src_rect[1] + cfg.src_rect[3])
+                  & (u >= cfg.src_rect[0]) & (u < cfg.src_rect[0] + cfg.src_rect[2]))
+        n_blend = int(((d_in > 0) & ((d_in >> 3) < 9) & src_in & ((d_in & 1) == 0)).sum()
+                      + ((d_out > 0) & ((d_out >> 3) < 9) & ((d_out & 1) == 1)).sum())
+        C = pixel.shape[2]
+        # the canvas bytes the fetches need: at (u, v) inside the source
+        # rect (the input stage's gate) and at every output pixel
+        reach = canvas_reach(dcanvas, s_t, [(u, v, src_in), (ox, oy, None)])
+        ov_rows[name] = {
+            "err": float((ok_ - op_).abs().max()), "blended": n_blend, "canvas_bytes": reach,
+            "ms": kernel_ms(lambda: cuda_overlay.overlay(*oargs)),
+            "plain_ms": cuda_ms(lambda: cuda_overlay.overlay_plain(*oargs), reps=3, warm=1),
+            "bound": (n_px * (8 * C + 8) + reach,
+                      n_px * (OVERLAY_BASE_OPS + C) + n_blend * (2 + 5 * C))}
+    for label, r in (("coords<sony,mesh+fpd>", rows), ("overlay", ov_rows)):
+        for name, v in r.items():
+            b = bound([v["bound"]])
+            print(f"{label} {name:2s}: kernel {v['ms']:.4f} ms, plain {v['plain_ms']:.4f} ms, "
+                  f"bound {b[0]:.4f} ms ({b[1]}, {100.0 * b[0] / v['ms']:.1f}%)"
+                  + (f", FPD loop steps {v['fpd_steps_per_px']:.3f}/px of 7"
+                     if "fpd_steps_per_px" in v else "")
+                  + (f", canvas bytes read {v['canvas_bytes']}" if "canvas_bytes" in v else "")
+                  + f"; {smi}")
+
+    # ---- the clip through the manager's entry points -------------------------
+    ts_list = [int(round((i + 5) * 1e6 / FPS)) for i in range(FRAMES)]
+    phase(f"Sony clip: process_pixels, {FRAMES} frames of 4K 10-bit YUV420, lanczos4 (the probe "
+          f"and the projection on the coords kernel: 2 launches a plane)")
+    launches = drive(8, expect(coords=4 * FRAMES, sampler=2 * FRAMES), m=sm, tol=0)
+    phase(f"Sony clip: process_pixels_window, {WINDOW} timestamps, lanczos4")
+    launches_window = drive_window(8, WINDOW, expect(coords=4 * WINDOW, sampler=2 * WINDOW),
+                                   m=sm, tol=0)
+    phase(f"Sony clip: process_pixels, {FRAMES} frames, interpolation {EWA_INTERP} (the probe "
+          f"and the stacked 3-eval launch)")
+    launches_ewa = drive(EWA_INTERP, expect(coords=4 * FRAMES, ewa=2 * FRAMES), m=sm, tol=0)
+
+    phase(f"Sony clip: an {WINDOW}-frame {W}x{H} 10-bit YUV420 .y4m through render()")
+    work = Path(workdir)
+    clip, rendered = work / "chip_smoke_sony.y4m", work / "chip_smoke_sony_render.y4m"
+    write_clip(clip, planes, WINDOW)
+    with driven("render", expect(coords=4 * WINDOW, sampler=2 * WINDOW),
+                frames=WINDOW) as launches_render:
+        render_stats = render(sm, str(clip), str(rendered),
+                              RenderOptions(interpolation=8, frame_window=WINDOW))
+    check(render_stats["frames"] == WINDOW and render_stats["backend"] == "cuda-window",
+          f"Sony render: stats {render_stats}")
+    bgs = _plane_backgrounds(RAW_FORMATS["yuv420p10le"], sm.params.background, True)
+    rin, rout = Y4MReader(str(clip)), Y4MReader(str(rendered))
+    n_out, d_render = 0, 0
+    try:
+        for (ts, p_in), (_, p_out) in zip(rin, rout):
+            for pi, src, got in ((0, p_in[0], p_out[0]),
+                                 (1, np.concatenate(p_in[1:], -1), np.concatenate(p_out[1:], -1))):
+                name = "Y" if pi == 0 else "UV"
+                ts_ms = sm._adjusted_ts_ms(ts)
+                ft = sm.frame_transform_at(ts_ms)
+                cfg, dyn = sm._plane_cfg_dyn(ft, src.shape, 8, pi, MAXV, True, bgs[pi], None)
+                mats, mesh = sm._mats_on_device(ts_ms, ft)
+                want = remap.remap_plane(torch.from_numpy(np.array(src)).to(dev), mats, cfg, dyn,
+                                         mesh, out_dtype="uint16").cpu().numpy()
+                d_render = max(d_render, int(np.abs(want.astype(np.int32)
+                                                    - got.astype(np.int32)).max()))
+            n_out += 1
+    finally:
+        rin.close()
+        rout.close()
+    print(f"Sony render: {n_out} frames (expected {WINDOW}); vs the plain path on the decoded "
+          f"planes max|d| {d_render} codes (limit 0); {render_stats['fps']} fps "
+          f"(host clock; {smi})")
+    check(n_out == WINDOW and d_render == 0, "Sony render: output frames")
+    for f in (clip, rendered):
+        f.unlink()
+
+    phase("Sony clip: ST maps (export_stmaps; the undistort map's projection on the coords "
+          "kernel, the redistort map on the host points path)")
+    st_dir = work / "sony_stmaps"
+    t0 = time.perf_counter()
+    # a single-frame export zeroes the readout time: one matrix row, so the
+    # undistort map is one coords launch with no rolling-shutter probe
+    with driven("export_stmaps", expect(coords=1), frames=1) as launches_stmap:
+        stmap.export_stmaps(sm, str(st_dir), single_frame=True, ext=".npy")
+    files = sorted(f.name for f in st_dir.iterdir())
+    und = np.load(st_dir / next(f for f in files if "undistort" in f))
+    red = np.load(st_dir / next(f for f in files if "redistort" in f))
+    print(f"export_stmaps: {files} in {time.perf_counter() - t0:.2f} s (host clock; {smi})")
+    check(len(files) == 2 and bool(np.isfinite(und).all()) and bool(np.isfinite(red).all()),
+          "Sony export_stmaps: files")
+    # the exported frame, and a per-frame map (its readout time kept: one
+    # matrix row per image row, so the rolling-shutter probe runs on the
+    # coords kernel, stmap.undistort_uv's mesh_probe), each against the plain
+    # undistort_coord on the same inputs
+    st_frame = 5
+    with driven("undistort_uv(per_frame=True)", expect(coords=2), frames=1) as launches_stprobe:
+        k_rs = stmap.undistort_uv(sm, st_frame * 1000.0 / FPS, per_frame=True, frame=st_frame)
+    for label, ts, per_frame, k in (("single-frame", 0.0, False, stmap.undistort_uv(sm, 0.0)),
+                                    ("per-frame", st_frame * 1000.0 / FPS, True, k_rs)):
+        ox, oy, smats, scfg, sdyn, out_c, out_f, smesh = stmap.undistort_inputs(
+            sm, ts, per_frame, st_frame if per_frame else 0)
+        check(smesh is not None, "Sony ST map: no mesh buffer")
+        check(smats.shape[0] > 1 if per_frame else smats.shape[0] == 1,
+              f"Sony ST map {label}: {smats.shape[0]} matrix rows")
+        p = remap.undistort_coord(ox, oy, smats, scfg, dyn_to_torch(sdyn, dev), out_c, out_f,
+                                  mesh=smesh)
+        same = all(torch.equal(a, b) for a, b in zip(k, p))
+        print(f"Sony ST map undistort, {label} ({smats.shape[0]} matrix rows; coords kernel) vs "
+              f"plain undistort_coord: bit-identical {same}")
+        check(same, f"Sony ST map {label}: the kernel path differs from the plain path")
+
+    phase("Sony clip: one overlay frame (tracking points and a safe-area rect from "
+          "manager.draw_overlays) through process_pixels")
+    outs = {}
+    with driven("overlay frame", expect(coords=4, sampler=2, overlay=1),
+                frames=1) as launches_overlay:
+        for name in ("Y", "UV"):
+            pi, host = planes[name]
+            outs[name] = sm.process_pixels(ts0, host, interpolation=8, plane_index=pi,
+                                           max_pixel_value=MAXV, plane_rects=True,
+                                           drawing=drawing if pi == 0 else None)[0]
+    for name in ("Y", "UV"):
+        pi = planes[name][0]
+        cfg, dyn, mats = plane_setup(sm, planes, ts0, name, 8)
+        if pi == 0:
+            cfg = cfg._replace(flags=cfg.flags | DRAWING_ENABLED)
+        want = remap.remap_plane(dev_planes[name], mats, cfg, dyn, plane_mesh(sm, ts0),
+                                 drawing=drawing if pi == 0 else None, out_dtype="uint16")
+        d = int((outs[name].to(torch.int32) - want.to(torch.int32)).abs().max())
+        print(f"overlay frame {name:2s}: vs the plain path max|d| {d} codes (limit 0)")
+        check(d == 0, f"overlay frame {name}: differs from the plain path")
+
+    # ---- where a Sony frame's device time goes ---------------------------------
+    def frame(i):
+        for name in ("Y", "UV"):
+            sm.process_pixels(int(round((i + 40) * 1e6 / FPS)), dev_planes[name],
+                              interpolation=8, plane_index=planes[name][0],
+                              max_pixel_value=MAXV, plane_rects=True)
+
+    frame(0)
+    sm._stab_cache.clear()
+    sm._mats_dev.clear()
+    wall, dev_rows = device_rows(frame, 3)
+    busy = sum(r[1] for r in dev_rows)
+    n_k = sum(r[2] for r in dev_rows)
+    print(f"the mesh form's registers and spills (coords<sony,mesh>, ptxas): "
+          f"{ptxas.get('coords<sony,mesh>', 'not reported')}; the fisheye plain form "
+          f"(coords): {ptxas.get('coords', 'not reported')}; the fisheye digital form "
+          f"(coords<opencv_fisheye,digital>): "
+          f"{ptxas.get('coords<opencv_fisheye,digital>', 'not reported')}")
+    print(f"Sony frame (Y+UV, lanczos4): under torch.profiler {wall:.3f} ms/frame, device busy "
+          f"{busy:.3f} ms ({100.0 * busy / wall:.1f}%) over {n_k:.0f} kernels a frame; {smi}")
+    for key, ms, n in dev_rows[:6]:
+        print(f"  {ms:8.3f} ms/frame  {n:5.0f} launches/frame  {key[:100]}")
+
+    n_coords = sum(c["coords"] for c in (launches, launches_window, launches_ewa,
+                                          launches_render, launches_stmap, launches_stprobe,
+                                          launches_overlay))
+    b_c = bound([rows[n]["bound"] for n in ("Y", "UV")])
+    b_o = bound([ov_rows[n]["bound"] for n in ("Y", "UV")])
+    entries = [
+        {"name": "coords<sony,mesh+fpd>", "route": "cuda",
+         "source": "gyroflow_torch/csrc/coords.cu",
+         "replaces": "gyroflow_tpu/ops/pallas_coords.py:68", "launches": n_coords,
+         "max_abs_err": max(r["err"] for r in rows.values()),
+         "ms": sum(r["ms"] for r in rows.values()),
+         "plain_ms": sum(r["plain_ms"] for r in rows.values()),
+         "bound_ms": b_c[0], "bound_by": b_c[1], "library_ms": None},
+        {"name": "overlay", "route": "cuda", "source": "gyroflow_torch/csrc/overlay.cu",
+         "replaces": "gyroflow_tpu/ops/pallas_sampler.py:536",
+         "launches": launches_overlay["overlay"],
+         "max_abs_err": max(r["err"] for r in ov_rows.values()),
+         "ms": sum(r["ms"] for r in ov_rows.values()),
+         "plain_ms": sum(r["plain_ms"] for r in ov_rows.values()),
+         "bound_ms": b_o[0], "bound_by": b_o[1], "library_ms": None}]
+    check("jax" not in sys.modules, "jax was imported")
+    return entries, {"coords_mesh": rows, "overlay": ov_rows,
+                     "launches": {"process_pixels": launches, "window": launches_window,
+                                  "ewa": launches_ewa, "render": launches_render,
+                                  "stmap": launches_stmap, "stmap_per_frame": launches_stprobe,
+                                  "overlay": launches_overlay},
+                     "render": render_stats, "profiled_wall_ms": wall, "device_ms": busy,
+                     "kernels_per_frame": n_k}
+
+
 def main() -> int:
     t_start = time.perf_counter()
     import torch
@@ -940,7 +1355,8 @@ def main() -> int:
     sys.path.insert(0, str(REPO))
     from gyroflow_torch import _build
     from gyroflow_torch.experiments import perf_probe
-    from gyroflow_torch.ops import cuda_coords, cuda_ewa, cuda_fused, cuda_sampler, remap
+    from gyroflow_torch.ops import (cuda_coords, cuda_ewa, cuda_fused, cuda_overlay, cuda_sampler,
+                                    remap)
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -1112,10 +1528,10 @@ def main() -> int:
     ts_list = [int(round((i + 5) * 1e6 / FPS)) for i in range(FRAMES)]
     counters = {"coords": cuda_coords.project, "sampler": cuda_sampler.sample,
                 "ewa": cuda_ewa.sample, "fused": cuda_fused.remap_fused,
-                "coords_gen": cuda_coords.project_gen}
+                "coords_gen": cuda_coords.project_gen, "overlay": cuda_overlay.overlay}
     plain_versions = ((cuda_coords, "project_plain"), (cuda_coords, "project_gen_plain"),
                       (cuda_sampler, "sample_plain"), (cuda_ewa, "sample_plain"),
-                      (cuda_fused, "remap_fused_plain"))
+                      (cuda_fused, "remap_fused_plain"), (cuda_overlay, "overlay_plain"))
 
     @contextlib.contextmanager
     def driven(label, expected, frames=FRAMES):
@@ -1150,10 +1566,10 @@ def main() -> int:
     def expect(**kw):
         return {k: kw.get(k, 0) for k in counters}
 
-    def drive(interpolation, expected, m=None):
+    def drive(interpolation, expected, m=None, tol=FRAME_TOL_CODES):
         """3 frames of Y and UV through process_pixels of m (the main
         manager by default) inside driven(); each plane held against the
-        plain torch path."""
+        plain torch path (with the frame's mesh buffer), within tol codes."""
         m = m or mgr
         outs = []
         with driven("process_pixels", expected) as counts:
@@ -1171,13 +1587,14 @@ def main() -> int:
                   f"{name}: {out.dtype} on {out.device}")
             check(info["backend"] == "cuda", f"{name}: backend {info['backend']}")
             cfg, dyn, mats = plane_setup(m, planes, ts, name, interpolation)
-            ref = remap.remap_plane(dev_planes[name], mats, cfg, dyn, out_dtype="uint16")
+            ref = remap.remap_plane(dev_planes[name], mats, cfg, dyn, plane_mesh(m, ts),
+                                    out_dtype="uint16")
             d = int((out.to(torch.int32) - ref.to(torch.int32)).abs().max())
             n_diff = int((out.to(torch.int32) != ref.to(torch.int32)).sum())
             print(f"frame ts {ts} us {name:2s}: {tuple(out.shape)} {out.dtype} on {out.device}; "
-                  f"vs plain path max|d| {d} codes over {n_diff} px (limit {FRAME_TOL_CODES}); "
+                  f"vs plain path max|d| {d} codes over {n_diff} px (limit {tol}); "
                   f"mean {float(out.float().mean()):.2f}")
-            check(d <= FRAME_TOL_CODES, f"{name} at {ts}: kernel path differs from plain path")
+            check(d <= tol, f"{name} at {ts}: kernel path differs from plain path")
         return counts
 
     # ---- 4. the main path through the manager -------------------------------
@@ -1226,10 +1643,11 @@ def main() -> int:
     import numpy as np
     win_ts = [int(round((i + 20) * 1e6 / FPS)) for i in range(WINDOW)]
 
-    def drive_window(interpolation, n, expected, m=None):
+    def drive_window(interpolation, n, expected, m=None, tol=FRAME_TOL_CODES):
         """process_pixels_window of m (the main manager by default) over n
         timestamps of the Y and UV planes inside driven(); each frame held
-        against process_pixels, frame 0 against the plain torch path."""
+        against process_pixels, frame 0 against the plain torch path (with
+        its mesh buffer) within tol codes."""
         m = m or mgr
         outs = {}
         with driven(f"process_pixels_window (F = {n})", expected, frames=n) as counts:
@@ -1250,13 +1668,14 @@ def main() -> int:
                                           max_pixel_value=MAXV, plane_rects=True)
                 d_pf = max(d_pf, int((out[i].to(torch.int32) - one.to(torch.int32)).abs().max()))
             cfg, dyn, mats = plane_setup(m, planes, win_ts[0], name, interpolation)
-            ref = remap.remap_plane(dev_planes[name], mats, cfg, dyn, out_dtype="uint16")
+            ref = remap.remap_plane(dev_planes[name], mats, cfg, dyn, plane_mesh(m, win_ts[0]),
+                                    out_dtype="uint16")
             d0 = int((out[0].to(torch.int32) - ref.to(torch.int32)).abs().max())
             print(f"window {name:2s}: {tuple(out.shape)} {out.dtype} on {out.device}; vs "
                   f"process_pixels per frame max|d| {d_pf} codes (limit 0); frame 0 vs plain "
-                  f"path max|d| {d0} codes (limit {FRAME_TOL_CODES})")
+                  f"path max|d| {d0} codes (limit {tol})")
             check(d_pf == 0, f"window {name}: differs from process_pixels")
-            check(d0 <= FRAME_TOL_CODES, f"window {name}: frame 0 differs from the plain path")
+            check(d0 <= tol, f"window {name}: frame 0 differs from the plain path")
         return counts
 
     phase(f"frame window: process_pixels_window, {WINDOW} timestamps of 4K 10-bit YUV420, "
@@ -1333,7 +1752,7 @@ def main() -> int:
           f"undistort map {und.shape}")
     check(len(files) == 2 and bool(np.isfinite(und).all()) and und.shape[0] >= H
           and und.shape[1] >= W, "export_stmaps: files or undistort map")
-    ox, oy, smats, scfg, sdyn, out_c, out_f = stmap.undistort_inputs(mgr, 0.0)
+    ox, oy, smats, scfg, sdyn, out_c, out_f, _ = stmap.undistort_inputs(mgr, 0.0)
     compare_uv("stmap undistort (coords kernel) vs plain undistort_coord",
                stmap.undistort_uv(mgr, 0.0),
                remap.undistort_coord(ox, oy, smats, scfg, dyn_to_torch(sdyn, dev), out_c, out_f),
@@ -1652,6 +2071,12 @@ def main() -> int:
         dev, smi, tmp.name, mgr, planes, dev_planes, kernel_ms, pre_coords, out_cf, drive,
         drive_window, expect, device_rows)
     kernels += lens_entries
+
+    # ---- 9. a Sony clip: mesh, FPD and the overlay ------------------------------
+    sony_entries, report["sony"] = sony_phase(
+        dev, smi, tmp.name, planes, dev_planes, kernel_ms, driven, expect, drive, drive_window,
+        device_rows, out_cf, report["ptxas"])
+    kernels += sony_entries
     OUT_DIR.mkdir(exist_ok=True)
     (OUT_DIR / "chip_smoke.json").write_text(json.dumps({**report, "bounds": bound_of,
                                                          "kernels": kernels}, indent=1))
@@ -1663,7 +2088,10 @@ def main() -> int:
           "float32 planes, window the four cases summed, probe4 the full mode, probe5 Y+UV, "
           "probe6 the bf16 mode, triton the four calls summed); coords<lens>, "
           "coords_gen<model> and fused<lens> (phase 8) on the 4K Y plane alone, the "
-          "lens's instantiation, launches from the slice frames' drives; every kernel ms from "
+          "lens's instantiation, launches from the slice frames' drives; coords<sony,mesh+fpd> "
+          "and overlay (phase 9) ms and bounds of one Sony frame's Y+UV launches, their "
+          "launches summed over phase 9's drives (process_pixels, the window, EWA, render, the "
+          "ST maps, the overlay frame); every kernel ms from "
           "experiments.perf_probe.cuda_ms (L2 flushed and the card spinning before each "
           "call), every plain_ms from CUDA events around each call")
     print(smi)

@@ -45,6 +45,22 @@ class CoordParams(ctypes.Structure):
                 ("output_height", ctypes.c_float)]
 
 
+class MeshArgs(ctypes.Structure):
+    """Mirror of ``gf::MeshArgs`` (csrc/lens.cuh)."""
+    _fields_ = [("data", ctypes.c_void_p), ("gw", ctypes.c_int), ("gh", ctypes.c_int),
+                ("fpd_offset", ctypes.c_int), ("mus", ctypes.c_float * 9),
+                ("inv_gw1", ctypes.c_float), ("inv_gh1", ctypes.c_float),
+                ("inv_width", ctypes.c_float), ("inv_height", ctypes.c_float)]
+
+
+class OverlayArgs(ctypes.Structure):
+    """Mirror of ``OverlayArgs`` (csrc/overlay.cu)."""
+    _fields_ = [("colors", ctypes.c_float * 32), ("maxv", ctypes.c_float),
+                ("scale", ctypes.c_float), ("src", ctypes.c_float * 4),
+                ("safe", ctypes.c_int), ("rect", ctypes.c_float * 4),
+                ("band", ctypes.c_float * 4)]
+
+
 class SamplerArgs(ctypes.Structure):
     """Mirror of ``gf::SamplerArgs`` (csrc/taps.cuh)."""
     _fields_ = [("bg", ctypes.c_float * 4), ("limit", ctypes.c_float),
@@ -161,7 +177,7 @@ def lib() -> ctypes.CDLL:
             L = ctypes.CDLL(str(build()))
             vp, ci = ctypes.c_void_p, ctypes.c_int
             L.gf_coords.argtypes = [vp, vp, vp, vp, ci, CoordParams, ci, ci, ci, ci, ci,
-                                    vp, vp, vp, vp]
+                                    vp, vp, vp, vp, MeshArgs]
             L.gf_coords.restype = ci
             L.gf_sampler.argtypes = [vp, ci, ci, ci, ci, vp, vp, vp, ci, ci, ci, vp,
                                      SamplerArgs, vp, vp]
@@ -178,6 +194,8 @@ def lib() -> ctypes.CDLL:
             L.gf_fused_bbox.argtypes = [vp, ci, ci, ci, vp, vp, vp, vp, ci, CoordParams, ci, ci,
                                         ci, ci, ci, ci, FusedArgs, vp, vp, vp, vp]
             L.gf_fused_bbox.restype = ci
+            L.gf_overlay.argtypes = [vp, vp, vp, vp, ci, ci, ci, ci, ci, OverlayArgs, vp, vp]
+            L.gf_overlay.restype = ci
             L.gf_window_colsum.argtypes = [vp, ci, ci, vp, vp, ci, ci, ci, vp, vp]
             L.gf_window_colsum.restype = ci
             L.gf_probe_sampler.argtypes = [vp, ci, vp, vp, vp, vp, vp, ci, ProbeArgs, ci, ci,

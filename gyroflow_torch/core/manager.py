@@ -1398,10 +1398,12 @@ class StabilizationManager:
         Each frame comes out as process_pixels would give it: on a CUDA device
         through the coords kernel and the sampler or EWA kernel, on the CPU
         through the plain torch remap. A window whose kernel configs differ
-        goes through process_pixels frame by frame. Mesh and focal-plane
-        data raise NotImplementedError (ROADMAP queue 1, item 6)."""
+        goes through process_pixels frame by frame. Each frame's Sony mesh /
+        focal-plane buffer (a Sony clip's frames share one kernel config)
+        goes up with the window's matrices, and frame i's remap reads frame
+        i's buffer."""
         from ..parallel.pipeline import (make_frame_mesh, stabilize_window_production,
-                                         stack_dynamics)
+                                         stack_dynamics, stack_meshes)
 
         if device_mesh is not None and device_mesh.device != self.device:
             raise ValueError(f"frame mesh on {device_mesh.device}, manager on {self.device}")
@@ -1411,9 +1413,6 @@ class StabilizationManager:
 
         self._lazy_recompute_if_invalidated()
         fts = [self.frame_transform_at(self._adjusted_ts_ms(ts)) for ts in timestamps_us]
-        if any(ft.mesh_data is not None for ft in fts):
-            raise NotImplementedError("mesh / focal-plane correction is not ported to "
-                                      "gyroflow_torch yet (ROADMAP queue 1, item 6)")
         plane_shape = tuple(imgs.shape[1:])
         cfgs, dyns = zip(*(self._plane_cfg_dyn(ft, plane_shape, interpolation, plane_index,
                                                max_pixel_value, plane_rects,
@@ -1437,7 +1436,8 @@ class StabilizationManager:
         mats = np.stack([ft.matrices for ft in fts]).astype(np.float32)
         out, backend = stabilize_window_production(
             device_mesh or make_frame_mesh(device=self.device), imgs.to(in_dtype), mats,
-            cfgs[0], stack_dynamics(dyns), out_dtype=out_dtype)
+            cfgs[0], stack_dynamics(dyns), out_dtype=out_dtype,
+            meshes=stack_meshes([ft.mesh_data for ft in fts]))
         info = {"fov": fts[0].fov, "minimal_fov": fts[0].minimal_fov,
                 "backend": backend,
                 "xla_fallbacks": self.stats["xla_fallbacks"],

@@ -5,8 +5,13 @@
 // idx of the (rows, 14) matrix table and runs rotate_and_distort_core
 // (project_point, lens.cuh) -> u, v, valid, for every distortion model and
 // digital lens of the reference: one instantiation per main model (the
-// fisheye one is the code it always was), each in two forms, without and
-// with the digital-lens step, whose lens is chosen at run time.
+// fisheye one is the code it always was), each in three forms: the plain
+// form; the digital form, with the digital-lens step (its lens chosen at run
+// time); and the mesh form, which adds the Sony mesh and focal-plane stages
+// (lens.cuh, MeshArgs; gyroflow_tpu/ops/mesh.py, which the JAX package runs
+// in XLA around its Pallas sampler: no TPU kernel of its own). Each form
+// compiles only the stages it can run, so a frame without a mesh, and a
+// digital lens above all, keeps the registers and the time of its own code.
 //
 // What bounds it on an H100: the float32 ALU chain per pixel (3x3 projection,
 // two IEEE divisions and a sqrt, then the model: for fisheye the Cephes
@@ -22,6 +27,11 @@
 // TPU kernel's window DMA, one-hot MXU gather and overflow flag exist only
 // because the TPU has no fast gather, and none of them is needed here.
 // Nothing is staged in shared memory; occupancy hides the chain's latency.
+// The mesh stage adds two bivariate splines and the focal-plane shear, ~500
+// FP32 operations a pixel at 9x9 (chip_smoke.py counts them), comparable to
+// the byte bound; its ~100 mesh reads a pixel hit the same lines across a
+// segment's pixels and stay in L1 (__ldg). MeshArgs is __grid_constant__,
+// so the inlined stage reads it in place.
 //
 // gf_coords_gen (coords_gen_kernel below) replaces
 // gyroflow_tpu/ops/pallas_coords.py::_coords_kernel_gen (:257, driven by
@@ -60,13 +70,14 @@ struct GenArgs {
 
 namespace {
 
-template <int MODEL, bool DIGITAL>
+template <int MODEL, bool DIGITAL, bool MESH>
 __global__ void coords_kernel(const float* __restrict__ xs, const float* __restrict__ ys,
                               const int32_t* __restrict__ idx,
                               const float* __restrict__ mats, int rows,
                               gf::CoordParams p, int flags, int digital, int oh, int ow,
                               float* __restrict__ us, float* __restrict__ vs,
-                              uint8_t* __restrict__ valid_out) {
+                              uint8_t* __restrict__ valid_out,
+                              const __grid_constant__ gf::MeshArgs mesh) {
     const int col = blockIdx.x * blockDim.x + threadIdx.x;
     const int row = blockIdx.y * blockDim.y + threadIdx.y;
     if (col >= ow || row >= oh) return;
@@ -81,7 +92,8 @@ __global__ void coords_kernel(const float* __restrict__ xs, const float* __restr
 
     float u, v;
     bool valid;
-    gf::project_point<MODEL, DIGITAL>(xs[i], ys[i], m, p, flags, u, v, valid, MODEL, digital);
+    gf::project_point<MODEL, DIGITAL, MESH>(xs[i], ys[i], m, p, flags, u, v, valid, MODEL,
+                                            digital, &mesh);
     us[i] = u;
     vs[i] = v;
     valid_out[i] = valid ? 1 : 0;
@@ -151,6 +163,7 @@ struct CoordsLaunch {
     int flags, digital, oh, ow;
     void *u, *v, *valid;
     cudaStream_t s;
+    const gf::MeshArgs* mesh;
 
     template <int M>
     void run() const {
@@ -163,12 +176,15 @@ struct CoordsLaunch {
         auto* uf = static_cast<float*>(u);
         auto* vf = static_cast<float*>(v);
         auto* vo = static_cast<uint8_t*>(valid);
-        if (digital >= 0) {
-            coords_kernel<M, true><<<grid, block, 0, s>>>(xf, yf, ii, mf, rows, *p, flags,
-                                                          digital, oh, ow, uf, vf, vo);
+        if (flags & (gf::HAS_MESH_DATA | gf::HAS_FPD_DATA)) {
+            coords_kernel<M, true, true><<<grid, block, 0, s>>>(
+                xf, yf, ii, mf, rows, *p, flags, digital, oh, ow, uf, vf, vo, *mesh);
+        } else if (digital >= 0) {
+            coords_kernel<M, true, false><<<grid, block, 0, s>>>(
+                xf, yf, ii, mf, rows, *p, flags, digital, oh, ow, uf, vf, vo, *mesh);
         } else {
-            coords_kernel<M, false><<<grid, block, 0, s>>>(xf, yf, ii, mf, rows, *p, flags, -1,
-                                                           oh, ow, uf, vf, vo);
+            coords_kernel<M, false, false><<<grid, block, 0, s>>>(
+                xf, yf, ii, mf, rows, *p, flags, -1, oh, ow, uf, vf, vo, *mesh);
         }
     }
 };
@@ -198,14 +214,18 @@ struct CoordsGenLaunch {
 // x, y: float32 (oh, ow); idx: int32 (oh, ow); mats: float32 (rows, 14);
 // u, v: float32 (oh, ow); valid: uint8/bool (oh, ow). All device pointers,
 // contiguous. model: the main model's ModelId (lens.cuh); digital: the
-// digital lens's ModelId, or -1 for none. Launches on `stream`; returns -1
-// for a model id out of range, else cudaGetLastError().
+// digital lens's ModelId, or -1 for none; mesh: the mesh buffer and its
+// constants, read when flags has HAS_MESH_DATA or HAS_FPD_DATA. Launches on
+// `stream`; returns -1 for a model id out of range or a mesh flag without a
+// mesh buffer, else cudaGetLastError().
 extern "C" int gf_coords(const void* x, const void* y, const void* idx, const void* mats,
                          int rows, gf::CoordParams params, int flags, int model, int digital,
-                         int oh, int ow, void* u, void* v, void* valid, void* stream) {
+                         int oh, int ow, void* u, void* v, void* valid, void* stream,
+                         gf::MeshArgs mesh) {
     if (digital >= gf::kNumModels) return -1;
+    if ((flags & (gf::HAS_MESH_DATA | gf::HAS_FPD_DATA)) && mesh.data == nullptr) return -1;
     const CoordsLaunch l{x, y, idx, mats, rows, &params, flags, digital, oh, ow, u, v, valid,
-                         static_cast<cudaStream_t>(stream)};
+                         static_cast<cudaStream_t>(stream), &mesh};
     if (!gf::with_model(model, l)) return -1;
     return static_cast<int>(cudaGetLastError());
 }

@@ -21,6 +21,17 @@
 // call takes CoordParams by reference, so the kernel declares it
 // __grid_constant__: otherwise each thread copies the struct to its stack
 // (a digital step called that way made the coords kernel 6x slower, PERF.md).
+//
+// Sony mesh correction and focal-plane distortion (mesh_correction,
+// focal_plane_distortion: gyroflow_tpu/ops/mesh.py and its torch twin
+// gyroflow_torch/ops/mesh.py) run inside project_point's MESH form, after the
+// lens centre and before the digital lens, inlined: the coords kernel's
+// mesh form takes them, and no other kernel (the JAX package gates mesh
+// out of its self-contained and fused kernels). The mesh buffer is read by
+// device pointer through the read-only cache (MeshArgs: ~840 floats at 9x9
+// with FPD, the same few lines for every pixel of a segment). The plain
+// version sums one-hot segment terms; here segment fi is indexed directly
+// and the sum's +0.0 (which turns -0.0 into +0.0) is added once.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -32,8 +43,12 @@ namespace gf {
 
 // KernelParamsFlags (gyroflow_torch/ops/kernel_params.py)
 constexpr int HORIZONTAL_RS = 16;
+constexpr int FRAMEBUFFER_INVERTED = 128;
 constexpr int HAS_IBIS_DATA = 256;
+constexpr int HAS_MESH_DATA = 512;
+constexpr int HAS_FPD_DATA = 1024;
 constexpr int ANY_UNDERWATER = 2048;
+constexpr int kMaxGrid = 9;        // core/splines.py MAX_GRID_SIZE
 
 // Distortion model ids: the JAX registry's order (distortion_models.py:691,
 // MODEL_IDS; gyroflow_torch.ops.distortion_models.MODEL_IDS).
@@ -74,6 +89,21 @@ struct CoordParams {
     float height;
     float output_width;
     float output_height;
+};
+
+// The mesh stage's operands (cuda_coords.mesh_args). data: the reference
+// mesh buffer (core/splines.py layout) on the card; gw, gh: cfg.mesh_grid;
+// fpd_offset: the focal-plane block's index; mus: the natural-spline
+// recurrence's mus for gh rows (they depend only on gh); inv_*: the float32
+// reciprocals torch multiplies by when it divides by a Python number (the
+// grid's gw - 1 and gh - 1, the plane's width and height).
+struct MeshArgs {
+    const float* data;
+    int gw, gh;
+    int fpd_offset;
+    float mus[kMaxGrid];
+    float inv_gw1, inv_gh1;
+    float inv_width, inv_height;
 };
 
 // A Python float as torch and JAX take it into float32 arithmetic.
@@ -444,6 +474,154 @@ bool with_model(int model, const L& launch) {
     }
 }
 
+// ---- Sony mesh correction and focal-plane distortion ----------------------
+
+// clip(floor(t) as int32, 0, n - 2): the cast saturates, NaN -> 0, as
+// torch's clamped cast and XLA's do.
+__device__ __forceinline__ int mesh_segment(float t, int n) {
+    const int i = __float2int_rz(floorf(t));
+    return i < 0 ? 0 : (i > n - 2 ? n - 2 : i);
+}
+
+// a[j] for a run-time j < kMaxGrid, with the array kept in registers.
+__device__ __forceinline__ float pick(const float (&a)[kMaxGrid], int j) {
+    float r = a[0];
+#pragma unroll
+    for (int k = 1; k < kMaxGrid; ++k) r = j == k ? a[k] : r;
+    return r;
+}
+
+// The natural spline through a[0 .. n-1] over [0, size] (mesh.py
+// _solve_spline: mus from the host, then zs, then c backwards; b and d only
+// of the pieces read), evaluated at x (_spline_eval).
+__device__ __forceinline__ float spline_at(const float (&a)[kMaxGrid], int n, float x, float size,
+                                           const MeshArgs& ma) {
+    const float h = size * ma.inv_gh1;          // size / (n - 1)
+    const float inv_h = 1.0f / h;
+    const float alpha_h = 3.0f * inv_h;
+    float zs[kMaxGrid];
+    zs[0] = 0.0f;
+#pragma unroll
+    for (int i = 1; i < kMaxGrid - 1; ++i) {
+        zs[i] = 0.0f;
+        if (i < n - 1) {
+            const float alpha_i = alpha_h * ((a[i + 1] - 2.0f * a[i]) + a[i - 1]);
+            zs[i] = (alpha_i * inv_h - zs[i - 1]) * ma.mus[i];
+        }
+    }
+    zs[kMaxGrid - 1] = 0.0f;
+    float c[kMaxGrid];
+#pragma unroll
+    for (int j = 0; j < kMaxGrid; ++j) c[j] = 0.0f;
+#pragma unroll
+    for (int j = kMaxGrid - 2; j >= 0; --j) {
+        if (j <= n - 2) c[j] = zs[j] - ma.mus[j] * c[j + 1];
+    }
+    const float h_3 = h * f32(1.0 / 3.0);       // h / 3.0: a multiply by the reciprocal
+    const float three_h = 3.0f * h;
+    // b[j], d[j] of splines.rs:117-121 for one piece j
+    const auto piece = [&](int j, float& aj, float& bj, float& cj, float& dj) {
+        aj = pick(a, j);
+        cj = pick(c, j);
+        const float a1 = pick(a, j + 1);
+        const float c1 = pick(c, j + 1);
+        bj = (a1 - aj) * inv_h - h_3 * (c1 + 2.0f * cj);
+        dj = (c1 - cj) / three_h;
+    };
+    const int fi = mesh_segment((static_cast<float>(n - 1) * x) / size, n);
+    float sa, sb, sc, sd;
+    piece(fi, sa, sb, sc, sd);
+    const float dx = x - (size * static_cast<float>(fi)) * ma.inv_gh1;
+    float res = (sa + sb * dx + sc * dx * dx + sd * dx * dx * dx) + 0.0f;
+    if (x <= 0.0f) {
+        float a0, b0, c0, d0;
+        piece(0, a0, b0, c0, d0);
+        res = a0 + b0 * x;
+    }
+    if (x >= size) {
+        float al, bl, cl, dl;
+        piece(n - 2, al, bl, cl, dl);
+        const float slope = bl + 2.0f * cl * h + 3.0f * dl * h * h;
+        res = pick(a, n - 1) + slope * (x - size);
+    }
+    return res;
+}
+
+// One channel of BivariateSpline::interpolate (mesh.py _bivariate): the
+// x splines' segment fi of each grid row at dx, then the y spline at gy.
+__device__ __forceinline__ float mesh_bivariate(const MeshArgs& ma, int channel, int fi, float dx,
+                                                float dx2, float gy, float size_y) {
+    const float* base = ma.data + 9 + ma.gw * ma.gh * 2 + channel * ma.gh * (kMaxGrid * 4) + fi;
+    float a[kMaxGrid];
+#pragma unroll
+    for (int j = 0; j < kMaxGrid; ++j) {
+        a[j] = 0.0f;
+        if (j < ma.gh) {
+            const float* rb = base + j * (kMaxGrid * 4);
+            a[j] = (__ldg(rb) + __ldg(rb + kMaxGrid) * dx + __ldg(rb + 2 * kMaxGrid) * dx2
+                    + __ldg(rb + 3 * kMaxGrid) * dx2 * dx) + 0.0f;
+        }
+    }
+    return spline_at(a, ma.gh, gy, size_y, ma);
+}
+
+// apply_mesh_correction (mesh.py): (u, v) through the 2-channel mesh in the
+// mesh's crop coordinates. map_coord's division by a plane size is a
+// multiply by its float32 reciprocal, as torch divides by a Python number.
+__device__ __forceinline__ void mesh_correction(float& u, float& v, const MeshArgs& ma,
+                                                const CoordParams& p, int flags) {
+    const float* m = ma.data;
+    const float size_x = __ldg(m + 3), size_y = __ldg(m + 4);
+    const float ox = __ldg(m + 5), oy = __ldg(m + 6);
+    const float span_x = (ox + __ldg(m + 7)) - ox, span_y = (oy + __ldg(m + 8)) - oy;
+    const bool inv = flags & FRAMEBUFFER_INVERTED;
+    if (inv) v = p.height - v;
+    const float mu = ((u - 0.0f) * span_x) * ma.inv_width + ox;
+    const float mv = ((v - 0.0f) * span_y) * ma.inv_height + oy;
+    const int fi = mesh_segment((static_cast<float>(ma.gw - 1) * mu) / size_x, ma.gw);
+    const float dx = mu - (size_x * static_cast<float>(fi)) * ma.inv_gw1;
+    const float dx2 = dx * dx;
+    const float nx = mesh_bivariate(ma, 0, fi, dx, dx2, mv, size_y);
+    const float ny = mesh_bivariate(ma, 1, fi, dx, dx2, mv, size_y);
+    u = ((nx - ox) * p.width) / span_x + 0.0f;
+    v = ((ny - oy) * p.height) / span_y + 0.0f;
+    if (inv) v = p.height - v;
+}
+
+// apply_focal_plane_distortion (mesh.py) with sign -1: the row band's shear
+// times its offset in the band, plus the full shear of every band above.
+__device__ __forceinline__ void focal_plane_distortion(float& u, float& v, const MeshArgs& ma,
+                                                       const CoordParams& p, int flags) {
+    const float* m = ma.data;
+    const float size_y = __ldg(m + 4);
+    const float ox = __ldg(m + 5), oy = __ldg(m + 6);
+    const float span_x = (ox + __ldg(m + 7)) - ox, span_y = (oy + __ldg(m + 8)) - oy;
+    const float band = size_y * f32(1.0 / 8.0);   // size_y / 8.0
+    const bool inv = flags & FRAMEBUFFER_INVERTED;
+    if (inv) v = p.height - v;
+    float mu = ((u - 0.0f) * span_x) * ma.inv_width + ox;
+    float mv = ((v - 0.0f) * span_y) * ma.inv_height + oy;
+    float t = clamp_t(floorf(mv / band), 0.0f, 7.0f);
+    t = t != t ? 0.0f : t;
+    const int idx = static_cast<int>(t);
+    const float delta = mv - band * static_cast<float>(idx);
+    const float* shear = m + ma.fpd_offset + 4;
+    float dx = 0.0f + __ldg(shear + 2 * idx) * delta;
+    float dy = 0.0f + __ldg(shear + 2 * idx + 1) * delta;
+#pragma unroll
+    for (int j = 0; j < 7; ++j) {
+        if (j < idx) {
+            dx = dx + __ldg(shear + 2 * j) * band;
+            dy = dy + __ldg(shear + 2 * j + 1) * band;
+        }
+    }
+    mu = mu + -1.0f * dx;
+    mv = mv + -1.0f * dy;
+    u = ((mu - ox) * p.width) / span_x + 0.0f;
+    v = ((mv - oy) * p.height) / span_y + 0.0f;
+    if (inv) v = p.height - v;
+}
+
 // ---- the projection --------------------------------------------------------
 
 // Underwater forward refraction scaling of w (remap.py:70).
@@ -463,12 +641,14 @@ __device__ __forceinline__ float forward_refraction(float x, float y, float w, f
 // inverse rotation-intrinsics, then IBIS/OIS shifts). MODEL is the main
 // model's ModelId, or kAnyModel to take `model`; with DIGITAL, `digital`
 // is the digital lens's ModelId (-1: none), applied after c and before the
-// stretch (remap.py:146-147). With kAnyModel both go out of line.
-template <int MODEL, bool DIGITAL>
+// stretch (remap.py:146-147). With kAnyModel both go out of line. With
+// MESH, the mesh and focal-plane stages of `flags` run after c and before
+// the digital lens (remap.py:137-145), on `mesh`.
+template <int MODEL, bool DIGITAL, bool MESH = false>
 __device__ __forceinline__ void project_point(float px, float py, const float* m,
                                               const CoordParams& p, int flags, float& u,
                                               float& v, bool& valid, int model = kOpencvFisheye,
-                                              int digital = -1) {
+                                              int digital = -1, const MeshArgs* mesh = nullptr) {
     const float x = px * m[0] + py * m[1] + m[2] + p.t3d[0];
     const float y = px * m[3] + py * m[4] + m[5] + p.t3d[1];
     float w = px * m[6] + py * m[7] + m[8] + p.t3d[2];
@@ -502,6 +682,10 @@ __device__ __forceinline__ void project_point(float px, float py, const float* m
 
     u = u + p.c[0];
     v = v + p.c[1];
+    if constexpr (MESH) {
+        if (flags & HAS_MESH_DATA) mesh_correction(u, v, *mesh, p, flags);
+        if (flags & HAS_FPD_DATA) focal_plane_distortion(u, v, *mesh, p, flags);
+    }
     if constexpr (DIGITAL) {
         if (digital >= 0) {
             if constexpr (MODEL == kAnyModel) {

@@ -4,10 +4,12 @@
 with the CUDA kernel ``gf_coords`` of ``csrc/coords.cu`` (one thread per
 output pixel, its matrix row read straight from the (rows, 14) table), for
 every distortion model and digital lens (``lens_ids``: the kernel is
-specialised on the main model, the digital lens is chosen at run time).
+specialised on the main model, the digital lens is chosen at run time), and
+with Sony mesh correction and focal-plane distortion (``mesh_args``: the
+mesh buffer by device pointer, its grid and the host-side spline constants)
+in the kernel's mesh form, which also carries the digital lens.
 ``project_plain`` is the same function in plain torch
-(``remap.rotate_and_distort``). Mesh and focal-plane data raise
-NotImplementedError (ROADMAP queue 1, item 6).
+(``remap.rotate_and_distort`` with ``ops/mesh.py``).
 
 ``project_gen`` replaces ``pallas_coords.py::_coords_kernel_gen`` (the
 self-contained form behind ``project_tiles_gen``) with ``gf_coords_gen``:
@@ -31,11 +33,13 @@ from . import distortion_models as dm
 from . import remap
 from .kernel_params import (HAS_DIGITAL_LENS, HAS_FPD_DATA, HAS_MESH_DATA, HORIZONTAL_RS,
                             KernelConfig, KernelDynamics, dyn_to_torch)
+from .mesh import fpd_offset, spline_mus
 
 
-def project_plain(x, y, idx, matrices, cfg: KernelConfig, dyn: KernelDynamics):
+def project_plain(x, y, idx, matrices, cfg: KernelConfig, dyn: KernelDynamics, mesh=None):
     """(x, y, idx) -> (u, v, valid) in plain torch on x's device."""
-    return remap.rotate_and_distort(x, y, idx, matrices, cfg, dyn_to_torch(dyn, x.device))
+    return remap.rotate_and_distort(x, y, idx, matrices, cfg, dyn_to_torch(dyn, x.device),
+                                    mesh=mesh)
 
 
 def coord_params(cfg: KernelConfig, dyn: KernelDynamics):
@@ -62,6 +66,31 @@ def coord_params(cfg: KernelConfig, dyn: KernelDynamics):
     return p
 
 
+def mesh_args(cfg: KernelConfig, mesh):
+    """The kernel's by-value MeshArgs: the mesh buffer's device pointer (0
+    without mesh or focal-plane flags), the grid, the focal-plane offset,
+    and what the plain mesh stage computes from Python numbers, as torch on
+    the card computes it: the spline recurrence's mus (they depend only on
+    the grid's height) and the float32 reciprocals torch multiplies by when
+    it divides by a Python number."""
+    from .._build import MeshArgs
+
+    f32 = np.float32
+    a = MeshArgs()
+    if not remap.has_mesh(cfg):
+        return a
+    gw, gh = cfg.mesh_grid
+    a.data = mesh.data_ptr()
+    a.gw, a.gh = int(gw), int(gh)
+    a.fpd_offset = fpd_offset(cfg)
+    a.mus[:] = [float(m) for m in spline_mus(gh)]
+    a.inv_gw1 = float(f32(1.0) / f32(max(gw - 1, 1)))
+    a.inv_gh1 = float(f32(1.0) / f32(max(gh - 1, 1)))
+    a.inv_width = float(f32(1.0) / f32(cfg.width))
+    a.inv_height = float(f32(1.0) / f32(cfg.height))
+    return a
+
+
 def lens_ids(cfg: KernelConfig):
     """(model, digital): the kernels' ids (csrc/lens.cuh ModelId, the order
     of distortion_models.MODEL_IDS) of the main model and of the digital
@@ -72,10 +101,18 @@ def lens_ids(cfg: KernelConfig):
             -1 if digital is None else dm.MODEL_IDS[digital.id])
 
 
-def _check(x, y, idx, matrices, cfg: KernelConfig):
-    if cfg.flags & (HAS_MESH_DATA | HAS_FPD_DATA):
-        raise NotImplementedError(
-            "coords kernel: mesh / FPD are not ported yet (ROADMAP queue 1, item 6)")
+def _check(x, y, idx, matrices, cfg: KernelConfig, mesh=None):
+    if remap.has_mesh(cfg):
+        remap._check_supported(cfg)
+        if mesh is None:
+            raise ValueError("coords kernel: mesh / focal-plane flags set but no mesh buffer")
+        if mesh.device != x.device or mesh.dtype != torch.float32 or mesh.dim() != 1 \
+                or not mesh.is_contiguous():
+            raise TypeError(f"coords kernel: mesh must be a contiguous 1-D float32 tensor on "
+                            f"{x.device}, got {mesh.dtype} {tuple(mesh.shape)} on {mesh.device}")
+        if mesh.numel() < remap.mesh_len(cfg):
+            raise ValueError(f"coords kernel: mesh buffer of {mesh.numel()} floats, grid "
+                             f"{cfg.mesh_grid} needs {remap.mesh_len(cfg)}")
     for name, t, dt in (("x", x, torch.float32), ("y", y, torch.float32),
                         ("idx", idx, torch.int32), ("matrices", matrices, torch.float32)):
         if t.device != x.device:
@@ -91,14 +128,16 @@ def _check(x, y, idx, matrices, cfg: KernelConfig):
         raise ValueError(f"coords kernel: matrices must be (rows, 14), got {tuple(matrices.shape)}")
 
 
-def project(x, y, idx, matrices, cfg: KernelConfig, dyn: KernelDynamics):
+def project(x, y, idx, matrices, cfg: KernelConfig, dyn: KernelDynamics, mesh=None):
     """Project (oh, ow) output-space points through their RS matrix rows.
 
     x, y float32, idx int32 (from ``remap.coords_pre``); matrices (rows, 14)
-    float32; dyn with host numpy leaves. Returns u, v float32 and valid bool."""
-    _check(x, y, idx, matrices, cfg)
+    float32; dyn with host numpy leaves; mesh the frame's mesh buffer, a 1-D
+    float32 tensor on x's device, read when cfg has the mesh or focal-plane
+    flag. Returns u, v float32 and valid bool."""
+    _check(x, y, idx, matrices, cfg, mesh)
     if x.device.type == "cpu":
-        return project_plain(x, y, idx, matrices, cfg, dyn)
+        return project_plain(x, y, idx, matrices, cfg, dyn, mesh)
     if x.device.type != "cuda":
         raise ValueError(f"coords kernel: unsupported device {x.device}")
     from .._build import lib
@@ -114,7 +153,8 @@ def project(x, y, idx, matrices, cfg: KernelConfig, dyn: KernelDynamics):
         err = L.gf_coords(x.data_ptr(), y.data_ptr(), idx.data_ptr(), matrices.data_ptr(),
                           matrices.shape[0], coord_params(cfg, dyn), int(cfg.flags),
                           *lens_ids(cfg), oh, ow, u.data_ptr(), v.data_ptr(), valid.data_ptr(),
-                          torch.cuda.current_stream(x.device).cuda_stream)
+                          torch.cuda.current_stream(x.device).cuda_stream,
+                          mesh_args(cfg, mesh))
     if err != 0:
         raise RuntimeError(f"coords kernel launch failed: cudaError {err}")
     project.launches += 1

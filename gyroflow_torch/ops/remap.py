@@ -19,6 +19,16 @@ Two entry points share one body (``_remap``):
   ``remap_plane_pallas`` fuses (``use_fused``) take one fused projection +
   sampling launch (``cuda_fused.remap_fused``) after ``coords_pre``.
 
+Sony mesh correction and focal-plane distortion (``ops/mesh.py``) run inside
+the projection, after the lens centre and before the digital lens, as in
+remap.py:137-147: in the plain projection, in the coords kernel's mesh
+form, and so in the rolling-shutter probe of ``coords_pre``, which on a
+card takes the coords kernel for mesh frames (one launch at the centre row)
+instead of the hundreds of eager launches of the plain mesh stage. The
+drawing overlay (tracking points, calibration corners, the safe-area dim)
+is the epilogue after the colour-range step: ``_draw_overlay`` in plain
+torch, ``cuda_overlay.overlay`` on a card.
+
 EWA (interpolation 10-13) needs the finite-difference Jacobian of the
 source coordinates: both entry points stack the base eval and the two
 +eps evals into one (3*oh, ow) projection call (``ewa_stack``), as
@@ -38,6 +48,7 @@ from typing import Tuple
 import numpy as np
 import torch
 
+from ..core.splines import MAX_GRID_SIZE
 from .interpolation import COEFFS, INTER_BITS, INTER_TAB_SIZE, INTERP_INFO
 
 from . import distortion_models as dm
@@ -48,7 +59,6 @@ from .kernel_params import (
 )
 
 _COEFFS_T = torch.from_numpy(np.asarray(COEFFS, np.float32))
-_NOT_PORTED = "is not ported to gyroflow_torch yet (ROADMAP queue 1, item {})"
 
 
 def map_coord(x, in_min, in_max, out_min, out_max):
@@ -88,11 +98,27 @@ def _inverse_refraction(nx, ny, lrc):
     return nx * factor, ny * factor
 
 
+def has_mesh(cfg: KernelConfig) -> bool:
+    """Whether the projection runs the mesh or the focal-plane stage."""
+    return cfg.has(HAS_MESH_DATA) or cfg.has(HAS_FPD_DATA)
+
+
+def mesh_len(cfg: KernelConfig) -> int:
+    """The fewest floats a mesh buffer of cfg's grid holds: the coefficient
+    blocks of both channels for the mesh, the 8 row shears for FPD."""
+    from .mesh import fpd_offset
+    return fpd_offset(cfg) + (20 if cfg.has(HAS_FPD_DATA) else 0)
+
+
 def _check_supported(cfg: KernelConfig):
-    if cfg.has(HAS_MESH_DATA) or cfg.has(HAS_FPD_DATA):
-        raise NotImplementedError("mesh / focal-plane correction " + _NOT_PORTED.format(6))
     if cfg.interpolation not in INTERP_INFO and cfg.interpolation not in EWA_BC:
         raise ValueError(f"unknown interpolation {cfg.interpolation}")
+    if has_mesh(cfg):
+        grid = cfg.mesh_grid
+        if grid is None or len(grid) != 2:
+            raise ValueError("mesh / focal-plane flags need cfg.mesh_grid (gw, gh)")
+        if cfg.has(HAS_MESH_DATA) and not all(2 <= g <= MAX_GRID_SIZE for g in grid):
+            raise ValueError(f"mesh grid {grid}: each side must be 2..{MAX_GRID_SIZE}")
 
 
 def digital_lens(cfg: KernelConfig):
@@ -104,11 +130,12 @@ def digital_lens(cfg: KernelConfig):
 
 
 def rotate_and_distort_core(px, py, m, cfg: KernelConfig, dyn: KernelDynamics,
-                            lp: dm.LensParams):
+                            lp: dm.LensParams, mesh=None):
     """Project output-space points through matrix row(s) ``m`` (remap.py:95).
 
-    ``m``: 14 broadcastable tensors (one per matrix column). Returns
-    (u, v, valid). Mesh and FPD are rejected upstream."""
+    ``m``: 14 broadcastable tensors (one per matrix column); ``mesh``: the
+    float32 mesh buffer on the points' device, read when cfg has the mesh or
+    focal-plane flag. Returns (u, v, valid)."""
     model = dm.get_model(cfg.distortion_model)
     digital = digital_lens(cfg)
 
@@ -143,6 +170,15 @@ def rotate_and_distort_core(px, py, m, cfg: KernelConfig, dyn: KernelDynamics,
     u = u + dyn.c[0]
     v = v + dyn.c[1]
 
+    if has_mesh(cfg):           # remap.py:137-145
+        if mesh is None:
+            raise ValueError("mesh / focal-plane flags set but no mesh buffer given")
+        from .mesh import apply_focal_plane_distortion, apply_mesh_correction, fpd_offset
+        if cfg.has(HAS_MESH_DATA):
+            u, v = apply_mesh_correction(u, v, mesh, cfg)
+        if cfg.has(HAS_FPD_DATA):
+            u, v = apply_focal_plane_distortion(u, v, mesh, fpd_offset(cfg), cfg)
+
     if digital is not None:     # remap.py:146-147
         u, v = digital.distort_xy(u, v, torch.ones_like(u), lp)
 
@@ -153,7 +189,8 @@ def rotate_and_distort_core(px, py, m, cfg: KernelConfig, dyn: KernelDynamics,
     return u, v, valid
 
 
-def rotate_and_distort(x, y, idx, matrices, cfg: KernelConfig, dyn: KernelDynamics):
+def rotate_and_distort(x, y, idx, matrices, cfg: KernelConfig, dyn: KernelDynamics,
+                       mesh=None):
     """Per-pixel row-matrix gather + projection (remap.py:156). This is the
     plain version of the coords kernel."""
     lp = _lens_params(cfg, dyn)
@@ -162,7 +199,7 @@ def rotate_and_distort(x, y, idx, matrices, cfg: KernelConfig, dyn: KernelDynami
     else:
         mg = matrices[idx.long()]                    # (..., 14)
         m = [mg[..., i] for i in range(14)]
-    return rotate_and_distort_core(x, y, m, cfg, dyn, lp)
+    return rotate_and_distort_core(x, y, m, cfg, dyn, lp, mesh=mesh)
 
 
 def _rotate_point(px, py, angle, origin, origin2):
@@ -186,13 +223,16 @@ def _rint_index(a, lim: int):
 
 
 def coords_pre(ox, oy, matrices, cfg: KernelConfig, dyn: KernelDynamics, out_c, out_f,
-               rs_idx=None):
+               rs_idx=None, mesh=None, probe=None):
     """Output-rect map, translation2d, lens-correction blend and the RS row
     select (remap.py:187). Returns (x, y, idx).
 
     ``rs_idx`` overrides the row select and skips the centre-matrix probe:
     the EWA same-row Jacobian evaluates the +eps evals on the base pixel's
-    row (KernelConfig.ewa_ref_jac)."""
+    row (KernelConfig.ewa_ref_jac). ``probe(x, y)`` -> (u, v, valid), if
+    given, projects every point through the centre matrix row in place of
+    the plain projection (the coords kernel for mesh frames on a card: the
+    same float32 operations, so the same rows)."""
     lp = _lens_params(cfg, dyn)
     orx, ory, orw, orh = cfg.out_rect
 
@@ -235,8 +275,11 @@ def coords_pre(ox, oy, matrices, cfg: KernelConfig, dyn: KernelDynamics, out_c, 
     sy = _rint_index(x if horizontal_rs else y, lim)
     if matrix_count > 1:
         # the probe projects every pixel through the centre matrix
-        mc = [matrices[matrix_count // 2, i] for i in range(14)]
-        pu, pv, probe_valid = rotate_and_distort_core(x, y, mc, cfg, dyn, lp)
+        if probe is not None:
+            pu, pv, probe_valid = probe(x, y)
+        else:
+            mc = [matrices[matrix_count // 2, i] for i in range(14)]
+            pu, pv, probe_valid = rotate_and_distort_core(x, y, mc, cfg, dyn, lp, mesh=mesh)
         sy = torch.where(probe_valid, _rint_index(pu if horizontal_rs else pv, lim), sy)
     idx = torch.clamp_max(sy, matrix_count - 1)
     return x, y, idx
@@ -273,11 +316,11 @@ def coords_post_uv(u, v, cfg: KernelConfig):
 
 
 def undistort_coord(ox, oy, matrices, cfg: KernelConfig, dyn: KernelDynamics, out_c, out_f,
-                    rs_idx=None):
+                    rs_idx=None, mesh=None):
     """Output pixel -> source (u, v, valid) with the plain projection
     (remap.py:294); ``rs_idx`` as in coords_pre."""
-    x, y, idx = coords_pre(ox, oy, matrices, cfg, dyn, out_c, out_f, rs_idx=rs_idx)
-    u, v, valid = rotate_and_distort(x, y, idx, matrices, cfg, dyn)
+    x, y, idx = coords_pre(ox, oy, matrices, cfg, dyn, out_c, out_f, rs_idx=rs_idx, mesh=mesh)
+    u, v, valid = rotate_and_distort(x, y, idx, matrices, cfg, dyn, mesh=mesh)
     u, v = coords_post_uv(u, v, cfg)
     return u, v, valid
 
@@ -470,15 +513,20 @@ def sample_ewa(img, u, v, jac, bg, src_rect, coeffs_p, coeffs_q, pixel_value_lim
     return torch.clamp_max(total, pixel_value_limit)
 
 
-def ewa_stack(ox, oy, matrices, cfg: KernelConfig, dyn: KernelDynamics, out_c, out_f):
+def ewa_stack(ox, oy, matrices, cfg: KernelConfig, dyn: KernelDynamics, out_c, out_f,
+              mesh=None, probe=None):
     """coords_pre of the base eval and the +eps evals in x and in y, stacked
     along rows into (3*oh, ow) x, y, idx for ONE projection call
-    (remap.py:783-794). By default the +eps evals reuse the base row;
-    ``cfg.ewa_ref_jac`` makes each re-probe its own."""
-    x0, y0, idx0 = coords_pre(ox, oy, matrices, cfg, dyn, out_c, out_f)
+    (remap.py:783-794). By default the +eps evals reuse the base row (the
+    mesh path's rs_idx too, remap.py:830-840); ``cfg.ewa_ref_jac`` makes each
+    re-probe its own. ``mesh`` and ``probe`` as in coords_pre."""
+    kw = dict(mesh=mesh, probe=probe)
+    x0, y0, idx0 = coords_pre(ox, oy, matrices, cfg, dyn, out_c, out_f, **kw)
     rs_idx = None if cfg.ewa_ref_jac else idx0
-    x1, y1, idx1 = coords_pre(ox + EWA_EPS, oy, matrices, cfg, dyn, out_c, out_f, rs_idx=rs_idx)
-    x2, y2, idx2 = coords_pre(ox, oy + EWA_EPS, matrices, cfg, dyn, out_c, out_f, rs_idx=rs_idx)
+    x1, y1, idx1 = coords_pre(ox + EWA_EPS, oy, matrices, cfg, dyn, out_c, out_f,
+                              rs_idx=rs_idx, **kw)
+    x2, y2, idx2 = coords_pre(ox, oy + EWA_EPS, matrices, cfg, dyn, out_c, out_f,
+                              rs_idx=rs_idx, **kw)
     return torch.cat([x0, x1, x2]), torch.cat([y0, y1, y2]), torch.cat([idx0, idx1, idx2])
 
 
@@ -501,6 +549,83 @@ def _remap_colorrange(px, is_y: bool, max_pixel_value):
     """Full->limited range (remap.py:468; stabilize_spirv drawing.rs:71-74)."""
     px = px * (0.85882352 if is_y else 0.87843137)
     return px + (16.0 / 255.0) * max_pixel_value
+
+
+def _canvas_fetch(canvas, x, y, scale):
+    """The overlay canvas's byte under each point, as int32: the exact
+    gather canvas[floor(y / scale), floor(x / scale)], 0 outside the canvas
+    (NaN included): the function of _canvas_fetch_t's phase-0 sampler call
+    (remap.py:1014). ``scale`` is a 0-d float32 tensor, so the division is
+    IEEE on every device."""
+    hc, wc = canvas.shape
+    xi = torch.floor(x / scale)
+    yi = torch.floor(y / scale)
+    inb = (xi >= 0) & (yi >= 0) & (xi < wc) & (yi < hc)
+    flat = (torch.where(inb, yi, 0.0).to(torch.int64) * wc
+            + torch.where(inb, xi, 0.0).to(torch.int64))
+    data = canvas.reshape(-1)[flat].to(torch.int32)
+    return torch.where(inb, data, 0)
+
+
+def _blend_overlay(pixel, data, active_extra, max_pixel_value):
+    """draw_pixel's blend (remap.py:1033, _blend_overlay_t; spirv
+    drawing.rs:37-49) of (..., C) float32 pixels with the packed canvas
+    bytes ``data`` (color << 3 | alpha << 1 | stage) where ``active_extra``
+    holds: COLORS[color][:C] * max_pixel_value at alpha 1 - 0.25 * alpha."""
+    from ..core.drawing import COLORS
+    color = (data & 0xF8) >> 3
+    alpha_i = (data & 0x06) >> 1
+    active = (data > 0) & (color < 9) & active_extra
+    alphaf = (1.0 - 0.25 * alpha_i.to(torch.float32))[..., None]
+    C = pixel.shape[-1]
+    colors = torch.from_numpy(np.ascontiguousarray(COLORS[:, :C])).to(pixel.device)
+    colorf = torch.zeros_like(pixel)
+    for ci in range(1, 9):
+        colorf = torch.where((color == ci)[..., None], colors[ci], colorf)
+    colorf = colorf * max_pixel_value
+    blended = colorf * alphaf + pixel * (1.0 - alphaf)
+    return torch.where(active[..., None], blended, pixel)
+
+
+def safe_area_bounds(rect):
+    """The safe-area rect (rx, ry, rz, rw) and its 5-px border band's
+    bounds, each rounded to float32 and the band's offsets taken in float32,
+    as remap.py:1068-1071 takes them."""
+    r = np.asarray(rect, np.float32).reshape(4)
+    five = np.float32(5.0)
+    return ([float(x) for x in r],
+            [float(r[0] - five), float(r[1] - five), float(r[2] + five), float(r[3] + five)])
+
+
+def _draw_safe_area(pixel, ox, oy, rect):
+    """draw_safe_area (remap.py:1067-1075; spirv drawing.rs:52-69): pixels
+    outside the rect dim to 0.5, its 5-px border band to 0.25."""
+    (rx, ry, rz, rw), (bx0, by0, bx1, by1) = safe_area_bounds(rect)
+    safe = (ox >= rx) & (ox <= rz) & (oy >= ry) & (oy <= rw)
+    border = (ox > bx0) & (ox < bx1) & (oy > by0) & (oy < by1)
+    dim = torch.where(safe, 1.0, torch.where(border, 0.25, 0.5))
+    return pixel * dim[..., None]
+
+
+def _draw_overlay(pixel, u, v, ox, oy, canvas, scale, safe_area_rect, src_rect,
+                  max_pixel_value):
+    """process_final_pixel's drawing stages (remap.py:1054; spirv
+    drawing.rs:78-99) on the (oh, ow, C) float32 pixels: the input-stage
+    canvas bytes at the source position (u, v), where it lies inside
+    src_rect and the byte's stage bit is 0; the output-stage bytes at the
+    output pixel (ox, oy) whose stage bit is 1; then the safe-area dim.
+    canvas: (hc, wc) uint8 tensor; scale: 0-d float32 tensor. The plain
+    version of the overlay kernel (csrc/overlay.cu)."""
+    srx, sry, srw, srh = src_rect
+    src_in = (v >= float(sry)) & (v < float(sry + srh)) & \
+             (u >= float(srx)) & (u < float(srx + srw))
+    d_in = _canvas_fetch(canvas, u, v, scale)
+    pixel = _blend_overlay(pixel, d_in, src_in & ((d_in & 1) == 0), max_pixel_value)
+    d_out = _canvas_fetch(canvas, ox, oy, scale)
+    pixel = _blend_overlay(pixel, d_out, (d_out & 1) == 1, max_pixel_value)
+    if safe_area_rect is not None:
+        pixel = _draw_safe_area(pixel, ox, oy, safe_area_rect)
+    return pixel
 
 
 def _cast_out(out, out_dtype: str, max_pixel_value: float):
@@ -536,14 +661,16 @@ def use_fused(cfg: KernelConfig, matrices, drawing=None) -> bool:
 
 
 def _remap(img, matrices, cfg: KernelConfig, dyn_t: KernelDynamics, project, sample,
-           fused=None):
+           fused=None, mesh=None, probe=None, overlay=None):
     """Shared body of remap_plane / remap_plane_cuda (remap.py:511, :662).
 
     dyn_t: tensor leaves on img's device. project(x, y, idx) -> (u, v, valid);
     sample(u, v, valid, evals) -> (oh, ow, C), where evals is the stacked
     (3*oh, ow) (u3, v3, valid3) after coords_post_uv for EWA and None
     otherwise. fused(x, y, idx) -> (oh, ow, C), if given, replaces project,
-    coords_post_uv and sample (remap.py:720-730)."""
+    coords_post_uv and sample (remap.py:720-730). mesh and probe go to
+    coords_pre. overlay(pixel, u, v, ox, oy) -> pixel, if given, is the
+    drawing epilogue after the colour-range step (remap.py:1004-1007)."""
     dev = img.device
     C = img.shape[-1]
     bg = (dyn_t.background * dyn_t.max_pixel_value)[:C]
@@ -561,11 +688,12 @@ def _remap(img, matrices, cfg: KernelConfig, dyn_t: KernelDynamics, project, sam
     out_f = (dyn_t.f[0] / dyn_t.fov / factor, dyn_t.f[1] / dyn_t.fov / factor)
 
     is_ewa = cfg.interpolation in EWA_BC
-    x, y, idx = (ewa_stack if is_ewa else coords_pre)(ox, oy, matrices, cfg, dyn_t, out_c, out_f)
+    x, y, idx = (ewa_stack if is_ewa else coords_pre)(ox, oy, matrices, cfg, dyn_t, out_c, out_f,
+                                                      mesh=mesh, probe=probe)
     if fused is not None:
         pixel = fused(x, y, idx)
     else:
-        pixel = _project_and_sample(x, y, idx, cfg, dyn_t, bg, project, sample, is_ewa)
+        pixel, u, v = _project_and_sample(x, y, idx, cfg, dyn_t, bg, project, sample, is_ewa)
 
     # pixels whose mapped out_pos is beyond the logical output get background
     orx, ory, orw, orh = cfg.out_rect
@@ -576,6 +704,8 @@ def _remap(img, matrices, cfg: KernelConfig, dyn_t: KernelDynamics, project, sam
 
     if cfg.has(FIX_COLOR_RANGE):
         pixel = _remap_colorrange(pixel, cfg.plane_index == 0, dyn_t.max_pixel_value)
+    if overlay is not None:
+        pixel = overlay(pixel, u, v, ox, oy)
     return pixel
 
 
@@ -583,7 +713,9 @@ def _project_and_sample(x, y, idx, cfg: KernelConfig, dyn_t: KernelDynamics, bg,
                         sample, is_ewa: bool):
     """The split path: projection, coords_post_uv, then one sample (two in
     background mode 3) and the validity mask. For EWA the stacked evals go
-    to the sampler with the base eval's rows as u, v, valid."""
+    to the sampler with the base eval's rows as u, v, valid. Returns the
+    pixels and the base eval's u, v after coords_post_uv (the overlay's
+    input-stage positions)."""
     u, v, valid = project(x, y, idx)
     u, v = coords_post_uv(u, v, cfg)
     evals = None
@@ -614,18 +746,35 @@ def _project_and_sample(x, y, idx, cfg: KernelConfig, dyn_t: KernelDynamics, bg,
         pixel = c1 * alpha[..., None] + c2 * (1.0 - alpha[..., None])
     else:
         pixel = sample(u, v, valid, evals)
-    return torch.where(valid[..., None], pixel, bg)
+    return torch.where(valid[..., None], pixel, bg), u, v
 
 
-def _prepare(img, matrices, cfg, mesh, drawing):
-    if mesh is not None:
-        raise NotImplementedError("mesh / focal-plane correction " + _NOT_PORTED.format(6))
-    if drawing is not None or cfg.has(DRAWING_ENABLED):
-        raise NotImplementedError("the drawing overlay " + _NOT_PORTED.format(7))
+def _prepare(img, matrices, cfg, mesh):
+    """Checks, then (matrices, mesh) float32 and contiguous on img's device;
+    mesh None unless cfg has the mesh or focal-plane flag (the JAX remap
+    reads it only then)."""
     _check_supported(cfg)
     if img.dim() != 3:
         raise ValueError(f"plane must be (H, W, C), got {tuple(img.shape)}")
-    return matrices.to(device=img.device, dtype=torch.float32).contiguous()
+    if has_mesh(cfg):
+        if mesh is None:
+            raise ValueError("mesh / focal-plane flags set but no mesh buffer given")
+        mesh = torch.as_tensor(mesh).to(device=img.device, dtype=torch.float32).reshape(-1)
+        if mesh.numel() < mesh_len(cfg):
+            raise ValueError(f"mesh buffer of {mesh.numel()} floats, grid {cfg.mesh_grid} "
+                             f"needs {mesh_len(cfg)}")
+        mesh = mesh.contiguous()
+    else:
+        mesh = None
+    return matrices.to(device=img.device, dtype=torch.float32).contiguous(), mesh
+
+
+def _canvas(cfg: KernelConfig, drawing, device):
+    """The drawing's canvas as a uint8 tensor on device, uploaded once per
+    call, or None when the overlay is off (remap.py:1004)."""
+    if drawing is None or not cfg.has(DRAWING_ENABLED):
+        return None
+    return torch.from_numpy(np.ascontiguousarray(drawing.canvas, np.uint8)).to(device)
 
 
 def remap_plane(img, matrices, cfg: KernelConfig, dyn: KernelDynamics, mesh=None,
@@ -633,8 +782,10 @@ def remap_plane(img, matrices, cfg: KernelConfig, dyn: KernelDynamics, mesh=None
     """Remap one plane in plain torch: (H, W, C) -> (oh, ow, C).
 
     The port's CPU path (remap.py:511 + the fused cast of remap_plane_jit).
-    Runs on whatever device ``img`` lies on."""
-    matrices = _prepare(img, matrices, cfg, mesh, drawing)
+    Runs on whatever device ``img`` lies on. ``mesh``: the frame's Sony mesh
+    / focal-plane buffer (read when cfg has either flag); ``drawing``: a
+    core.drawing.DrawingState, blended when cfg has DRAWING_ENABLED."""
+    matrices, mesh = _prepare(img, matrices, cfg, mesh)
     imgf = img.to(torch.float32)
     dyn_t = dyn_to_torch(dyn, img.device)
     bg = (dyn_t.background * dyn_t.max_pixel_value)[:img.shape[-1]]
@@ -642,7 +793,7 @@ def remap_plane(img, matrices, cfg: KernelConfig, dyn: KernelDynamics, mesh=None
     coeffs_p, coeffs_q = _ewa_coeffs_of(dyn)
 
     def project(x, y, idx):
-        return rotate_and_distort(x, y, idx, matrices, cfg, dyn_t)
+        return rotate_and_distort(x, y, idx, matrices, cfg, dyn_t, mesh=mesh)
 
     def sample(u, v, valid, evals):
         if evals is not None:
@@ -650,7 +801,17 @@ def remap_plane(img, matrices, cfg: KernelConfig, dyn: KernelDynamics, mesh=None
             return sample_ewa(imgf, u, v, jac, bg, cfg.src_rect, coeffs_p, coeffs_q, limit)
         return sample_input(imgf, u, v, bg, cfg.src_rect, cfg.interpolation, limit)
 
-    out = _remap(img, matrices, cfg, dyn_t, project, sample)
+    overlay = None
+    canvas = _canvas(cfg, drawing, img.device)
+    if canvas is not None:
+        maxv = _host_scalar(dyn.max_pixel_value)
+        scale = torch.full((), float(drawing.scale), dtype=torch.float32, device=img.device)
+
+        def overlay(pixel, u, v, ox, oy):
+            return _draw_overlay(pixel, u, v, ox, oy, canvas, scale, drawing.safe_area_rect,
+                                 cfg.src_rect, maxv)
+
+    out = _remap(img, matrices, cfg, dyn_t, project, sample, mesh=mesh, overlay=overlay)
     return _cast_out(out, out_dtype, _host_scalar(dyn.max_pixel_value))
 
 
@@ -661,15 +822,17 @@ def remap_plane_cuda(img, matrices, cfg: KernelConfig, dyn: KernelDynamics, mesh
 
     Counterpart of remap_plane_pallas (remap.py:662) on one thread per output
     pixel: one coords launch per plane (EWA stacks its three evals into it)
-    and one sampling launch per sample (two in background mode 3). With
-    ``fused=True``, a plane that ``use_fused`` admits takes one fused launch
-    instead of the coords and sampler launches; any other plane takes the
-    split path, as remap_plane_pallas does. ``img`` keeps its native dtype
-    (uint8, uint16 or float32): the kernels read it directly. On CPU tensors
-    the kernel wrappers run their plain versions."""
-    from . import cuda_coords, cuda_ewa, cuda_fused, cuda_sampler
+    and one sampling launch per sample (two in background mode 3); a mesh
+    frame adds one coords launch for its rolling-shutter probe, and the
+    drawing overlay one overlay launch. With ``fused=True``, a plane that
+    ``use_fused`` admits takes one fused launch instead of the coords and
+    sampler launches; any other plane (mesh and drawing among them) takes
+    the split path, as remap_plane_pallas does. ``img`` keeps its native
+    dtype (uint8, uint16 or float32): the kernels read it directly. On CPU
+    tensors the kernel wrappers run their plain versions."""
+    from . import cuda_coords, cuda_ewa, cuda_fused, cuda_overlay, cuda_sampler
 
-    matrices = _prepare(img, matrices, cfg, mesh, drawing)
+    matrices, mesh = _prepare(img, matrices, cfg, mesh)
     C = img.shape[-1]
     bg = tuple(float(b) for b in
                (np.asarray(dyn.background, np.float32) * np.float32(dyn.max_pixel_value))[:C])
@@ -678,7 +841,7 @@ def remap_plane_cuda(img, matrices, cfg: KernelConfig, dyn: KernelDynamics, mesh
     dyn_t = dyn_to_torch(dyn, img.device)
 
     def project(x, y, idx):
-        return cuda_coords.project(x, y, idx, matrices, cfg, dyn)
+        return cuda_coords.project(x, y, idx, matrices, cfg, dyn, mesh)
 
     def sample(u, v, valid, evals):
         if evals is not None:
@@ -691,5 +854,34 @@ def remap_plane_cuda(img, matrices, cfg: KernelConfig, dyn: KernelDynamics, mesh
         def fuse(x, y, idx):
             return cuda_fused.remap_fused(img, x, y, idx, matrices, cfg, dyn, bg, limit)
 
-    out = _remap(img, matrices, cfg, dyn_t, project, sample, fuse)
+    overlay = None
+    canvas = _canvas(cfg, drawing, img.device)
+    if canvas is not None:
+        maxv = _host_scalar(dyn.max_pixel_value)
+
+        def overlay(pixel, u, v, ox, oy):
+            return cuda_overlay.overlay(pixel, u.contiguous(), v.contiguous(), canvas,
+                                        float(drawing.scale),
+                                        drawing.safe_area_rect, cfg.src_rect, maxv)
+
+    out = _remap(img, matrices, cfg, dyn_t, project, sample, fuse, mesh=mesh,
+                 probe=mesh_probe(matrices, cfg, dyn, mesh), overlay=overlay)
     return _cast_out(out, out_dtype, _host_scalar(dyn.max_pixel_value))
+
+
+def mesh_probe(matrices, cfg: KernelConfig, dyn: KernelDynamics, mesh):
+    """coords_pre's rolling-shutter probe through the coords kernel, for mesh
+    frames only (None otherwise, and for a single matrix row): one launch
+    with every point on the centre row, in place of the plain projection's
+    hundreds of eager launches. The kernel gives the plain version's bits,
+    so the selected rows are the same."""
+    from . import cuda_coords
+    if mesh is None or matrices.shape[0] < 2:
+        return None
+    c = matrices.shape[0] // 2
+    center = matrices[c:c + 1]
+
+    def probe(x, y):
+        zero = torch.zeros(x.shape, dtype=torch.int32, device=x.device)
+        return cuda_coords.project(x, y, zero, center, cfg, dyn, mesh)
+    return probe

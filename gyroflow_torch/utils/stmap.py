@@ -13,8 +13,8 @@ A copy of gyroflow_tpu.utils.stmap whose undistort map runs on the
 manager's torch device: the output grid is built there, and the projection
 goes through the coords kernel (``cuda_coords.project``) on a CUDA device,
 or the plain ``remap.undistort_coord`` on the CPU, for every lens model and
-digital lens. Mesh and focal-plane data raise NotImplementedError (ROADMAP
-queue 1, item 6).
+digital lens, with the frame's Sony mesh / focal-plane buffer as the JAX
+map carries it (stmap.py:102-105).
 """
 from __future__ import annotations
 
@@ -85,7 +85,8 @@ def undistort_inputs(mgr, timestamp_ms: float, per_frame: bool = False,
                      frame: int = 0):
     """What the undistort map projects (stmap.rs:75-101): the expanded
     canvas's output grid (ox, oy) float32 on ``mgr.device``, the frame's
-    matrices there, its KernelConfig and host KernelDynamics, out_c and out_f.
+    matrices there, its KernelConfig and host KernelDynamics, out_c, out_f,
+    and its mesh buffer there (None without mesh / focal-plane data).
     """
     import torch
     from ..ops import remap
@@ -101,7 +102,6 @@ def undistort_inputs(mgr, timestamp_ms: float, per_frame: bool = False,
     ft = frame_transform_at(cp, timestamp_ms, frame)
     cfg = ft.kernel_cfg._replace(flags=_stmap_flags(ft.kernel_cfg),
                                  lens_correction=False)
-    # raises NotImplementedError for mesh/FPD
     remap._check_supported(cfg)
     dyn = ft.kernel_dyn
 
@@ -111,23 +111,28 @@ def undistort_inputs(mgr, timestamp_ms: float, per_frame: bool = False,
                             indexing="ij")
     mats = torch.from_numpy(np.ascontiguousarray(ft.matrices, np.float32)).to(dev)
     out_f = (dyn.f[0] / dyn.fov, dyn.f[1] / dyn.fov)
-    return ox, oy, mats, cfg, dyn, (new_w / 2.0, new_h / 2.0), out_f
+    mesh = None
+    if ft.mesh_data is not None and remap.has_mesh(cfg):
+        mesh = torch.from_numpy(np.ascontiguousarray(ft.mesh_data, np.float32)).to(dev)
+    return ox, oy, mats, cfg, dyn, (new_w / 2.0, new_h / 2.0), out_f, mesh
 
 
 def undistort_uv(mgr, timestamp_ms: float, per_frame: bool = False, frame: int = 0):
     """Source (u, v, valid) per output pixel of the expanded canvas, tensors
-    on ``mgr.device``: coords_pre, the coords kernel and coords_post_uv on a
-    CUDA device; the plain remap.undistort_coord on the CPU."""
+    on ``mgr.device``: coords_pre (its rolling-shutter probe through the
+    coords kernel for a mesh frame), the coords kernel and coords_post_uv on
+    a CUDA device; the plain remap.undistort_coord on the CPU."""
     from ..ops import cuda_coords, remap
     from ..ops.kernel_params import dyn_to_torch
 
-    ox, oy, mats, cfg, dyn, out_c, out_f = undistort_inputs(mgr, timestamp_ms, per_frame,
-                                                            frame)
+    ox, oy, mats, cfg, dyn, out_c, out_f, mesh = undistort_inputs(mgr, timestamp_ms,
+                                                                  per_frame, frame)
     dyn_t = dyn_to_torch(dyn, ox.device)
     if ox.device.type == "cpu":
-        return remap.undistort_coord(ox, oy, mats, cfg, dyn_t, out_c, out_f)
-    x, y, idx = remap.coords_pre(ox, oy, mats, cfg, dyn_t, out_c, out_f)
-    u, v, valid = cuda_coords.project(x, y, idx, mats, cfg, dyn)
+        return remap.undistort_coord(ox, oy, mats, cfg, dyn_t, out_c, out_f, mesh=mesh)
+    x, y, idx = remap.coords_pre(ox, oy, mats, cfg, dyn_t, out_c, out_f, mesh=mesh,
+                                 probe=remap.mesh_probe(mats, cfg, dyn, mesh))
+    u, v, valid = cuda_coords.project(x, y, idx, mats, cfg, dyn, mesh)
     u, v = remap.coords_post_uv(u, v, cfg)
     return u, v, valid
 

@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
-"""Time the sampler kernel (csrc/sampler.cu) of one or more copies of
-gyroflow_torch on the 4K main-path inputs, on one CUDA card.
+"""Time the sampler kernel (csrc/sampler.cu) and the coords kernel's fisheye
+form (csrc/coords.cu) of one or more copies of gyroflow_torch on the 4K
+main-path inputs, on one CUDA card.
 
     python3 sampler_bench.py [ROOT ...]
 
@@ -9,17 +10,27 @@ repo), for example an unpacked ``git archive`` of another commit or an edited
 copy of it. The inputs are made once, as chip_smoke.py phase 3 makes them
 (its manager, gyro log, lens and planes): the Y (3840x2160x1) and UV
 (1920x1080x2) uint16 planes with the u, v and valid maps of one lanczos4
-frame. Every ROOT's kernel library is built first, three builds at a
-time. Then each ROOT runs in a process of its own, in the order given
-and again in reverse (A B ... B A), and reads:
+frame, and the coords kernel's x, y, idx and matrices of that frame, of
+that frame with a digital lens on the fisheye (gopro_superview and
+digital_stretch, chip_smoke.py phase 8's lenses) and of a frame of
+chip_smoke.py phase 9's Sony clip (sony lens, IBIS, a 9x9 mesh and FPD).
+Every ROOT's kernel library is built first, three builds at a time. Then
+each ROOT runs in a process of its own, in the order given and again in
+reverse (A B ... B A), and reads:
 
-- the sampler's device time for Y and UV with that copy's
+- the device time for Y and UV of the sampler, of the coords kernel's
+  fisheye plain form, of its two digital forms and (where the copy's
+  ``cuda_coords.project`` takes a mesh) of its mesh form, with that copy's
   ``experiments.perf_probe.cuda_ms`` (median of 10 calls, each behind an
   L2-flushing read and a device spin);
 - the largest difference from that copy's ``cuda_sampler.sample_plain`` on
-  the same inputs, in codes (limit 0.01);
-- the ptxas registers and spills of ``sampler_kernel<u16,C1,8>`` and
-  ``<u16,C2,8>``.
+  the same inputs, in codes (limit 0.01), and from its
+  ``cuda_coords.project_plain``, in px over valid pixels with the valid
+  masks identical (limit 1e-4; the digital and mesh forms bit-identical);
+- the ptxas registers and spills of ``sampler_kernel<u16,C1,8>``,
+  ``<u16,C2,8>`` and of the fisheye ``coords_kernel``'s plain and digital
+  forms and the sony mesh form (a copy from before the mesh form was split
+  off reports its two forms under the same names).
 
 Prints the card's name and power limit, one JSON line per reading and a
 summary; writes chiprun_out/sampler_bench.json. Exits non-zero if a build,
@@ -27,6 +38,7 @@ a launch or a check fails.
 """
 from __future__ import annotations
 
+import inspect
 import json
 import statistics
 import subprocess
@@ -38,7 +50,23 @@ from pathlib import Path
 REPO = Path(__file__).resolve().parent
 OUT_DIR = REPO / "chiprun_out"
 TOL = 0.01
+COORDS_TOL_PX = 1e-4
 BUILDS_AT_ONCE = 3
+DIGITAL = ("gopro_superview", "digital_stretch")
+# the coords kernel's forms by their mangled names: this tree's three forms,
+# then a tree whose kernel had two (plain, and digital with the mesh)
+COORDS_FORMS = {"coords": ("coords_kernelILi0ELb0ELb0EE", "coords_kernelILi0ELb0EE"),
+                "coords<opencv_fisheye,digital>": ("coords_kernelILi0ELb1ELb0EE",
+                                                   "coords_kernelILi0ELb1EE"),
+                "coords<sony,mesh>": ("coords_kernelILi6ELb1ELb1EE", "coords_kernelILi6ELb1EE")}
+
+
+def cs_out_cf(cfg, dyn_t):
+    """(out_c, out_f) as remap._remap builds them."""
+    import torch
+    factor = torch.clamp_min(1.0 - dyn_t.lens_correction_amount, 0.001)
+    return ((cfg.output_width / 2.0, cfg.output_height / 2.0),
+            (dyn_t.f[0] / dyn_t.fov / factor, dyn_t.f[1] / dyn_t.fov / factor))
 
 
 def _inputs(path):
@@ -53,6 +81,7 @@ def _inputs(path):
     dev = torch.device("cuda", 0)
     with tempfile.TemporaryDirectory() as tmp:
         mgr = cs.make_manager(dev, tmp)
+        sony = cs.make_sony_manager(dev, tmp)
     planes = cs.make_planes()
     out = {}
     for name, (_, host) in planes.items():
@@ -61,15 +90,26 @@ def _inputs(path):
         ow, oh = cfg.out_buffer
         oy, ox = torch.meshgrid(torch.arange(oh, dtype=torch.float32, device=dev),
                                 torch.arange(ow, dtype=torch.float32, device=dev), indexing="ij")
-        factor = torch.clamp_min(1.0 - dyn_t.lens_correction_amount, 0.001)
-        out_f = (dyn_t.f[0] / dyn_t.fov / factor, dyn_t.f[1] / dyn_t.fov / factor)
-        x, y, idx = remap.coords_pre(ox, oy, mats, cfg, dyn_t, (ow / 2.0, oh / 2.0), out_f)
+        x, y, idx = remap.coords_pre(ox, oy, mats, cfg, dyn_t, *cs_out_cf(cfg, dyn_t))
         u, v, valid = cuda_coords.project_plain(x, y, idx, mats, cfg, dyn)
         u, v = remap.coords_post_uv(u, v, cfg)
         img = torch.from_numpy(host)
         out[name] = {"img": img, "u": u.cpu(), "v": v.cpu(), "valid": valid.cpu(),
                      "bg": cs.plane_bg(dyn, img), "src_rect": tuple(cfg.src_rect),
-                     "limit": cs.MAXV}
+                     "limit": cs.MAXV, "x": x.cpu(), "y": y.cpu(), "idx": idx.cpu(),
+                     "mats": mats.cpu(), "cfg": cfg, "dyn": dyn, "digital": {}}
+        for digital in DIGITAL:
+            dcfg, ddyn = cs.with_lens(cfg, dyn, "opencv_fisheye", digital)
+            ddyn_t = dyn_to_torch(ddyn, dev)
+            dx, dy, didx = remap.coords_pre(ox, oy, mats, dcfg, ddyn_t, *cs_out_cf(dcfg, ddyn_t))
+            out[name]["digital"][digital] = {"x": dx.cpu(), "y": dy.cpu(), "idx": didx.cpu(),
+                                             "cfg": dcfg, "dyn": ddyn}
+        cfg, dyn, mats = cs.plane_setup(sony, planes, 500_000, name)
+        mesh = cs.plane_mesh(sony, 500_000)
+        dyn_t = dyn_to_torch(dyn, dev)
+        x, y, idx = remap.coords_pre(ox, oy, mats, cfg, dyn_t, *cs_out_cf(cfg, dyn_t), mesh=mesh)
+        out[name]["mesh"] = {"x": x.cpu(), "y": y.cpu(), "idx": idx.cpu(), "mats": mats.cpu(),
+                             "mesh": mesh.cpu(), "cfg": cfg, "dyn": dyn}
     torch.save(out, path)
     print(json.dumps({"inputs": path}))
 
@@ -84,6 +124,13 @@ def _build(root):
     sys.path.insert(0, str(REPO))
     import chip_smoke as cs
     ptxas = {k: v for k, v in cs.ptxas_summary(b.build_log).items() if k.startswith("sampler")}
+    current = None
+    for ln in b.build_log.splitlines():
+        if "Compiling entry function" in ln:
+            current = next((k for k, names in COORDS_FORMS.items()
+                            if any(m in ln for m in names)), None)
+        elif current and ("spill" in ln or "registers" in ln):
+            ptxas[current] = (ptxas.get(current, "") + " " + ln.split(":")[-1].strip()).strip()
     print(json.dumps({"build_s": time.perf_counter() - t0, "ptxas": ptxas}))
 
 
@@ -94,13 +141,13 @@ def _time(root, path):
     sys.path.insert(0, str(root))
     import gyroflow_torch
     from gyroflow_torch.experiments import perf_probe
-    from gyroflow_torch.ops import cuda_sampler
+    from gyroflow_torch.ops import cuda_coords, cuda_sampler
 
     if Path(gyroflow_torch.__file__).resolve().parent != (Path(root) / "gyroflow_torch").resolve():
         raise RuntimeError(f"imported {gyroflow_torch.__file__}, not the copy in {root}")
     dev = torch.device("cuda", 0)
     res = {}
-    for name, d in torch.load(path).items():
+    for name, d in torch.load(path, weights_only=False).items():
         img, u, v, valid = (d[k].to(dev) for k in ("img", "u", "v", "valid"))
         args = (img, u, v, valid, d["bg"], d["src_rect"], 8, d["limit"])
         k = cuda_sampler.sample(*args)
@@ -111,7 +158,47 @@ def _time(root, path):
             raise AssertionError(f"{root} {name}: sampler off its plain version by {err}")
         res[name] = {"ms": perf_probe.cuda_ms(lambda: cuda_sampler.sample(*args), dev),
                      "max_err": err}
+        cargs = (*(d[k].to(dev) for k in ("x", "y", "idx", "mats")), d["cfg"], d["dyn"])
+        k = cuda_coords.project(*cargs)
+        p = cuda_coords.project_plain(*cargs)
+        torch.cuda.synchronize()
+        cerr = max(float((a - b).abs()[k[2]].max()) for a, b in zip(k[:2], p[:2]))
+        if not (torch.equal(k[2], p[2]) and cerr <= COORDS_TOL_PX):
+            raise AssertionError(f"{root} {name}: coords off its plain version by {cerr} px")
+        res[name].update(coords_ms=perf_probe.cuda_ms(lambda: cuda_coords.project(*cargs), dev),
+                         coords_max_err=cerr)
+        mats = d["mats"].to(dev)
+        for digital, g in d["digital"].items():
+            dargs = (*(g[k].to(dev) for k in ("x", "y", "idx")), mats, g["cfg"], g["dyn"])
+            k = cuda_coords.project(*dargs)
+            p = cuda_coords.project_plain(*dargs)
+            torch.cuda.synchronize()
+            same = all(torch.equal(a, b) or (a.dtype.is_floating_point
+                                             and torch.equal(a.isnan(), b.isnan())
+                                             and torch.equal(a.nan_to_num(), b.nan_to_num()))
+                       for a, b in zip(k, p))
+            if not same:
+                raise AssertionError(f"{root} {name}: the {digital} form differs from its plain "
+                                     f"version")
+            res[name][f"{digital}_ms"] = perf_probe.cuda_ms(lambda: cuda_coords.project(*dargs),
+                                                            dev)
+        if "mesh" in inspect.signature(cuda_coords.project).parameters:
+            m = d["mesh"]
+            margs = (*(m[k].to(dev) for k in ("x", "y", "idx", "mats")), m["cfg"], m["dyn"],
+                     m["mesh"].to(dev))
+            k = cuda_coords.project(*margs)
+            p = cuda_coords.project_plain(*margs)
+            torch.cuda.synchronize()
+            if not all(torch.equal(a, b) for a, b in zip(k, p)):
+                raise AssertionError(f"{root} {name}: the mesh form differs from its plain version")
+            res[name]["mesh_coords_ms"] = perf_probe.cuda_ms(
+                lambda: cuda_coords.project(*margs), dev)
     res["Y+UV ms"] = res["Y"]["ms"] + res["UV"]["ms"]
+    res["coords Y+UV ms"] = res["Y"]["coords_ms"] + res["UV"]["coords_ms"]
+    for digital in DIGITAL:
+        res[f"{digital} Y+UV ms"] = res["Y"][f"{digital}_ms"] + res["UV"][f"{digital}_ms"]
+    if "mesh_coords_ms" in res["Y"]:
+        res["mesh coords Y+UV ms"] = res["Y"]["mesh_coords_ms"] + res["UV"]["mesh_coords_ms"]
     print(json.dumps(res))
 
 
@@ -162,6 +249,11 @@ def main(roots) -> int:
          "Y ms": [x["Y"]["ms"] for x in readings[r]],
          "UV ms": [x["UV"]["ms"] for x in readings[r]],
          "Y+UV ms": statistics.mean(x["Y+UV ms"] for x in readings[r]),
+         "coords Y+UV ms": [x["coords Y+UV ms"] for x in readings[r]],
+         **{f"{dl} Y ms": [x["Y"][f"{dl}_ms"] for x in readings[r]] for dl in DIGITAL},
+         **{f"{dl} Y+UV ms": [x[f"{dl} Y+UV ms"] for x in readings[r]] for dl in DIGITAL},
+         "mesh coords Y ms": [x["Y"].get("mesh_coords_ms") for x in readings[r]],
+         "mesh coords Y+UV ms": [x.get("mesh coords Y+UV ms") for x in readings[r]],
          "max_err": max(max(x["Y"]["max_err"], x["UV"]["max_err"]) for x in readings[r])}
         for r in roots]}
     OUT_DIR.mkdir(exist_ok=True)

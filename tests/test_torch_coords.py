@@ -166,8 +166,14 @@ def test_wrapper_rejects_unported_configs():
     x = torch.zeros(4, 4)
     idx = torch.zeros(4, 4, dtype=torch.int32)
     m = torch.from_numpy(mats)
-    with pytest.raises(NotImplementedError):
-        cuda_coords._check(x, x, idx, m, pcfg._replace(flags=512))       # HAS_MESH_DATA
+    mesh_cfg = pcfg._replace(flags=512, mesh_grid=(9, 9))              # HAS_MESH_DATA
+    with pytest.raises(ValueError, match="no mesh buffer"):
+        cuda_coords._check(x, x, idx, m, mesh_cfg)
+    with pytest.raises(ValueError, match="needs"):
+        cuda_coords._check(x, x, idx, m, mesh_cfg, torch.zeros(16))
+    with pytest.raises(TypeError, match="mesh"):
+        cuda_coords._check(x, x, idx, m, mesh_cfg, torch.zeros(2000, dtype=torch.float64))
+    cuda_coords._check(x, x, idx, m, mesh_cfg, torch.zeros(2000))
     cuda_coords._check(x, x, idx, m, pcfg._replace(distortion_model="sony"))
     cuda_coords._check(x, x, idx, m, pcfg._replace(digital_lens="gopro_warp",
                                                    flags=HAS_DIGITAL_LENS))

@@ -18,13 +18,15 @@ import pytest
 import torch
 
 from chip_smoke import LENS_DLP, LENS_K, lenses   # chip_smoke.py phase 8's lenses
-from gyroflow_torch.ops import cuda_coords, cuda_ewa, cuda_fused, cuda_sampler
+from chip_smoke import make_sony_manager          # chip_smoke.py phase 9's Sony clip
+from gyroflow_torch.ops import cuda_coords, cuda_ewa, cuda_fused, cuda_overlay, cuda_sampler
 from gyroflow_torch.ops import distortion_models as tdm
 from gyroflow_torch.ops import remap
-from gyroflow_torch.ops.kernel_params import (ANY_UNDERWATER, FIX_COLOR_RANGE, HAS_DIGITAL_LENS,
-                                              HAS_IBIS_DATA, HAS_MESH_DATA, HAS_OUTPUT_RECT,
-                                              HAS_SOURCE_RECT, HORIZONTAL_RS, KernelConfig,
-                                              KernelDynamics, dyn_to_torch)
+from gyroflow_torch.ops.kernel_params import (ANY_UNDERWATER, DRAWING_ENABLED, FIX_COLOR_RANGE,
+                                              FRAMEBUFFER_INVERTED, HAS_DIGITAL_LENS,
+                                              HAS_FPD_DATA, HAS_IBIS_DATA, HAS_MESH_DATA,
+                                              HAS_OUTPUT_RECT, HAS_SOURCE_RECT, HORIZONTAL_RS,
+                                              KernelConfig, KernelDynamics, dyn_to_torch)
 
 pytestmark = pytest.mark.cuda
 
@@ -284,8 +286,9 @@ def test_remap_plane_cuda_vs_plain(dev, plane, bg_mode):
 def test_kernels_raise_instead_of_falling_back(dev):
     cfg, dyn, mats, img = _case("Y")
     x, y, idx, m = _coords_inputs(cfg, dyn, mats, dev)
-    with pytest.raises(NotImplementedError):
-        cuda_coords.project(x, y, idx, m, cfg._replace(flags=HAS_MESH_DATA), dyn)
+    with pytest.raises(ValueError, match="no mesh buffer"):
+        cuda_coords.project(x, y, idx, m, cfg._replace(flags=HAS_MESH_DATA, mesh_grid=(9, 9)),
+                            dyn)
     with pytest.raises(TypeError):
         cuda_sampler.sample(torch.zeros(8, 8, 1, dtype=torch.int32, device=dev), x, y,
                             x > 0, (0.0,), (0, 0, 8, 8), 8, 1.0)
@@ -672,13 +675,20 @@ def test_cuda_tensors_never_reach_a_plain_version(dev, monkeypatch):
 
     for mod, name in ((cuda_coords, "project_plain"), (cuda_coords, "project_gen_plain"),
                       (cuda_sampler, "sample_plain"), (cuda_ewa, "sample_plain"),
-                      (cuda_fused, "remap_fused_plain")):
+                      (cuda_fused, "remap_fused_plain"), (cuda_overlay, "overlay_plain")):
         monkeypatch.setattr(mod, name, refuse)
     for interpolation, fused in ((8, False), (8, True), (11, False)):
         cfg, dyn, mats, img = _case("UV", interpolation=interpolation)
         out = remap.remap_plane_cuda(torch.from_numpy(img).to(dev),
                                      torch.from_numpy(mats).to(dev), cfg, dyn,
                                      out_dtype="uint16", fused=fused)
+        assert out.device.type == "cuda"
+    for interpolation in (8, 11):     # mesh + FPD and the overlay
+        cfg, dyn, mats, img, mesh = _mesh_case("Y", HAS_FPD_DATA, interpolation=interpolation)
+        out = remap.remap_plane_cuda(torch.from_numpy(img).to(dev),
+                                     torch.from_numpy(mats).to(dev),
+                                     cfg._replace(flags=cfg.flags | DRAWING_ENABLED), dyn,
+                                     mesh.to(dev), drawing=_drawing(), out_dtype="uint16")
         assert out.device.type == "cuda"
     cfg, dyn, mats, _ = _case("Y")
     u, _, _ = cuda_coords.project_gen(cfg, dyn, torch.from_numpy(mats).to(dev), H, 0,
@@ -874,8 +884,180 @@ def test_undistort_stmap_on_the_card(dev, tmp_path):
     n0 = cuda_coords.project.launches
     u, v, valid = stmap.undistort_uv(m, 500.0)
     assert cuda_coords.project.launches == n0 + 1
-    ox, oy, mats, cfg, dyn, out_c, out_f = stmap.undistort_inputs(m, 500.0)
+    ox, oy, mats, cfg, dyn, out_c, out_f, mesh = stmap.undistort_inputs(m, 500.0)
+    assert mesh is None
     up, vp, validp = remap.undistort_coord(ox, oy, mats, cfg, to_dev(dyn, dev), out_c, out_f)
     assert torch.equal(valid, validp)
     assert float((u - up).abs()[valid].max()) <= 1e-4
     assert float((v - vp).abs()[valid].max()) <= 1e-4
+
+
+# ---- Sony mesh correction and focal-plane distortion (lens.cuh) ------------
+
+def _mesh(grid=(9, 9), fpd=True, seed=3):
+    """A seeded mesh buffer over the W x H frame (core/splines.py layout):
+    grid points warped by ~1.5 px, FPD shears of ~0.01."""
+    from gyroflow_torch.core.splines import build_mesh_buffer
+    gw, gh = grid
+    rng = np.random.default_rng(seed)
+    gx, gy = np.meshgrid(np.linspace(0, W, gw), np.linspace(0, H, gh))
+    pts = np.stack([gx + rng.normal(0, 1.5, gx.shape), gy + rng.normal(0, 1.5, gy.shape)], -1)
+    buf = build_mesh_buffer(pts, (float(W), float(H)), focal_plane_shears=rng.normal(
+        0, 0.01, (8, 2)) if fpd else None, fpd_enabled=fpd)
+    return torch.from_numpy(buf.astype(np.float32))
+
+
+def _mesh_case(plane, flags, grid=(9, 9), model="opencv_fisheye", **kw):
+    """_case with the mesh flag, cfg.mesh_grid and a mesh buffer; flags adds
+    HAS_FPD_DATA, HAS_IBIS_DATA or FRAMEBUFFER_INVERTED."""
+    cfg, dyn, mats, img = _case(plane, flags=flags | HAS_MESH_DATA, **kw)
+    cfg = cfg._replace(mesh_grid=grid, distortion_model=model)
+    if model != "opencv_fisheye":
+        dyn = dyn._replace(k=KernelDynamics.make(k=LENS_K[model]).k)
+    return cfg, dyn, mats, img, _mesh(grid, fpd=bool(flags & HAS_FPD_DATA))
+
+
+MESH_FLAGS = [0, HAS_FPD_DATA, HAS_FPD_DATA | HAS_IBIS_DATA]
+
+
+@pytest.mark.parametrize("inverted", [False, True])
+@pytest.mark.parametrize("flags", MESH_FLAGS)
+@pytest.mark.parametrize("grid,model", [((9, 9), "opencv_fisheye"), ((5, 4), "sony"),
+                                        ((9, 9), "sony")])
+def test_coords_kernel_mesh_vs_plain(dev, flags, inverted, grid, model):
+    """The mesh form with mesh, mesh + FPD and mesh + FPD + IBIS, with and
+    without FRAMEBUFFER_INVERTED: 0 px from the plain version (the same
+    float32 operations; the segment indexed, not summed one-hot)."""
+    flags |= FRAMEBUFFER_INVERTED if inverted else 0
+    cfg, dyn, mats, _, mesh = _mesh_case("Y", flags, grid, model)
+    x, y, idx, m = _coords_inputs(cfg._replace(flags=cfg.flags & ~(HAS_MESH_DATA | HAS_FPD_DATA),
+                                               mesh_grid=None), dyn, mats, dev)
+    mesh = mesh.to(dev)
+    n0 = cuda_coords.project.launches
+    uk, vk, valk = cuda_coords.project(x, y, idx, m, cfg, dyn, mesh)
+    up, vp, valp = cuda_coords.project_plain(x, y, idx, m, cfg, dyn, mesh)
+    torch.cuda.synchronize()
+    assert cuda_coords.project.launches == n0 + 1
+    assert torch.equal(valk, valp)
+    assert torch.equal(uk, up) and torch.equal(vk, vp)
+
+
+def test_coords_kernel_fpd_only_and_digital_with_mesh(dev):
+    """FPD without the mesh stage, and the mesh with a digital lens after
+    it (remap.py:137-147): 0 px."""
+    for flags, digital in ((HAS_FPD_DATA, None), (HAS_FPD_DATA, "gopro_superview")):
+        cfg, dyn, mats, _, mesh = _mesh_case("Y", flags)
+        if digital is None:
+            cfg = cfg._replace(flags=cfg.flags & ~HAS_MESH_DATA)
+        else:
+            cfg = cfg._replace(digital_lens=digital, flags=cfg.flags | HAS_DIGITAL_LENS)
+        x, y, idx, m = _coords_inputs(cfg._replace(flags=0, mesh_grid=None,
+                                                   digital_lens=None), dyn, mats, dev)
+        k = cuda_coords.project(x, y, idx, m, cfg, dyn, mesh.to(dev))
+        p = cuda_coords.project_plain(x, y, idx, m, cfg, dyn, mesh.to(dev))
+        torch.cuda.synchronize()
+        assert torch.equal(k[2], p[2])
+        ok = p[2] & torch.isfinite(p[0]) & torch.isfinite(p[1])
+        assert torch.equal(k[0][ok], p[0][ok]) and torch.equal(k[1][ok], p[1][ok])
+
+
+@pytest.mark.parametrize("interpolation", [8, 11])
+@pytest.mark.parametrize("plane", ["Y", "UV"])
+def test_remap_plane_cuda_mesh_vs_plain(dev, plane, interpolation):
+    """A mesh + FPD + IBIS plane through remap_plane_cuda: the probe and the
+    projection on the coords kernel (2 launches), 0 codes from the plain
+    path."""
+    cfg, dyn, mats, img, mesh = _mesh_case(plane, HAS_FPD_DATA | HAS_IBIS_DATA,
+                                           interpolation=interpolation)
+    timg, m, mesh = torch.from_numpy(img).to(dev), torch.from_numpy(mats).to(dev), mesh.to(dev)
+    n0 = cuda_coords.project.launches
+    got = remap.remap_plane_cuda(timg, m, cfg, dyn, mesh, out_dtype="uint16")
+    assert cuda_coords.project.launches == n0 + 2
+    want = remap.remap_plane(timg, m, cfg, dyn, mesh, out_dtype="uint16")
+    assert torch.equal(got, want)
+
+
+@pytest.fixture(scope="module")
+def sony_card(tmp_path_factory):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    return make_sony_manager(torch.device("cuda", 0), tmp_path_factory.mktemp("sony"), W, H,
+                             n=12, grid=5)
+
+
+def test_sony_mesh_frame_and_window_on_the_card(dev, sony_card):
+    """chip_smoke phase 9's Sony clip at W x H: a frame through process_pixels
+    and 3 frames through the window, 0 codes from the plain path."""
+    m = sony_card
+    ts = [int(round(k * 1e6 / 30.0)) for k in (3, 4, 5)]
+    ft = m.frame_transform_at(m._adjusted_ts_ms(ts[0]))
+    assert ft.kernel_cfg.has(HAS_MESH_DATA) and ft.kernel_cfg.has(HAS_FPD_DATA)
+    assert ft.kernel_cfg.distortion_model == "sony"
+    rng = np.random.default_rng(2)
+    frames = rng.integers(0, 1024, (3, H, W, 1)).astype(np.uint16)
+    kw = dict(interpolation=8, max_pixel_value=1023.0)
+    out, info = m.process_pixels(ts[0], frames[0], **kw)
+    assert info["backend"] == "cuda"
+    cfg, dyn = m._plane_cfg_dyn(ft, (H, W, 1), 8, 0, 1023.0, False, None, None)
+    mats, mesh = m._mats_on_device(m._adjusted_ts_ms(ts[0]), ft)
+    want = remap.remap_plane(torch.from_numpy(frames[0]).to(dev), mats, cfg, dyn, mesh,
+                             out_dtype="uint16")
+    assert torch.equal(out, want)
+    win, info = m.process_pixels_window(ts, frames, None, **kw)
+    assert info["backend"] == "cuda-window"
+    for i in range(3):
+        one, _ = m.process_pixels(ts[i], frames[i], **kw)
+        assert torch.equal(win[i], one)
+
+
+# ---- the drawing overlay (overlay.cu) ----------------------------------------
+
+def _drawing(safe=True):
+    """A canvas with output-stage and input-stage marks in every colour and
+    alpha, and a safe-area rect."""
+    from gyroflow_torch.core.drawing import DrawCanvas, STAGE_ON_INPUT, STAGE_ON_OUTPUT
+    c = DrawCanvas(W, H, W, H, 1)
+    for i in range(40):
+        c.put_pixel(4 + 3.7 * i, 6 + 2.1 * i, 1 + i % 8, i % 4,
+                    STAGE_ON_OUTPUT if i % 2 else STAGE_ON_INPUT, size=1 + i % 4)
+    return c.state(safe_area_rect=(20.0, 12.0, W - 24.0, H - 10.0) if safe else None)
+
+
+@pytest.mark.parametrize("dtype", [torch.uint8, torch.uint16, torch.float32])
+@pytest.mark.parametrize("c", [1, 2])
+def test_overlay_kernel_vs_plain(dev, dtype, c):
+    rng = np.random.default_rng(c)
+    pixel = torch.from_numpy(rng.uniform(0, 1000, (H, W, c)).astype(np.float32)).to(dev)
+    u = torch.from_numpy(rng.uniform(-4, W + 4, (H, W)).astype(np.float32)).to(dev)
+    v = torch.from_numpy(rng.uniform(-4, H + 4, (H, W)).astype(np.float32)).to(dev)
+    u[0, :8] = float("nan")
+    d = _drawing()
+    canvas = torch.from_numpy(d.canvas).to(dev)
+    for rect in (d.safe_area_rect, None):
+        n0 = cuda_overlay.overlay.launches
+        k = cuda_overlay.overlay(pixel, u, v, canvas, d.scale, rect, (2, 1, W - 4, H - 2), 1023.0)
+        p = cuda_overlay.overlay_plain(pixel, u, v, canvas, d.scale, rect, (2, 1, W - 4, H - 2),
+                                       1023.0)
+        torch.cuda.synchronize()
+        assert cuda_overlay.overlay.launches == n0 + 1
+        assert torch.equal(k, p)
+    # through remap_plane_cuda on a plane of this dtype: 0 codes
+    cfg, dyn, mats, img = _case("Y" if c == 1 else "UV")
+    cfg = cfg._replace(flags=cfg.flags | DRAWING_ENABLED)
+    maxv = 255.0 if dtype == torch.uint8 else 1023.0
+    dyn = dyn._replace(max_pixel_value=np.float32(maxv), pixel_value_limit=np.float32(maxv))
+    timg = torch.from_numpy(np.minimum(img, maxv).astype(np.float32)).to(dtype).to(dev)
+    m = torch.from_numpy(mats).to(dev)
+    out_dtype = {torch.uint8: "uint8", torch.uint16: "uint16", torch.float32: "f32"}[dtype]
+    for interpolation in (8, 11):       # the lanczos and the EWA path
+        icfg = cfg._replace(interpolation=interpolation)
+        idyn = dyn
+        if interpolation == 11:
+            pw, qw = remap.ewa_coeffs(11)
+            idyn = dyn._replace(ewa_coeffs_p=np.asarray(pw, np.float32),
+                                ewa_coeffs_q=np.asarray(qw, np.float32))
+        n0 = cuda_overlay.overlay.launches
+        got = remap.remap_plane_cuda(timg, m, icfg, idyn, drawing=d, out_dtype=out_dtype)
+        assert cuda_overlay.overlay.launches == n0 + 1
+        want = remap.remap_plane(timg, m, icfg, idyn, drawing=d, out_dtype=out_dtype)
+        assert torch.equal(got, want)

@@ -92,8 +92,8 @@ def test_radial_limit_and_registry():
 
 @pytest.mark.parametrize("name", list(tdm.MODEL_IDS))
 def test_remap_admits_every_model(name):
-    """Every model passes the remap's gate (the torch math exists); mesh
-    data still raises, citing ROADMAP queue 1, item 6."""
+    """Every model passes the remap's gate (the torch math exists), with
+    mesh data too; mesh flags without a grid size raise ValueError."""
     from gyroflow_torch.ops import remap as tremap
     from gyroflow_torch.ops.kernel_params import HAS_DIGITAL_LENS, HAS_MESH_DATA, KernelConfig
     cfg = KernelConfig(width=96, height=64, output_width=96, output_height=64,
@@ -103,7 +103,8 @@ def test_remap_admits_every_model(name):
                            flags=HAS_DIGITAL_LENS)
         assert tremap.digital_lens(cfg).id == name
     tremap._check_supported(cfg)
-    with pytest.raises(NotImplementedError, match="queue 1, item 6"):
+    tremap._check_supported(cfg._replace(flags=cfg.flags | HAS_MESH_DATA, mesh_grid=(9, 9)))
+    with pytest.raises(ValueError, match="mesh_grid"):
         tremap._check_supported(cfg._replace(flags=cfg.flags | HAS_MESH_DATA))
 
 

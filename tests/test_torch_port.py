@@ -27,6 +27,7 @@ MEANT_TO_DIFFER = {
     "__init__.py": "the port's own package docstring",
     "core/manager.py": "rewritten for torch devices and the CUDA remap",
     "ops/remap.py": "torch twin of the JAX remap",
+    "ops/mesh.py": "torch twin of the JAX mesh stage",
     "ops/distortion_models.py": "torch twin of the JAX models",
     "ops/kernel_params.py": "jax-free copy: the jnp annotations are dropped",
     "native/__init__.py": "its own build cache (gyroflow_torch/build/native) and env names",

@@ -229,10 +229,16 @@ class TestRemapPlane:
 
 class TestNotPorted:
     def test_mesh_raises(self):
+        """Mesh correction is ported (tests/test_torch_mesh.py); what still
+        raises is a mesh flag without its buffer or with a buffer too short
+        for its grid."""
         _, _, pcfg, pdyn, mats, img = make_case("Y")
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            tremap.remap_plane(torch.from_numpy(img), torch.from_numpy(mats), pcfg, pdyn,
-                               mesh=torch.zeros(16))
+        mcfg = pcfg._replace(flags=pcfg.flags | 512, mesh_grid=(9, 9))     # HAS_MESH_DATA
+        args = (torch.from_numpy(img), torch.from_numpy(mats))
+        with pytest.raises(ValueError, match="no mesh buffer"):
+            tremap.remap_plane(*args, mcfg, pdyn)
+        with pytest.raises(ValueError, match="needs"):
+            tremap.remap_plane(*args, mcfg, pdyn, mesh=torch.zeros(16))
 
 
 def test_kernel_params_roundtrip():

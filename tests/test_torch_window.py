@@ -11,8 +11,9 @@ shutter, the seeded .gcsv of test_end_to_end.py), one per package.
 - EWA (interpolation 11) on F = 2 frames, against both.
 - A window whose kernel configs differ goes through process_pixels frame
   by frame; a mesh over more than one device raises (ROADMAP queue 1,
-  item 9); mesh data raises (item 6); with stabilization off the frames
-  come back unchanged.
+  item 9); a mesh buffer too short for its grid raises (Sony windows:
+  test_torch_mesh.py); with stabilization off the frames come back
+  unchanged.
 """
 import dataclasses
 
@@ -151,10 +152,13 @@ def test_window_refuses_other_devices_and_mesh_data(managers, monkeypatch):
     frames = _frames("uint16", "Y", 2)
     with pytest.raises(ValueError, match="frame mesh on meta"):
         _window(tm, frames, TS_US[:2], "Y", 1023.0, mesh=FrameMesh(torch.device("meta")))
+    # a mesh buffer too short for the grid its flags name raises
     ft = tm.frame_transform_at(tm._adjusted_ts_ms(TS_US[0]))
-    meshed = dataclasses.replace(ft, mesh_data=np.zeros(16, np.float32))
+    meshed = dataclasses.replace(ft, mesh_data=np.zeros(16, np.float32),
+                                 kernel_cfg=ft.kernel_cfg._replace(
+                                     flags=ft.kernel_cfg.flags | 512, mesh_grid=(9, 9)))
     monkeypatch.setattr(tm, "frame_transform_at", lambda ts_ms: meshed)
-    with pytest.raises(NotImplementedError, match="item 6"):
+    with pytest.raises(ValueError, match="needs"):
         _window(tm, frames, TS_US[:2], "Y", 1023.0)
 
 
