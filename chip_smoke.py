@@ -454,6 +454,8 @@ def lens_kernels():
             **{f"coords<{m},digital>": f"coords_kernelILi{i}ELb1ELb0EE"
                for m, i in MODEL_IDS.items()},
             **{f"coords<{m},mesh>": f"coords_kernelILi{i}ELb1ELb1EE" for m, i in MODEL_IDS.items()},
+            **{f"coords<sony,mesh,{g} rows>": f"coords_mesh_kernelILi{MODEL_IDS['sony']}ELi{g}EE"
+               for g in range(2, 10)},
             **{f"coords_gen<{m}>": f"coords_gen_kernelILi{i}EE"
                for m, i in MODEL_IDS.items() if i}}
 
@@ -806,22 +808,66 @@ def with_lens(cfg, dyn, model, digital, lens_correction=1.0):
 
 
 def loop_steps(fn):
-    """(fn(), lane-steps) of a plain run: each masked loop of the lens math
-    (distortion_models' _gopro_poly_invert and _fixed_point_invert) counts,
-    step by step, the lanes not yet done at the step's start, which are the
-    steps the function needs; {loop name: lane-steps summed over the run}."""
-    import functools
+    """(fn(), lane-steps, steps a lane) of a plain run: each masked loop of
+    the lens math (distortion_models' _gopro_poly_invert and
+    _fixed_point_invert) counts, step by step, the lanes not yet done at the
+    step's start, which are the steps the function needs; {loop name:
+    lane-steps summed over the run}, and {loop name: each lane's steps}
+    (int32, the loop's input shape; None for a loop that did not run), read
+    from the masks whose sums those counts are: what the kernel runs for
+    that lane, now that a done lane leaves its loop."""
+    import torch
+    from torch.overrides import TorchFunctionMode
     from gyroflow_torch.ops import distortion_models as tdm
+
+    class Masks(TorchFunctionMode):
+        """Keeps the operand of each bool sum (the loop's count of the
+        lanes not done)."""
+        def __init__(self, out):
+            super().__init__()
+            self.out = out
+
+        def __torch_function__(self, func, types, args=(), kwargs=None):
+            if func is torch.Tensor.sum and args and args[0].dtype == torch.bool:
+                self.out.append(args[0])
+            return func(*args, **(kwargs or {}))
+
+    def hooked(f, live, masks):
+        def run(*a, **kw):
+            with Masks(masks):
+                return f(*a, live=live, **kw)
+        return run
+
     live = {name: [] for name in set(LOOP_OF.values())}
+    masks = {name: [] for name in live}
     saved = {name: getattr(tdm, name) for name in live}
     try:
         for name, f in saved.items():
-            setattr(tdm, name, functools.partial(f, live=live[name]))
+            setattr(tdm, name, hooked(f, live[name], masks[name]))
         out = fn()
     finally:
         for name, f in saved.items():
             setattr(tdm, name, f)
-    return out, {name: sum(int(n) for n in counts) for name, counts in live.items()}
+    steps = {name: sum(int(n) for n in counts) for name, counts in live.items()}
+    per_lane = {name: (sum(mk.to(torch.int32) for mk in m) if m else None)
+                for name, m in masks.items()}
+    for name, t in per_lane.items():
+        check((t is None and steps[name] == 0) or int(t.sum()) == steps[name],
+              f"{name}: per-lane steps do not add up to the lane-steps")
+    return out, steps, per_lane
+
+
+def warp_max_steps(lane_steps, ow):
+    """The mean over the coords kernel's warps (32 neighbouring columns of
+    one row; blocks are 32x8) of the steps of each warp's slowest lane: what
+    a warp runs now that a done lane leaves its loop. lane_steps: (rows * ow)
+    or (rows, ow) steps a lane."""
+    import torch
+    t = lane_steps.reshape(-1, ow)
+    pad = -ow % 32
+    if pad:
+        t = torch.nn.functional.pad(t, (0, pad))
+    return float(t.reshape(t.shape[0], -1, 32).amax(-1).float().mean())
 
 
 def lens_ops(model, digital, n_proj, steps):
@@ -858,12 +904,14 @@ def compare_lens_uv(label, k, p):
 
 
 def lens_phase(dev, smi, workdir, mgr, planes, dev_planes, kernel_ms, pre_coords, out_cf,
-               drive, drive_window, expect, device_rows):
+               drive, drive_window, expect, device_rows, ptxas):
     """Phase 8: every lens model and digital lens through gf_coords,
     gf_coords_gen and gf_fused against their plain versions at the 4K Y
-    plane's shapes, with times and bounds; then the slice's frames (a)-(d)
-    through process_pixels and the window of a manager built with each lens.
-    Returns (entries for the kernels line, report)."""
+    plane's shapes, with times, bounds and (gf_coords) registers; a masked
+    loop's mean lane-steps and mean warp-max steps (what the kernel runs);
+    then the slice's frames (a)-(d) through process_pixels and the window of
+    a manager built with each lens. Returns (entries for the kernels line,
+    report)."""
     import torch
     from gyroflow_torch.ops import cuda_coords, cuda_fused, remap
     from gyroflow_torch.ops.kernel_params import dyn_to_torch
@@ -882,13 +930,19 @@ def lens_phase(dev, smi, workdir, mgr, planes, dev_planes, kernel_ms, pre_coords
         cfg, dyn = with_lens(cfg0, dyn0, model, digital)
         x, y, idx = pre_coords(cfg, dyn, mats)
         k = cuda_coords.project(x, y, idx, mats, cfg, dyn)
-        p, steps = loop_steps(lambda: cuda_coords.project_plain(x, y, idx, mats, cfg, dyn))
+        p, steps, lane_steps = loop_steps(
+            lambda: cuda_coords.project_plain(x, y, idx, mats, cfg, dyn))
         torch.cuda.synchronize()
         n_valid = int(p[2].sum())
         ops = lens_ops(model, digital, n_px, steps)
-        r = {"model": model, "digital": digital,
+        form = f"coords<{model}>" if model != "opencv_fisheye" else "coords"
+        if digital:
+            form = f"coords<{model},digital>"
+        r = {"model": model, "digital": digital, "ptxas": ptxas.get(form, "not reported"),
              "loop_steps_per_px": {m: steps[LOOP_OF[m]] / n_px
                                    for m in (model, digital) if m in LOOP_OF},
+             "warp_max_steps": {m: warp_max_steps(lane_steps[LOOP_OF[m]], ow)
+                                for m in (model, digital) if m in LOOP_OF},
              "coords": {"err": compare_lens_uv(f"coords {name}", k, p),
                         "ms": kernel_ms(lambda: cuda_coords.project(x, y, idx, mats, cfg, dyn)),
                         "plain_ms": cuda_ms(lambda: cuda_coords.project_plain(
@@ -897,8 +951,8 @@ def lens_phase(dev, smi, workdir, mgr, planes, dev_planes, kernel_ms, pre_coords
         if digital is None:
             cf = out_cf(cfg, dyn_to_torch(dyn, dev))
             gk = cuda_coords.project_gen(cfg, dyn, mats, oh, 0, *cf)
-            gp, gsteps = loop_steps(lambda: cuda_coords.project_gen_plain(cfg, dyn, mats, oh, 0,
-                                                                          *cf))
+            gp, gsteps, _ = loop_steps(lambda: cuda_coords.project_gen_plain(cfg, dyn, mats, oh,
+                                                                             0, *cf))
             torch.cuda.synchronize()
             r["coords_gen"] = {
                 "err": compare_lens_uv(f"gen {name}", gk, gp),
@@ -920,9 +974,11 @@ def lens_phase(dev, smi, workdir, mgr, planes, dev_planes, kernel_ms, pre_coords
                           img, x, y, idx, mats, cfg, dyn, bg, MAXV), reps=3, warm=1),
                       "bound": bound([(plane_bytes + table + n_px * (12 + 4 * C),
                                        ops + n_valid * (POST_OPS + sampler_ops(C)))])}
-        loops = "".join(f" {m} loop steps {v:.3f}/px of {10 if m == 'gopro' else 12};"
+        loops = "".join(f" {m} loop steps {v:.3f}/px, warp-max {r['warp_max_steps'][m]:.3f} "
+                        f"of {10 if m == 'gopro' else 12};"
                         for m, v in r["loop_steps_per_px"].items())
-        print(f"{name:32s} valid {n_valid / n_px:.4f};{loops} " + "; ".join(
+        print(f"{name:32s} valid {n_valid / n_px:.4f};{loops} {form} ptxas {r['ptxas']}; "
+              + "; ".join(
             f"{kind} max|d| {v['err']:.3g} kernel {v['ms']:.4f} ms plain {v['plain_ms']:.4f} ms "
             f"bound {v['bound'][0]:.4f} ({v['bound'][1]}, "
             f"{100.0 * v['bound'][0] / v['ms']:.1f}%)"
@@ -1030,20 +1086,23 @@ def lens_phase(dev, smi, workdir, mgr, planes, dev_planes, kernel_ms, pre_coords
 
 def mesh_ops(gh, mesh=True, fpd_steps=None):
     """FP32 operations of one pixel's mesh stage (lens.cuh), counted as
-    PROJECT_OPS is: the crop maps in and out (14) and the x segment (8); per
+    PROJECT_OPS is: the crop maps in and out (14), the x segment (8) and the
+    y segment with its edge tests (8), which both channels share; per
     channel, the x spline pieces of the gh grid rows (8 each) and the y
     spline (the recurrence 7 a row, the backward pass 2 a row, the piece's b
-    and d 8, the rest 25). Reading segment fi's coefficients is a load, not
-    an FP32 operation: the selects by which the kernel reads them out of its
-    registers (`pick`) are not counted. fpd_steps: the focal-plane shear's
-    mean loop steps a pixel at this run's inputs (4 operations each besides
-    its 7 tests), or None without FPD (the rest 30)."""
+    and d 8, its evaluation 12). The launch-uniform constants (h, 1 / h,
+    3 / h, h / 3, 3 h, the spans and the band) come from the host's packed
+    block and are not counted; reading segment fi's coefficients is a load,
+    and the selects by which the kernel reads a piece out of its registers
+    (`pick`) are not counted either. fpd_steps: the focal-plane shear's mean
+    loop steps a pixel at this run's inputs (4 operations each besides its 7
+    tests), or None without FPD (the rest 29)."""
     ops = 0
     if mesh:
-        spline = 7 * (gh - 2) + 2 * (gh - 1) + 8 + 25
-        ops += 22 + 2 * (8 * gh + spline)
+        spline = 7 * (gh - 2) + 2 * (gh - 1) + 8 + 12
+        ops += 30 + 2 * (8 * gh + spline)
     if fpd_steps is not None:
-        ops += 30 + 7 + 4 * fpd_steps
+        ops += 29 + 7 + 4 * fpd_steps
     return ops
 
 
@@ -1140,11 +1199,14 @@ def sony_phase(dev, smi, workdir, planes, dev_planes, kernel_ms, driven, expect,
         n_px = ow * oh
         ops = n_px * (PROJECT_BASE_OPS + DISTORT_OPS["sony"][0] + IBIS_OPS
                       + mesh_ops(SONY_GRID, True, fpd_steps))
+        # the kernel reads the packed block of the buffer, not its reference part
+        block_bytes = (mesh.numel() - cuda_coords.mesh_block_offset(cfg)) * 4
         rows[name] = {"err": d, "fpd_steps_per_px": fpd_steps,
                       "ms": kernel_ms(lambda: cuda_coords.project(x, y, idx, mats, cfg, dyn, mesh)),
+                      "probe_ms": kernel_ms(lambda: probe(x, y)),
                       "plain_ms": cuda_ms(lambda: cuda_coords.project_plain(
                           x, y, idx, mats, cfg, dyn, mesh), reps=3, warm=1),
-                      "bound": (n_px * 21 + mats.numel() * 4 + mesh.numel() * 4, ops)}
+                      "bound": (n_px * 21 + mats.numel() * 4 + block_bytes, ops)}
         # the overlay kernel on this plane's sampled pixels and positions
         u, v = remap.coords_post_uv(k[0], k[1], cfg)
         img = dev_planes[name]
@@ -1178,7 +1240,10 @@ def sony_phase(dev, smi, workdir, planes, dev_planes, kernel_ms, driven, expect,
     for label, r in (("coords<sony,mesh+fpd>", rows), ("overlay", ov_rows)):
         for name, v in r.items():
             b = bound([v["bound"]])
-            print(f"{label} {name:2s}: kernel {v['ms']:.4f} ms, plain {v['plain_ms']:.4f} ms, "
+            print(f"{label} {name:2s}: kernel {v['ms']:.4f} ms"
+                  + (f" (the full-plane probe launch, mesh_probe's shape: {v['probe_ms']:.4f} "
+                     f"ms)" if "probe_ms" in v else "")
+                  + f", plain {v['plain_ms']:.4f} ms, "
                   f"bound {b[0]:.4f} ms ({b[1]}, {100.0 * b[0] / v['ms']:.1f}%)"
                   + (f", FPD loop steps {v['fpd_steps_per_px']:.3f}/px of 7"
                      if "fpd_steps_per_px" in v else "")
@@ -1303,13 +1368,18 @@ def sony_phase(dev, smi, workdir, planes, dev_planes, kernel_ms, driven, expect,
     wall, dev_rows = device_rows(frame, 3)
     busy = sum(r[1] for r in dev_rows)
     n_k = sum(r[2] for r in dev_rows)
-    print(f"the mesh form's registers and spills (coords<sony,mesh>, ptxas): "
-          f"{ptxas.get('coords<sony,mesh>', 'not reported')}; the fisheye plain form "
+    form = f"coords<sony,mesh,{SONY_GRID} rows>"
+    print(f"the mesh form's registers and spills ({form}, ptxas): "
+          f"{ptxas.get(form, 'not reported')}; for a grid height read at run time "
+          f"(coords<sony,mesh>): {ptxas.get('coords<sony,mesh>', 'not reported')}; "
+          f"the fisheye plain form "
           f"(coords): {ptxas.get('coords', 'not reported')}; the fisheye digital form "
           f"(coords<opencv_fisheye,digital>): "
           f"{ptxas.get('coords<opencv_fisheye,digital>', 'not reported')}")
     print(f"Sony frame (Y+UV, lanczos4): under torch.profiler {wall:.3f} ms/frame, device busy "
-          f"{busy:.3f} ms ({100.0 * busy / wall:.1f}%) over {n_k:.0f} kernels a frame; {smi}")
+          f"{busy:.3f} ms ({100.0 * busy / wall:.1f}%) over {n_k:.0f} kernels a frame (with the "
+          f"mesh form before its redesign: 2.586 ms over 123, PERF.md section 5, NVIDIA H100 "
+          f"80GB HBM3, 700.00 W); {smi}")
     for key, ms, n in dev_rows[:6]:
         print(f"  {ms:8.3f} ms/frame  {n:5.0f} launches/frame  {key[:100]}")
 
@@ -2069,7 +2139,7 @@ def main() -> int:
     # ---- 8. every lens model and digital lens ---------------------------------
     lens_entries, report["lenses"] = lens_phase(
         dev, smi, tmp.name, mgr, planes, dev_planes, kernel_ms, pre_coords, out_cf, drive,
-        drive_window, expect, device_rows)
+        drive_window, expect, device_rows, report["ptxas"])
     kernels += lens_entries
 
     # ---- 9. a Sony clip: mesh, FPD and the overlay ------------------------------

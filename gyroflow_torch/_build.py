@@ -47,8 +47,8 @@ class CoordParams(ctypes.Structure):
 
 class MeshArgs(ctypes.Structure):
     """Mirror of ``gf::MeshArgs`` (csrc/lens.cuh)."""
-    _fields_ = [("data", ctypes.c_void_p), ("gw", ctypes.c_int), ("gh", ctypes.c_int),
-                ("fpd_offset", ctypes.c_int), ("mus", ctypes.c_float * 9),
+    _fields_ = [("data", ctypes.c_void_p), ("block_offset", ctypes.c_int),
+                ("gw", ctypes.c_int), ("gh", ctypes.c_int), ("mus", ctypes.c_float * 9),
                 ("inv_gw1", ctypes.c_float), ("inv_gh1", ctypes.c_float),
                 ("inv_width", ctypes.c_float), ("inv_height", ctypes.c_float)]
 

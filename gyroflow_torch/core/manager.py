@@ -1314,13 +1314,16 @@ class StabilizationManager:
         the Y and UV planes of one frame share the same (rows, 14) matrix
         stack (geometry lives in luma coordinates — HAS_SOURCE_RECT maps the
         chroma buffer), so uploading it once per frame instead of once per
-        plane halves the per-frame host->device matrix traffic."""
+        plane halves the per-frame host->device matrix traffic. The mesh
+        buffer goes up packed (cuda_coords.pack_mesh: the coords kernel's
+        block appended to the reference buffer)."""
+        from ..ops.cuda_coords import pack_mesh
         key = int(round(timestamp_ms * 1000.0))
         hit = self._mats_dev.get(key)
         if hit is None:
             while len(self._mats_dev) >= 64:
                 self._mats_dev.pop(next(iter(self._mats_dev)))
-            mesh = torch.from_numpy(np.asarray(ft.mesh_data, np.float32)).to(self.device) \
+            mesh = torch.from_numpy(pack_mesh(ft.mesh_data, ft.kernel_cfg)).to(self.device) \
                 if ft.mesh_data is not None else None
             mats = torch.from_numpy(np.ascontiguousarray(ft.matrices, np.float32))
             hit = (mats.to(self.device), mesh)
@@ -1400,8 +1403,9 @@ class StabilizationManager:
         through the plain torch remap. A window whose kernel configs differ
         goes through process_pixels frame by frame. Each frame's Sony mesh /
         focal-plane buffer (a Sony clip's frames share one kernel config)
-        goes up with the window's matrices, and frame i's remap reads frame
-        i's buffer."""
+        goes up packed (cuda_coords.pack_mesh) with the window's matrices,
+        and frame i's remap reads frame i's buffer."""
+        from ..ops.cuda_coords import pack_mesh
         from ..parallel.pipeline import (make_frame_mesh, stabilize_window_production,
                                          stack_dynamics, stack_meshes)
 
@@ -1437,7 +1441,8 @@ class StabilizationManager:
         out, backend = stabilize_window_production(
             device_mesh or make_frame_mesh(device=self.device), imgs.to(in_dtype), mats,
             cfgs[0], stack_dynamics(dyns), out_dtype=out_dtype,
-            meshes=stack_meshes([ft.mesh_data for ft in fts]))
+            meshes=stack_meshes([None if ft.mesh_data is None else
+                                 pack_mesh(ft.mesh_data, ft.kernel_cfg) for ft in fts]))
         info = {"fov": fts[0].fov, "minimal_fov": fts[0].minimal_fov,
                 "backend": backend,
                 "xla_fallbacks": self.stats["xla_fallbacks"],

@@ -27,11 +27,37 @@
 // TPU kernel's window DMA, one-hot MXU gather and overflow flag exist only
 // because the TPU has no fast gather, and none of them is needed here.
 // Nothing is staged in shared memory; occupancy hides the chain's latency.
-// The mesh stage adds two bivariate splines and the focal-plane shear, ~500
-// FP32 operations a pixel at 9x9 (chip_smoke.py counts them), comparable to
-// the byte bound; its ~100 mesh reads a pixel hit the same lines across a
-// segment's pixels and stay in L1 (__ldg). MeshArgs is __grid_constant__,
-// so the inlined stage reads it in place.
+//
+// The iterative forms (gopro's Newton loop, a digital lens's fixed point)
+// are bound by that chain times the steps a warp runs. A lane leaves its
+// loop once it is done (its value never changes again, so the bits are the
+// plain masked loop's; a NaN lane is never done and runs every step), so a
+// warp runs its slowest lane's steps, not all 10 or 12: on chip_smoke.py's
+// 4K phase 8 planes 3.0 of gopro's 10, 5.6-10.4 of a digital lens's 12 on
+// the fisheye (the script prints each warp-max mean beside the lane mean).
+//
+// The mesh form is bound by instruction issue: at 9x9 each pixel runs two
+// natural-spline solves (~490 FP32 operations in all, the projection
+// included), 12 IEEE divisions, each with its range check, and the selects
+// that read one segment's values out of registers. Its design:
+// - the launch-uniform values (the crop header and spans, the FPD band, the
+//   spline's h, 1 / h, 3 / h, h / 3, 3 h) come from the packed block the
+//   host appends to the frame's mesh buffer (cuda_coords.pack_mesh), three
+//   16-byte loads a thread, in place of a division and ~16 operations a
+//   pixel and channel;
+// - the y segment, its offset and the edge tests are computed once for both
+//   channels;
+// - each grid row of x segment fi is one 16-byte load (a, b, c, d);
+// - the spline is streamed: a row's a[j] as it arrives, the recurrence's
+//   zs[j - 1] once a[j] is known, and only the a[j] and c[j] the evaluation
+//   reads are kept, so the form holds 48 registers with no spill;
+// - only a pixel beyond the grid's edge evaluates an edge piece (a branch);
+// - the Sony model's mesh form has an instantiation per grid height
+//   (coords_mesh_kernel<sony, 2..9>): no row guard, the edge pieces at fixed
+//   rows. Other models take the height at run time.
+// Staging the mesh in shared memory lost 10% to __ldg; a per-warp hoist of
+// segment fi's rows by shuffles would replace 9 loads a channel by 36
+// shuffles of an issue-bound form, and was not tried.
 //
 // gf_coords_gen (coords_gen_kernel below) replaces
 // gyroflow_tpu/ops/pallas_coords.py::_coords_kernel_gen (:257, driven by
@@ -70,14 +96,17 @@ struct GenArgs {
 
 namespace {
 
-template <int MODEL, bool DIGITAL, bool MESH>
-__global__ void coords_kernel(const float* __restrict__ xs, const float* __restrict__ ys,
-                              const int32_t* __restrict__ idx,
-                              const float* __restrict__ mats, int rows,
-                              gf::CoordParams p, int flags, int digital, int oh, int ow,
-                              float* __restrict__ us, float* __restrict__ vs,
-                              uint8_t* __restrict__ valid_out,
-                              const __grid_constant__ gf::MeshArgs mesh) {
+// One output pixel of the coords kernel's forms (below).
+template <int MODEL, bool DIGITAL, bool MESH, int GH>
+__device__ __forceinline__ void coords_pixel(const float* __restrict__ xs,
+                                             const float* __restrict__ ys,
+                                             const int32_t* __restrict__ idx,
+                                             const float* __restrict__ mats, int rows,
+                                             const gf::CoordParams& p, int flags, int digital,
+                                             int oh, int ow, float* __restrict__ us,
+                                             float* __restrict__ vs,
+                                             uint8_t* __restrict__ valid_out,
+                                             const gf::MeshArgs& mesh) {
     const int col = blockIdx.x * blockDim.x + threadIdx.x;
     const int row = blockIdx.y * blockDim.y + threadIdx.y;
     if (col >= ow || row >= oh) return;
@@ -92,11 +121,39 @@ __global__ void coords_kernel(const float* __restrict__ xs, const float* __restr
 
     float u, v;
     bool valid;
-    gf::project_point<MODEL, DIGITAL, MESH>(xs[i], ys[i], m, p, flags, u, v, valid, MODEL,
-                                            digital, &mesh);
+    gf::project_point<MODEL, DIGITAL, MESH, GH>(xs[i], ys[i], m, p, flags, u, v, valid, MODEL,
+                                                digital, &mesh);
     us[i] = u;
     vs[i] = v;
     valid_out[i] = valid ? 1 : 0;
+}
+
+// The plain, digital and mesh forms of each main model (the mesh form's
+// grid height read at run time).
+template <int MODEL, bool DIGITAL, bool MESH>
+__global__ void coords_kernel(const float* __restrict__ xs, const float* __restrict__ ys,
+                              const int32_t* __restrict__ idx,
+                              const float* __restrict__ mats, int rows,
+                              gf::CoordParams p, int flags, int digital, int oh, int ow,
+                              float* __restrict__ us, float* __restrict__ vs,
+                              uint8_t* __restrict__ valid_out,
+                              const __grid_constant__ gf::MeshArgs mesh) {
+    coords_pixel<MODEL, DIGITAL, MESH, 0>(xs, ys, idx, mats, rows, p, flags, digital, oh, ow,
+                                          us, vs, valid_out, mesh);
+}
+
+// The mesh form of a grid GH rows high, for the Sony model (the lens of the
+// bodies that record a mesh): the spline's rows fixed at compile time.
+template <int MODEL, int GH>
+__global__ void coords_mesh_kernel(const float* __restrict__ xs, const float* __restrict__ ys,
+                                   const int32_t* __restrict__ idx,
+                                   const float* __restrict__ mats, int rows,
+                                   gf::CoordParams p, int flags, int digital, int oh, int ow,
+                                   float* __restrict__ us, float* __restrict__ vs,
+                                   uint8_t* __restrict__ valid_out,
+                                   const __grid_constant__ gf::MeshArgs mesh) {
+    coords_pixel<MODEL, true, true, GH>(xs, ys, idx, mats, rows, p, flags, digital, oh, ow, us,
+                                        vs, valid_out, mesh);
 }
 
 // remap._rint_index: rint, NaN -> 0, +inf -> lim, -inf -> 0, clip to [0, lim].
@@ -165,6 +222,20 @@ struct CoordsLaunch {
     cudaStream_t s;
     const gf::MeshArgs* mesh;
 
+    // coords_mesh_kernel<M, GH> for GH == mesh->gh
+    template <int M, int GH>
+    void run_mesh(dim3 grid, dim3 block, const float* xf, const float* yf, const int32_t* ii,
+                  const float* mf, float* uf, float* vf, uint8_t* vo) const {
+        if constexpr (GH <= gf::kMaxGrid) {
+            if (mesh->gh == GH) {
+                coords_mesh_kernel<M, GH><<<grid, block, 0, s>>>(
+                    xf, yf, ii, mf, rows, *p, flags, digital, oh, ow, uf, vf, vo, *mesh);
+                return;
+            }
+            run_mesh<M, GH + 1>(grid, block, xf, yf, ii, mf, uf, vf, vo);
+        }
+    }
+
     template <int M>
     void run() const {
         const dim3 block(32, 8);
@@ -176,6 +247,12 @@ struct CoordsLaunch {
         auto* uf = static_cast<float*>(u);
         auto* vf = static_cast<float*>(v);
         auto* vo = static_cast<uint8_t*>(valid);
+        if constexpr (M == gf::kSony) {
+            if ((flags & gf::HAS_MESH_DATA) && mesh->gh >= 2 && mesh->gh <= gf::kMaxGrid) {
+                run_mesh<M, 2>(grid, block, xf, yf, ii, mf, uf, vf, vo);
+                return;
+            }
+        }
         if (flags & (gf::HAS_MESH_DATA | gf::HAS_FPD_DATA)) {
             coords_kernel<M, true, true><<<grid, block, 0, s>>>(
                 xf, yf, ii, mf, rows, *p, flags, digital, oh, ow, uf, vf, vo, *mesh);

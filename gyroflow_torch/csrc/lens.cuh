@@ -27,9 +27,11 @@
 // gyroflow_torch/ops/mesh.py) run inside project_point's MESH form, after the
 // lens centre and before the digital lens, inlined: the coords kernel's
 // mesh form takes them, and no other kernel (the JAX package gates mesh
-// out of its self-contained and fused kernels). The mesh buffer is read by
-// device pointer through the read-only cache (MeshArgs: ~840 floats at 9x9
-// with FPD, the same few lines for every pixel of a segment). The plain
+// out of its self-contained and fused kernels). They read the packed block
+// that cuda_coords.pack_mesh appends to the frame's mesh buffer (MeshArgs):
+// the launch-uniform constants, computed once on the host with the float32
+// operations the plain stage runs, the focal-plane shears, and each x
+// segment's grid rows as one 16-byte (a, b, c, d) load a row. The plain
 // version sums one-hot segment terms; here segment fi is indexed directly
 // and the sum's +0.0 (which turns -0.0 into +0.0) is added once.
 #pragma once
@@ -91,20 +93,34 @@ struct CoordParams {
     float output_height;
 };
 
-// The mesh stage's operands (cuda_coords.mesh_args). data: the reference
-// mesh buffer (core/splines.py layout) on the card; gw, gh: cfg.mesh_grid;
-// fpd_offset: the focal-plane block's index; mus: the natural-spline
-// recurrence's mus for gh rows (they depend only on gh); inv_*: the float32
-// reciprocals torch multiplies by when it divides by a Python number (the
-// grid's gw - 1 and gh - 1, the plane's width and height).
+// The mesh stage's operands (cuda_coords.mesh_args). data: the frame's
+// packed mesh buffer on the card (cuda_coords.pack_mesh: the reference
+// layout of core/splines.py, then at block_offset, 16-byte aligned, the
+// block read here; the plain stage reads only the reference part); gw, gh:
+// cfg.mesh_grid; mus: the natural-spline recurrence's mus for gh rows (they
+// depend only on gh); inv_*: the float32 reciprocals torch multiplies by
+// when it divides by a Python number (the grid's gw - 1 and gh - 1, the
+// plane's width and height).
 struct MeshArgs {
     const float* data;
+    int block_offset;
     int gw, gh;
-    int fpd_offset;
     float mus[kMaxGrid];
     float inv_gw1, inv_gh1;
     float inv_width, inv_height;
 };
+
+// The packed block, in float4s from data + block_offset:
+//   [0] size_x, size_y, ox, oy       the mesh header
+//   [1] span_x, span_y, band, h      (ox + crop_w) - ox, (oy + crop_h) - oy,
+//                                    size_y / 8, size_y / (gh - 1)
+//   [2] inv_h, alpha_h, h_3, three_h 1 / h, 3 * (1 / h), h / 3, 3 * h
+//   [3 .. 6]                         the 8 focal-plane row shears (x, y)
+//   [kMeshRows + (channel * (gw - 1) + fi) * gh + j]
+//                                    a, b, c, d of grid row j's x spline on
+//                                    segment fi
+constexpr int kMeshShears = 3;
+constexpr int kMeshRows = 7;
 
 // A Python float as torch and JAX take it into float32 arithmetic.
 __host__ __device__ constexpr float f32(double d) { return static_cast<float>(d); }
@@ -258,7 +274,7 @@ __device__ __forceinline__ void generic_poly_distort(float x, float y, float z, 
 }
 
 // GoPro native POLY model (distortion_models.py:424-475): theta, then pp
-// with POLY(pp) = theta by 10 masked Newton steps.
+// with POLY(pp) = theta by at most 10 Newton steps.
 // _GOPRO_TMAX, math.tan(_GOPRO_TMAX) and the reciprocal of 1 + tan^2 (by
 // which torch on the card multiplies where the model divides), as float32
 constexpr double kGoproTanTmaxD = 57.14902157208012;
@@ -283,17 +299,18 @@ __device__ __forceinline__ void gopro_distort(float x, float y, float z, const f
     const float tt = kGoproTanTmax;
     const float theta = r < tt ? atanf_cephes(clamp_max_t(r, tt))
                                : kGoproTmax + (r - tt) * kGoproInvSec2;
-    // _gopro_poly_invert
+    // _gopro_poly_invert. A done lane's pp never changes again, so it leaves
+    // the loop (a NaN lane is never done and runs all 10 steps): a warp runs
+    // the steps of its slowest lane.
     float pp = (theta - k[0]) / k[1];
-    bool done = false;
 #pragma unroll 1
     for (int i = 0; i < 10; ++i) {
         const float d = gopro_poly_deriv(pp, k);
         const bool flat = fabsf(d) < f32(1e-12);
-        done = done || flat;
-        const float fix = (gopro_poly_eval(pp, k) - theta) / (flat ? 1.0f : d);
-        if (!done) pp = pp - fix;
-        done = done || fabsf(fix) < f32(1e-7);
+        if (flat) break;
+        const float fix = (gopro_poly_eval(pp, k) - theta) / d;
+        pp = pp - fix;
+        if (fabsf(fix) < f32(1e-7)) break;
     }
     const float r_norm = k[1] * pp;
     const bool small = r < f32(1e-9);
@@ -305,24 +322,22 @@ __device__ __forceinline__ void gopro_distort(float x, float y, float z, const f
 
 // ---- the digital lenses: pixel coordinates -> pixel coordinates ----------
 
-// _fixed_point_invert (distortion_models.py:483): 12 masked steps.
+// _fixed_point_invert (distortion_models.py:483): at most 12 steps; a lane
+// leaves once done (its p never changes again), a NaN lane runs all 12.
 template <typename Fn>
 __device__ __forceinline__ void fixed_point_invert(const Fn& fn, float tx, float ty, float& px,
                                                    float& py) {
     px = tx;
     py = ty;
-    bool done = false;
 #pragma unroll 1
     for (int i = 0; i < 12; ++i) {
         float fx, fy;
         fn(px, py, fx, fy);
         const float dx = fx - tx;
         const float dy = fy - ty;
-        done = done || (fabsf(dx) < f32(1e-6) && fabsf(dy) < f32(1e-6));
-        if (!done) {
-            px = px - dx;
-            py = py - dy;
-        }
+        if (fabsf(dx) < f32(1e-6) && fabsf(dy) < f32(1e-6)) break;   // done: p stays
+        px = px - dx;
+        py = py - dy;
     }
 }
 
@@ -483,97 +498,127 @@ __device__ __forceinline__ int mesh_segment(float t, int n) {
     return i < 0 ? 0 : (i > n - 2 ? n - 2 : i);
 }
 
-// a[j] for a run-time j < kMaxGrid, with the array kept in registers.
-__device__ __forceinline__ float pick(const float (&a)[kMaxGrid], int j) {
-    float r = a[0];
-#pragma unroll
-    for (int k = 1; k < kMaxGrid; ++k) r = j == k ? a[k] : r;
-    return r;
+// The mesh block's launch-uniform constants (MeshArgs), three 16-byte
+// loads that every thread of the launch makes at the same addresses.
+struct MeshConsts {
+    float4 hdr;     // size_x, size_y, ox, oy
+    float4 span;    // span_x, span_y, band, h
+    float4 spl;     // inv_h, alpha_h, h_3, three_h
+};
+
+__device__ __forceinline__ const float4* mesh_block(const MeshArgs& ma) {
+    return reinterpret_cast<const float4*>(ma.data + ma.block_offset);
 }
 
-// The natural spline through a[0 .. n-1] over [0, size] (mesh.py
-// _solve_spline: mus from the host, then zs, then c backwards; b and d only
-// of the pieces read), evaluated at x (_spline_eval).
-__device__ __forceinline__ float spline_at(const float (&a)[kMaxGrid], int n, float x, float size,
-                                           const MeshArgs& ma) {
-    const float h = size * ma.inv_gh1;          // size / (n - 1)
-    const float inv_h = 1.0f / h;
-    const float alpha_h = 3.0f * inv_h;
+__device__ __forceinline__ MeshConsts mesh_consts(const MeshArgs& ma) {
+    const float4* blk = mesh_block(ma);
+    return {__ldg(blk), __ldg(blk + 1), __ldg(blk + 2)};
+}
+
+// The y spline's segment at the pixel's mesh y, the same for both channels
+// (mesh.py _spline_eval: fi, the offset in the segment, the edge tests).
+struct MeshSeg {
+    float x;          // the pixel's mesh y
+    float dx;         // x - size * fi / (n - 1)
+    int fi;
+    bool below;       // x <= 0: the first piece's line
+    bool above;       // x >= size: the last piece's line (wins over below)
+};
+
+__device__ __forceinline__ MeshSeg mesh_seg(float x, float size, const MeshArgs& ma) {
+    MeshSeg s;
+    s.x = x;
+    s.fi = mesh_segment((static_cast<float>(ma.gh - 1) * x) / size, ma.gh);
+    s.dx = x - (size * static_cast<float>(s.fi)) * ma.inv_gh1;
+    s.below = x <= 0.0f;
+    s.above = x >= size;
+    return s;
+}
+
+// One channel of BivariateSpline::interpolate (mesh.py _bivariate): the x
+// splines' segment fi of each grid row at dx (rows: that segment's packed
+// rows), then the natural spline through them over [0, size_y]
+// (_solve_spline: mus from the host, then zs, then c backwards; b and d only
+// of the piece read) evaluated at the y segment s (_spline_eval). The
+// forward pass computes each row's a[j] as its row arrives and the
+// recurrence's zs[j - 1] as soon as a[j] is known, and keeps only the a[j]
+// an evaluation reads (segment fi's, and the edge pieces'); the backward
+// pass keeps the c[j] the same way. Only a pixel beyond the grid's edge
+// evaluates an edge piece. GH: the grid's height at compile time (no
+// guard, the edge pieces at fixed rows), or 0 to take ma.gh at run time.
+template <int GH>
+__device__ __forceinline__ float mesh_channel(const MeshArgs& ma, const MeshConsts& k,
+                                              const float4* rows, float dx, float dx2,
+                                              const MeshSeg& s) {
+    constexpr int N = GH > 0 ? GH : kMaxGrid;
+    const int n = GH > 0 ? GH : ma.gh;
+    const int fi = s.fi;
+    const float h = k.span.w, inv_h = k.spl.x, alpha_h = k.spl.y, h_3 = k.spl.z,
+                three_h = k.spl.w;
     float zs[kMaxGrid];
     zs[0] = 0.0f;
+    float am2 = 0.0f, am1 = 0.0f;                 // a[j - 2], a[j - 1]
+    float a_f = 0.0f, a_f1 = 0.0f;                // a[fi], a[fi + 1]
+    float a_0 = 0.0f, a_1 = 0.0f;                 // a[0], a[1]
+    float a_l = 0.0f, a_l1 = 0.0f;                // a[n - 2], a[n - 1]
 #pragma unroll
-    for (int i = 1; i < kMaxGrid - 1; ++i) {
-        zs[i] = 0.0f;
-        if (i < n - 1) {
-            const float alpha_i = alpha_h * ((a[i + 1] - 2.0f * a[i]) + a[i - 1]);
-            zs[i] = (alpha_i * inv_h - zs[i - 1]) * ma.mus[i];
+    for (int j = 0; j < N; ++j) {
+        if (GH > 0 || j < n) {
+            const float4 q = __ldg(rows + j);
+            const float aj = (q.x + q.y * dx + q.z * dx2 + q.w * dx2 * dx) + 0.0f;
+            if (j >= 2) {      // _solve_spline's step i = j - 1
+                const float alpha_i = alpha_h * ((aj - 2.0f * am1) + am2);
+                zs[j - 1] = (alpha_i * inv_h - zs[j - 2]) * ma.mus[j - 1];
+            }
+            a_f = j == fi ? aj : a_f;
+            a_f1 = j == fi + 1 ? aj : a_f1;
+            if (j == 0) a_0 = aj;
+            if (j == 1) a_1 = aj;
+            a_l = j == n - 2 ? aj : a_l;
+            a_l1 = j == n - 1 ? aj : a_l1;
+            am2 = am1;
+            am1 = aj;
         }
     }
-    zs[kMaxGrid - 1] = 0.0f;
-    float c[kMaxGrid];
+    float cn = 0.0f;                              // c[j + 1]; c[n - 1] is 0
+    float c_f = 0.0f, c_f1 = 0.0f;                // c[fi], c[fi + 1]
+    float c_1 = 0.0f, c_l = 0.0f;                 // c[1], c[n - 2]
 #pragma unroll
-    for (int j = 0; j < kMaxGrid; ++j) c[j] = 0.0f;
-#pragma unroll
-    for (int j = kMaxGrid - 2; j >= 0; --j) {
-        if (j <= n - 2) c[j] = zs[j] - ma.mus[j] * c[j + 1];
-    }
-    const float h_3 = h * f32(1.0 / 3.0);       // h / 3.0: a multiply by the reciprocal
-    const float three_h = 3.0f * h;
-    // b[j], d[j] of splines.rs:117-121 for one piece j
-    const auto piece = [&](int j, float& aj, float& bj, float& cj, float& dj) {
-        aj = pick(a, j);
-        cj = pick(c, j);
-        const float a1 = pick(a, j + 1);
-        const float c1 = pick(c, j + 1);
-        bj = (a1 - aj) * inv_h - h_3 * (c1 + 2.0f * cj);
-        dj = (c1 - cj) / three_h;
-    };
-    const int fi = mesh_segment((static_cast<float>(n - 1) * x) / size, n);
-    float sa, sb, sc, sd;
-    piece(fi, sa, sb, sc, sd);
-    const float dx = x - (size * static_cast<float>(fi)) * ma.inv_gh1;
-    float res = (sa + sb * dx + sc * dx * dx + sd * dx * dx * dx) + 0.0f;
-    if (x <= 0.0f) {
-        float a0, b0, c0, d0;
-        piece(0, a0, b0, c0, d0);
-        res = a0 + b0 * x;
-    }
-    if (x >= size) {
-        float al, bl, cl, dl;
-        piece(n - 2, al, bl, cl, dl);
-        const float slope = bl + 2.0f * cl * h + 3.0f * dl * h * h;
-        res = pick(a, n - 1) + slope * (x - size);
-    }
-    return res;
-}
-
-// One channel of BivariateSpline::interpolate (mesh.py _bivariate): the
-// x splines' segment fi of each grid row at dx, then the y spline at gy.
-__device__ __forceinline__ float mesh_bivariate(const MeshArgs& ma, int channel, int fi, float dx,
-                                                float dx2, float gy, float size_y) {
-    const float* base = ma.data + 9 + ma.gw * ma.gh * 2 + channel * ma.gh * (kMaxGrid * 4) + fi;
-    float a[kMaxGrid];
-#pragma unroll
-    for (int j = 0; j < kMaxGrid; ++j) {
-        a[j] = 0.0f;
-        if (j < ma.gh) {
-            const float* rb = base + j * (kMaxGrid * 4);
-            a[j] = (__ldg(rb) + __ldg(rb + kMaxGrid) * dx + __ldg(rb + 2 * kMaxGrid) * dx2
-                    + __ldg(rb + 3 * kMaxGrid) * dx2 * dx) + 0.0f;
+    for (int j = N - 2; j >= 0; --j) {
+        if (GH > 0 || j <= n - 2) {
+            const float cj = zs[j] - ma.mus[j] * cn;
+            c_f1 = j == fi ? cn : c_f1;
+            c_f = j == fi ? cj : c_f;
+            c_l = j == n - 2 ? cj : c_l;
+            if (j == 1) c_1 = cj;
+            cn = cj;
         }
     }
-    return spline_at(a, ma.gh, gy, size_y, ma);
+    const float c_0 = cn;
+    if (s.above) {       // piece n - 2's line beyond size_y
+        const float c1 = 0.0f;
+        const float bl = (a_l1 - a_l) * inv_h - h_3 * (c1 + 2.0f * c_l);
+        const float dl = (c1 - c_l) / three_h;
+        const float slope = bl + 2.0f * c_l * h + 3.0f * dl * h * h;
+        return a_l1 + slope * (s.x - k.hdr.y);
+    }
+    if (s.below) {       // piece 0's line below 0
+        const float b0 = (a_1 - a_0) * inv_h - h_3 * (c_1 + 2.0f * c_0);
+        return a_0 + b0 * s.x;
+    }
+    // b[fi], d[fi] of splines.rs:117-121
+    const float sb = (a_f1 - a_f) * inv_h - h_3 * (c_f1 + 2.0f * c_f);
+    const float sd = (c_f1 - c_f) / three_h;
+    const float dx_y = s.dx;
+    return (a_f + sb * dx_y + c_f * dx_y * dx_y + sd * dx_y * dx_y * dx_y) + 0.0f;
 }
 
-// apply_mesh_correction (mesh.py): (u, v) through the 2-channel mesh in the
-// mesh's crop coordinates. map_coord's division by a plane size is a
-// multiply by its float32 reciprocal, as torch divides by a Python number.
+template <int GH>
 __device__ __forceinline__ void mesh_correction(float& u, float& v, const MeshArgs& ma,
-                                                const CoordParams& p, int flags) {
-    const float* m = ma.data;
-    const float size_x = __ldg(m + 3), size_y = __ldg(m + 4);
-    const float ox = __ldg(m + 5), oy = __ldg(m + 6);
-    const float span_x = (ox + __ldg(m + 7)) - ox, span_y = (oy + __ldg(m + 8)) - oy;
+                                                const MeshConsts& k, const CoordParams& p,
+                                                int flags) {
+    const float size_x = k.hdr.x, size_y = k.hdr.y, ox = k.hdr.z, oy = k.hdr.w;
+    const float span_x = k.span.x, span_y = k.span.y;
     const bool inv = flags & FRAMEBUFFER_INVERTED;
     if (inv) v = p.height - v;
     const float mu = ((u - 0.0f) * span_x) * ma.inv_width + ox;
@@ -581,8 +626,14 @@ __device__ __forceinline__ void mesh_correction(float& u, float& v, const MeshAr
     const int fi = mesh_segment((static_cast<float>(ma.gw - 1) * mu) / size_x, ma.gw);
     const float dx = mu - (size_x * static_cast<float>(fi)) * ma.inv_gw1;
     const float dx2 = dx * dx;
-    const float nx = mesh_bivariate(ma, 0, fi, dx, dx2, mv, size_y);
-    const float ny = mesh_bivariate(ma, 1, fi, dx, dx2, mv, size_y);
+    // the segment from the grid height read at run time: taken from GH, the
+    // segments of the mesh form of 4 rows or more came out off the plain
+    // version's on the card (the card tests hold every height)
+    const MeshSeg s = mesh_seg(mv, size_y, ma);
+    const int gh = GH > 0 ? GH : ma.gh;
+    const float4* rows = mesh_block(ma) + kMeshRows + fi * gh;
+    const float nx = mesh_channel<GH>(ma, k, rows, dx, dx2, s);
+    const float ny = mesh_channel<GH>(ma, k, rows + (ma.gw - 1) * gh, dx, dx2, s);
     u = ((nx - ox) * p.width) / span_x + 0.0f;
     v = ((ny - oy) * p.height) / span_y + 0.0f;
     if (inv) v = p.height - v;
@@ -591,12 +642,10 @@ __device__ __forceinline__ void mesh_correction(float& u, float& v, const MeshAr
 // apply_focal_plane_distortion (mesh.py) with sign -1: the row band's shear
 // times its offset in the band, plus the full shear of every band above.
 __device__ __forceinline__ void focal_plane_distortion(float& u, float& v, const MeshArgs& ma,
+                                                       const MeshConsts& k,
                                                        const CoordParams& p, int flags) {
-    const float* m = ma.data;
-    const float size_y = __ldg(m + 4);
-    const float ox = __ldg(m + 5), oy = __ldg(m + 6);
-    const float span_x = (ox + __ldg(m + 7)) - ox, span_y = (oy + __ldg(m + 8)) - oy;
-    const float band = size_y * f32(1.0 / 8.0);   // size_y / 8.0
+    const float ox = k.hdr.z, oy = k.hdr.w;
+    const float span_x = k.span.x, span_y = k.span.y, band = k.span.z;
     const bool inv = flags & FRAMEBUFFER_INVERTED;
     if (inv) v = p.height - v;
     float mu = ((u - 0.0f) * span_x) * ma.inv_width + ox;
@@ -605,14 +654,24 @@ __device__ __forceinline__ void focal_plane_distortion(float& u, float& v, const
     t = t != t ? 0.0f : t;
     const int idx = static_cast<int>(t);
     const float delta = mv - band * static_cast<float>(idx);
-    const float* shear = m + ma.fpd_offset + 4;
+    const float4* sh4 = mesh_block(ma) + kMeshShears;
+    const float* shear = reinterpret_cast<const float*>(sh4);
     float dx = 0.0f + __ldg(shear + 2 * idx) * delta;
     float dy = 0.0f + __ldg(shear + 2 * idx + 1) * delta;
+    float sx[8], sy[8];
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+        const float4 s = __ldg(sh4 + q);
+        sx[2 * q] = s.x;
+        sy[2 * q] = s.y;
+        sx[2 * q + 1] = s.z;
+        sy[2 * q + 1] = s.w;
+    }
 #pragma unroll
     for (int j = 0; j < 7; ++j) {
         if (j < idx) {
-            dx = dx + __ldg(shear + 2 * j) * band;
-            dy = dy + __ldg(shear + 2 * j + 1) * band;
+            dx = dx + sx[j] * band;
+            dy = dy + sy[j] * band;
         }
     }
     mu = mu + -1.0f * dx;
@@ -643,8 +702,9 @@ __device__ __forceinline__ float forward_refraction(float x, float y, float w, f
 // is the digital lens's ModelId (-1: none), applied after c and before the
 // stretch (remap.py:146-147). With kAnyModel both go out of line. With
 // MESH, the mesh and focal-plane stages of `flags` run after c and before
-// the digital lens (remap.py:137-145), on `mesh`.
-template <int MODEL, bool DIGITAL, bool MESH = false>
+// the digital lens (remap.py:137-145), on `mesh`; GH > 0: the mesh's grid
+// height at compile time (mesh_channel).
+template <int MODEL, bool DIGITAL, bool MESH = false, int GH = 0>
 __device__ __forceinline__ void project_point(float px, float py, const float* m,
                                               const CoordParams& p, int flags, float& u,
                                               float& v, bool& valid, int model = kOpencvFisheye,
@@ -683,8 +743,9 @@ __device__ __forceinline__ void project_point(float px, float py, const float* m
     u = u + p.c[0];
     v = v + p.c[1];
     if constexpr (MESH) {
-        if (flags & HAS_MESH_DATA) mesh_correction(u, v, *mesh, p, flags);
-        if (flags & HAS_FPD_DATA) focal_plane_distortion(u, v, *mesh, p, flags);
+        const MeshConsts k = mesh_consts(*mesh);
+        if (flags & HAS_MESH_DATA) mesh_correction<GH>(u, v, *mesh, k, p, flags);
+        if (flags & HAS_FPD_DATA) focal_plane_distortion(u, v, *mesh, k, p, flags);
     }
     if constexpr (DIGITAL) {
         if (digital >= 0) {

@@ -5,9 +5,13 @@ with the CUDA kernel ``gf_coords`` of ``csrc/coords.cu`` (one thread per
 output pixel, its matrix row read straight from the (rows, 14) table), for
 every distortion model and digital lens (``lens_ids``: the kernel is
 specialised on the main model, the digital lens is chosen at run time), and
-with Sony mesh correction and focal-plane distortion (``mesh_args``: the
-mesh buffer by device pointer, its grid and the host-side spline constants)
-in the kernel's mesh form, which also carries the digital lens.
+with Sony mesh correction and focal-plane distortion in the kernel's mesh
+form, which also carries the digital lens. The mesh form reads the frame's
+packed mesh buffer (``pack_mesh``: the reference buffer, then a 16-byte
+aligned block of the launch-uniform constants, the focal-plane shears and
+each x segment's grid rows as (a, b, c, d)), built on the host where the
+buffer goes up to the card; ``mesh_args`` passes it by device pointer with
+the grid and the host-side spline constants.
 ``project_plain`` is the same function in plain torch
 (``remap.rotate_and_distort`` with ``ops/mesh.py``).
 
@@ -33,7 +37,15 @@ from . import distortion_models as dm
 from . import remap
 from .kernel_params import (HAS_DIGITAL_LENS, HAS_FPD_DATA, HAS_MESH_DATA, HORIZONTAL_RS,
                             KernelConfig, KernelDynamics, dyn_to_torch)
+from ..core.splines import MAX_GRID_SIZE
 from .mesh import fpd_offset, spline_mus
+
+# the packed block (csrc/lens.cuh MeshArgs), in float4s: three of
+# constants, four of focal-plane shears, then the coefficient rows
+_BLOCK_CONSTS = 7
+# the reference layout's focal-plane block as core/splines.build_mesh_buffer
+# sizes it: its flag, three more floats, 8 row shears (x, y), 4 spare
+_REF_FPD_FLOATS = 24
 
 
 def project_plain(x, y, idx, matrices, cfg: KernelConfig, dyn: KernelDynamics, mesh=None):
@@ -66,13 +78,88 @@ def coord_params(cfg: KernelConfig, dyn: KernelDynamics):
     return p
 
 
+def mesh_block_offset(cfg: KernelConfig) -> int:
+    """Where the packed block starts in a packed mesh buffer of cfg's grid:
+    after the room of the reference layout (header, grid points, both
+    channels' coefficient blocks, the focal-plane block), rounded up to a
+    multiple of 4 floats (16 bytes)."""
+    return -(-(fpd_offset(cfg) + _REF_FPD_FLOATS) // 4) * 4
+
+
+def packed_len(cfg: KernelConfig) -> int:
+    """The floats of a packed mesh buffer of cfg's grid and flags."""
+    gw, gh = cfg.mesh_grid
+    rows = 2 * (gw - 1) * gh if cfg.has(HAS_MESH_DATA) else 0
+    return mesh_block_offset(cfg) + 4 * (_BLOCK_CONSTS + rows)
+
+
+def mesh_consts(mesh, cfg: KernelConfig):
+    """The block's launch-uniform constants, float32 (csrc/lens.cuh
+    MeshConsts): the header (size_x, size_y, ox, oy), (span_x, span_y, band,
+    h) and (inv_h, alpha_h, h_3, three_h), computed with the float32
+    operations the plain mesh stage runs on the card, where torch divides by
+    a Python number as a multiply by its float32 reciprocal (size_y / 8.0,
+    size_y / (gh - 1), h / 3.0)."""
+    f32 = np.float32
+    m = np.asarray(mesh, np.float32).reshape(-1)
+    size_x, size_y, ox, oy, cw, ch = (f32(v) for v in m[3:9])
+    gh = cfg.mesh_grid[1]
+    with np.errstate(all="ignore"):
+        h = size_y * (f32(1.0) / f32(max(gh - 1, 1)))
+        inv_h = f32(1.0) / h
+        return np.array([size_x, size_y, ox, oy,
+                         (ox + cw) - ox, (oy + ch) - oy, size_y * f32(1.0 / 8.0), h,
+                         inv_h, f32(3.0) * inv_h, h * f32(1.0 / 3.0), f32(3.0) * h], np.float32)
+
+
+def pack_mesh(mesh, cfg: KernelConfig) -> np.ndarray:
+    """The mesh buffer the coords kernel's mesh form reads: the reference
+    buffer (numpy or a CPU tensor; the plain stage reads only this part)
+    zero-padded to ``mesh_block_offset(cfg)``, then the block of
+    csrc/lens.cuh MeshArgs: the constants (``mesh_consts``), the 8
+    focal-plane shears and, with the mesh flag, channel c's grid row j on x
+    segment fi as (a, b, c, d) at float4 7 + (c * (gw - 1) + fi) * gh + j.
+    ``packed_len(cfg)`` float32s; a buffer of that length is taken as packed
+    already, and without the mesh and focal-plane flags (nothing reads the
+    buffer) the buffer is returned as it is."""
+    ref = np.asarray(mesh.cpu() if isinstance(mesh, torch.Tensor) else mesh,
+                     np.float32).reshape(-1)
+    if not remap.has_mesh(cfg):
+        return ref
+    n = packed_len(cfg)
+    if ref.size == n:
+        return ref
+    if ref.size < remap.mesh_len(cfg):
+        raise ValueError(f"mesh buffer of {ref.size} floats, grid {cfg.mesh_grid} needs "
+                         f"{remap.mesh_len(cfg)}")
+    off = mesh_block_offset(cfg)
+    if ref.size > off:
+        raise ValueError(f"mesh buffer of {ref.size} floats: the reference layout of grid "
+                         f"{cfg.mesh_grid} has at most {off}")
+    out = np.zeros(n, np.float32)
+    out[:ref.size] = ref
+    out[off:off + 12] = mesh_consts(ref, cfg)
+    if cfg.has(HAS_FPD_DATA):
+        o = fpd_offset(cfg)
+        out[off + 12:off + 28] = ref[o + 4:o + 20]
+    if cfg.has(HAS_MESH_DATA):
+        gw, gh = cfg.mesh_grid
+        g = MAX_GRID_SIZE
+        # reference: channel c, row j, coefficient q, segment fi at
+        # 9 + gw * gh * 2 + c * gh * 4g + j * 4g + q * g + fi
+        coef = ref[9 + gw * gh * 2:9 + gw * gh * 2 + 2 * gh * 4 * g].reshape(2, gh, 4, g)
+        rows = coef[..., :gw - 1].transpose(0, 3, 1, 2)          # (c, fi, j, q)
+        out[off + 4 * _BLOCK_CONSTS:] = rows.reshape(-1)
+    return out
+
+
 def mesh_args(cfg: KernelConfig, mesh):
-    """The kernel's by-value MeshArgs: the mesh buffer's device pointer (0
-    without mesh or focal-plane flags), the grid, the focal-plane offset,
-    and what the plain mesh stage computes from Python numbers, as torch on
-    the card computes it: the spline recurrence's mus (they depend only on
-    the grid's height) and the float32 reciprocals torch multiplies by when
-    it divides by a Python number."""
+    """The kernel's by-value MeshArgs: the packed mesh buffer's device
+    pointer (0 without mesh or focal-plane flags) and its block's offset,
+    the grid, and what the plain mesh stage computes from Python numbers, as
+    torch on the card computes it: the spline recurrence's mus (they depend
+    only on the grid's height) and the float32 reciprocals torch multiplies
+    by when it divides by a Python number."""
     from .._build import MeshArgs
 
     f32 = np.float32
@@ -81,8 +168,8 @@ def mesh_args(cfg: KernelConfig, mesh):
         return a
     gw, gh = cfg.mesh_grid
     a.data = mesh.data_ptr()
+    a.block_offset = mesh_block_offset(cfg)
     a.gw, a.gh = int(gw), int(gh)
-    a.fpd_offset = fpd_offset(cfg)
     a.mus[:] = [float(m) for m in spline_mus(gh)]
     a.inv_gw1 = float(f32(1.0) / f32(max(gw - 1, 1)))
     a.inv_gh1 = float(f32(1.0) / f32(max(gh - 1, 1)))
@@ -110,9 +197,12 @@ def _check(x, y, idx, matrices, cfg: KernelConfig, mesh=None):
                 or not mesh.is_contiguous():
             raise TypeError(f"coords kernel: mesh must be a contiguous 1-D float32 tensor on "
                             f"{x.device}, got {mesh.dtype} {tuple(mesh.shape)} on {mesh.device}")
-        if mesh.numel() < remap.mesh_len(cfg):
+        if mesh.numel() != packed_len(cfg):
             raise ValueError(f"coords kernel: mesh buffer of {mesh.numel()} floats, grid "
-                             f"{cfg.mesh_grid} needs {remap.mesh_len(cfg)}")
+                             f"{cfg.mesh_grid} packed needs {packed_len(cfg)} "
+                             f"(cuda_coords.pack_mesh)")
+        if mesh.data_ptr() % 16:
+            raise ValueError("coords kernel: the packed mesh buffer must start on 16 bytes")
     for name, t, dt in (("x", x, torch.float32), ("y", y, torch.float32),
                         ("idx", idx, torch.int32), ("matrices", matrices, torch.float32)):
         if t.device != x.device:
@@ -133,8 +223,8 @@ def project(x, y, idx, matrices, cfg: KernelConfig, dyn: KernelDynamics, mesh=No
 
     x, y float32, idx int32 (from ``remap.coords_pre``); matrices (rows, 14)
     float32; dyn with host numpy leaves; mesh the frame's mesh buffer, a 1-D
-    float32 tensor on x's device, read when cfg has the mesh or focal-plane
-    flag. Returns u, v float32 and valid bool."""
+    float32 tensor on x's device, packed (``pack_mesh``), read when cfg has
+    the mesh or focal-plane flag. Returns u, v float32 and valid bool."""
     _check(x, y, idx, matrices, cfg, mesh)
     if x.device.type == "cpu":
         return project_plain(x, y, idx, matrices, cfg, dyn, mesh)

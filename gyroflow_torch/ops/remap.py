@@ -827,11 +827,17 @@ def remap_plane_cuda(img, matrices, cfg: KernelConfig, dyn: KernelDynamics, mesh
     drawing overlay one overlay launch. With ``fused=True``, a plane that
     ``use_fused`` admits takes one fused launch instead of the coords and
     sampler launches; any other plane (mesh and drawing among them) takes
-    the split path, as remap_plane_pallas does. ``img`` keeps its native
+    the split path, as remap_plane_pallas does. A mesh buffer on the card
+    must be packed already (``cuda_coords.pack_mesh``); one on the host is
+    packed here. ``img`` keeps its native
     dtype (uint8, uint16 or float32): the kernels read it directly. On CPU
     tensors the kernel wrappers run their plain versions."""
     from . import cuda_coords, cuda_ewa, cuda_fused, cuda_overlay, cuda_sampler
 
+    if has_mesh(cfg) and mesh is not None and (not isinstance(mesh, torch.Tensor)
+                                               or mesh.device.type == "cpu"):
+        _check_supported(cfg)
+        mesh = cuda_coords.pack_mesh(mesh, cfg)   # a host buffer goes up packed
     matrices, mesh = _prepare(img, matrices, cfg, mesh)
     C = img.shape[-1]
     bg = tuple(float(b) for b in

@@ -113,7 +113,8 @@ def undistort_inputs(mgr, timestamp_ms: float, per_frame: bool = False,
     out_f = (dyn.f[0] / dyn.fov, dyn.f[1] / dyn.fov)
     mesh = None
     if ft.mesh_data is not None and remap.has_mesh(cfg):
-        mesh = torch.from_numpy(np.ascontiguousarray(ft.mesh_data, np.float32)).to(dev)
+        from ..ops.cuda_coords import pack_mesh
+        mesh = torch.from_numpy(pack_mesh(ft.mesh_data, cfg)).to(dev)
     return ox, oy, mats, cfg, dyn, (new_w / 2.0, new_h / 2.0), out_f, mesh
 
 

@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
-"""Time the sampler kernel (csrc/sampler.cu) and the coords kernel's fisheye
-form (csrc/coords.cu) of one or more copies of gyroflow_torch on the 4K
-main-path inputs, on one CUDA card.
+"""Time the sampler kernel (csrc/sampler.cu) and forms of the coords kernel
+(csrc/coords.cu) of one or more copies of gyroflow_torch on the 4K main-path
+inputs, on one CUDA card.
 
     python3 sampler_bench.py [ROOT ...]
 
@@ -11,26 +11,33 @@ copy of it. The inputs are made once, as chip_smoke.py phase 3 makes them
 (its manager, gyro log, lens and planes): the Y (3840x2160x1) and UV
 (1920x1080x2) uint16 planes with the u, v and valid maps of one lanczos4
 frame, and the coords kernel's x, y, idx and matrices of that frame, of
-that frame with a digital lens on the fisheye (gopro_superview and
-digital_stretch, chip_smoke.py phase 8's lenses) and of a frame of
-chip_smoke.py phase 9's Sony clip (sony lens, IBIS, a 9x9 mesh and FPD).
-Every ROOT's kernel library is built first, three builds at a time. Then
-each ROOT runs in a process of its own, in the order given and again in
+that frame with other lenses (chip_smoke.py phase 8's: the fisheye with the
+digital lenses gopro_superview, digital_stretch and gopro_warp, and the
+gopro model, whose Newton loop and fixed points run per pixel) and of a
+frame of chip_smoke.py phase 9's Sony clip (sony lens, IBIS, a 9x9 mesh and
+FPD). Every ROOT's kernel library is built first, three builds at a time.
+Then each ROOT runs in a process of its own, in the order given and again in
 reverse (A B ... B A), and reads:
 
 - the device time for Y and UV of the sampler, of the coords kernel's
-  fisheye plain form, of its two digital forms and (where the copy's
-  ``cuda_coords.project`` takes a mesh) of its mesh form, with that copy's
+  fisheye plain form, of its forms with those lenses and (where the copy's
+  ``cuda_coords.project`` takes a mesh) of its mesh form, both the
+  projection and the full-plane rolling-shutter probe (``remap.mesh_probe``'s
+  launch: every pixel through the centre matrix row), with that copy's
   ``experiments.perf_probe.cuda_ms`` (median of 10 calls, each behind an
   L2-flushing read and a device spin);
 - the largest difference from that copy's ``cuda_sampler.sample_plain`` on
   the same inputs, in codes (limit 0.01), and from its
   ``cuda_coords.project_plain``, in px over valid pixels with the valid
-  masks identical (limit 1e-4; the digital and mesh forms bit-identical);
+  masks identical (limit 1e-4; the other lenses' and the mesh forms
+  bit-identical). A copy with ``cuda_coords.pack_mesh`` gets the mesh
+  buffer packed by it, an older copy the reference buffer;
 - the ptxas registers and spills of ``sampler_kernel<u16,C1,8>``,
-  ``<u16,C2,8>`` and of the fisheye ``coords_kernel``'s plain and digital
-  forms and the sony mesh form (a copy from before the mesh form was split
-  off reports its two forms under the same names).
+  ``<u16,C2,8>`` and of the coords kernel's fisheye plain and digital forms,
+  its gopro form and the sony mesh form, for a grid height read at run time
+  and for the 9 rows of the Sony clip's grid where the copy has that form
+  (a copy from before the mesh form was split off reports its two forms
+  under the same names).
 
 Prints the card's name and power limit, one JSON line per reading and a
 summary; writes chiprun_out/sampler_bench.json. Exits non-zero if a build,
@@ -52,13 +59,21 @@ OUT_DIR = REPO / "chiprun_out"
 TOL = 0.01
 COORDS_TOL_PX = 1e-4
 BUILDS_AT_ONCE = 3
-DIGITAL = ("gopro_superview", "digital_stretch")
+# the other lenses timed on the main-path frame: (main model, digital lens)
+LENSES = (("opencv_fisheye", "gopro_superview"), ("opencv_fisheye", "digital_stretch"),
+          ("opencv_fisheye", "gopro_warp"), ("gopro", None))
 # the coords kernel's forms by their mangled names: this tree's three forms,
 # then a tree whose kernel had two (plain, and digital with the mesh)
 COORDS_FORMS = {"coords": ("coords_kernelILi0ELb0ELb0EE", "coords_kernelILi0ELb0EE"),
                 "coords<opencv_fisheye,digital>": ("coords_kernelILi0ELb1ELb0EE",
                                                    "coords_kernelILi0ELb1EE"),
-                "coords<sony,mesh>": ("coords_kernelILi6ELb1ELb1EE", "coords_kernelILi6ELb1EE")}
+                "coords<gopro>": ("coords_kernelILi8ELb0ELb0EE", "coords_kernelILi8ELb0EE"),
+                "coords<sony,mesh>": ("coords_kernelILi6ELb1ELb1EE", "coords_kernelILi6ELb1EE"),
+                "coords<sony,mesh,9 rows>": ("coords_mesh_kernelILi6ELi9EE",)}
+
+
+def lens_key(model, digital):
+    return model if digital is None else f"{model}+{digital}"
 
 
 def cs_out_cf(cfg, dyn_t):
@@ -71,6 +86,7 @@ def cs_out_cf(cfg, dyn_t):
 
 def _inputs(path):
     """Y and UV sampler inputs of one main-path lanczos4 frame, saved to path."""
+    import numpy as np
     import torch
 
     sys.path.insert(0, str(REPO))
@@ -97,21 +113,32 @@ def _inputs(path):
         out[name] = {"img": img, "u": u.cpu(), "v": v.cpu(), "valid": valid.cpu(),
                      "bg": cs.plane_bg(dyn, img), "src_rect": tuple(cfg.src_rect),
                      "limit": cs.MAXV, "x": x.cpu(), "y": y.cpu(), "idx": idx.cpu(),
-                     "mats": mats.cpu(), "cfg": cfg, "dyn": dyn, "digital": {}}
-        for digital in DIGITAL:
-            dcfg, ddyn = cs.with_lens(cfg, dyn, "opencv_fisheye", digital)
+                     "mats": mats.cpu(), "cfg": cfg, "dyn": dyn, "lenses": {}}
+        for model, digital in LENSES:
+            dcfg, ddyn = cs.with_lens(cfg, dyn, model, digital)
             ddyn_t = dyn_to_torch(ddyn, dev)
             dx, dy, didx = remap.coords_pre(ox, oy, mats, dcfg, ddyn_t, *cs_out_cf(dcfg, ddyn_t))
-            out[name]["digital"][digital] = {"x": dx.cpu(), "y": dy.cpu(), "idx": didx.cpu(),
-                                             "cfg": dcfg, "dyn": ddyn}
+            out[name]["lenses"][lens_key(model, digital)] = {
+                "x": dx.cpu(), "y": dy.cpu(), "idx": didx.cpu(), "cfg": dcfg, "dyn": ddyn}
         cfg, dyn, mats = cs.plane_setup(sony, planes, 500_000, name)
         mesh = cs.plane_mesh(sony, 500_000)
+        ref = np.asarray(sony.frame_transform_at(sony._adjusted_ts_ms(500_000)).mesh_data,
+                         np.float32)
         dyn_t = dyn_to_torch(dyn, dev)
         x, y, idx = remap.coords_pre(ox, oy, mats, cfg, dyn_t, *cs_out_cf(cfg, dyn_t), mesh=mesh)
         out[name]["mesh"] = {"x": x.cpu(), "y": y.cpu(), "idx": idx.cpu(), "mats": mats.cpu(),
-                             "mesh": mesh.cpu(), "cfg": cfg, "dyn": dyn}
+                             "mesh": torch.from_numpy(ref), "cfg": cfg, "dyn": dyn}
     torch.save(out, path)
     print(json.dumps({"inputs": path}))
+
+
+def _same(k, p):
+    """Kernel and plain outputs bit-identical, NaN where the other is NaN."""
+    import torch
+    return all(torch.equal(a, b) or (a.dtype.is_floating_point
+                                     and torch.equal(a.isnan(), b.isnan())
+                                     and torch.equal(a.nan_to_num(), b.nan_to_num()))
+               for a, b in zip(k, p))
 
 
 def _build(root):
@@ -168,37 +195,39 @@ def _time(root, path):
         res[name].update(coords_ms=perf_probe.cuda_ms(lambda: cuda_coords.project(*cargs), dev),
                          coords_max_err=cerr)
         mats = d["mats"].to(dev)
-        for digital, g in d["digital"].items():
-            dargs = (*(g[k].to(dev) for k in ("x", "y", "idx")), mats, g["cfg"], g["dyn"])
-            k = cuda_coords.project(*dargs)
-            p = cuda_coords.project_plain(*dargs)
-            torch.cuda.synchronize()
-            same = all(torch.equal(a, b) or (a.dtype.is_floating_point
-                                             and torch.equal(a.isnan(), b.isnan())
-                                             and torch.equal(a.nan_to_num(), b.nan_to_num()))
-                       for a, b in zip(k, p))
-            if not same:
-                raise AssertionError(f"{root} {name}: the {digital} form differs from its plain "
+        for key, g in d["lenses"].items():
+            largs = (*(g[k].to(dev) for k in ("x", "y", "idx")), mats, g["cfg"], g["dyn"])
+            if not _same(cuda_coords.project(*largs), cuda_coords.project_plain(*largs)):
+                raise AssertionError(f"{root} {name}: the {key} form differs from its plain "
                                      f"version")
-            res[name][f"{digital}_ms"] = perf_probe.cuda_ms(lambda: cuda_coords.project(*dargs),
-                                                            dev)
+            res[name][f"{key}_ms"] = perf_probe.cuda_ms(lambda: cuda_coords.project(*largs), dev)
         if "mesh" in inspect.signature(cuda_coords.project).parameters:
             m = d["mesh"]
-            margs = (*(m[k].to(dev) for k in ("x", "y", "idx", "mats")), m["cfg"], m["dyn"],
-                     m["mesh"].to(dev))
-            k = cuda_coords.project(*margs)
-            p = cuda_coords.project_plain(*margs)
-            torch.cuda.synchronize()
-            if not all(torch.equal(a, b) for a, b in zip(k, p)):
-                raise AssertionError(f"{root} {name}: the mesh form differs from its plain version")
+            mesh = m["mesh"]
+            if hasattr(cuda_coords, "pack_mesh"):
+                mesh = torch.from_numpy(cuda_coords.pack_mesh(mesh, m["cfg"]))
+            mx, my, midx, mmats, mesh = (t.to(dev) for t in (*(m[k] for k in (
+                "x", "y", "idx", "mats")), mesh))
+            c = mmats.shape[0] // 2
+            margs = (mx, my, midx, mmats, m["cfg"], m["dyn"], mesh)
+            # remap.mesh_probe's launch: every pixel through the centre row
+            pargs = (mx, my, torch.zeros_like(midx), mmats[c:c + 1].contiguous(), m["cfg"],
+                     m["dyn"], mesh)
+            for label, a in (("mesh", margs), ("mesh probe", pargs)):
+                if not _same(cuda_coords.project(*a), cuda_coords.project_plain(*a)):
+                    raise AssertionError(f"{root} {name}: the {label} form differs from its "
+                                         f"plain version")
             res[name]["mesh_coords_ms"] = perf_probe.cuda_ms(
                 lambda: cuda_coords.project(*margs), dev)
+            res[name]["mesh_probe_ms"] = perf_probe.cuda_ms(
+                lambda: cuda_coords.project(*pargs), dev)
     res["Y+UV ms"] = res["Y"]["ms"] + res["UV"]["ms"]
     res["coords Y+UV ms"] = res["Y"]["coords_ms"] + res["UV"]["coords_ms"]
-    for digital in DIGITAL:
-        res[f"{digital} Y+UV ms"] = res["Y"][f"{digital}_ms"] + res["UV"][f"{digital}_ms"]
+    for key in map(lambda ld: lens_key(*ld), LENSES):
+        res[f"{key} Y+UV ms"] = res["Y"][f"{key}_ms"] + res["UV"][f"{key}_ms"]
     if "mesh_coords_ms" in res["Y"]:
         res["mesh coords Y+UV ms"] = res["Y"]["mesh_coords_ms"] + res["UV"]["mesh_coords_ms"]
+        res["mesh probe Y+UV ms"] = res["Y"]["mesh_probe_ms"] + res["UV"]["mesh_probe_ms"]
     print(json.dumps(res))
 
 
@@ -244,16 +273,19 @@ def main(roots) -> int:
         for r in roots + roots[::-1]:
             readings[r].append(_run(["--time", r, path]))
             print(json.dumps({"root": r, **readings[r][-1]}), flush=True)
+    keys = [lens_key(*ld) for ld in LENSES]
     summary = {"card": smi, "roots": [
         {"root": r, "ptxas": builds[r]["ptxas"],
          "Y ms": [x["Y"]["ms"] for x in readings[r]],
          "UV ms": [x["UV"]["ms"] for x in readings[r]],
          "Y+UV ms": statistics.mean(x["Y+UV ms"] for x in readings[r]),
          "coords Y+UV ms": [x["coords Y+UV ms"] for x in readings[r]],
-         **{f"{dl} Y ms": [x["Y"][f"{dl}_ms"] for x in readings[r]] for dl in DIGITAL},
-         **{f"{dl} Y+UV ms": [x[f"{dl} Y+UV ms"] for x in readings[r]] for dl in DIGITAL},
+         **{f"{k} Y ms": [x["Y"][f"{k}_ms"] for x in readings[r]] for k in keys},
+         **{f"{k} Y+UV ms": [x[f"{k} Y+UV ms"] for x in readings[r]] for k in keys},
          "mesh coords Y ms": [x["Y"].get("mesh_coords_ms") for x in readings[r]],
          "mesh coords Y+UV ms": [x.get("mesh coords Y+UV ms") for x in readings[r]],
+         "mesh probe Y ms": [x["Y"].get("mesh_probe_ms") for x in readings[r]],
+         "mesh probe Y+UV ms": [x.get("mesh probe Y+UV ms") for x in readings[r]],
          "max_err": max(max(x["Y"]["max_err"], x["UV"]["max_err"]) for x in readings[r])}
         for r in roots]}
     OUT_DIR.mkdir(exist_ok=True)

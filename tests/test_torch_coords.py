@@ -173,7 +173,10 @@ def test_wrapper_rejects_unported_configs():
         cuda_coords._check(x, x, idx, m, mesh_cfg, torch.zeros(16))
     with pytest.raises(TypeError, match="mesh"):
         cuda_coords._check(x, x, idx, m, mesh_cfg, torch.zeros(2000, dtype=torch.float64))
-    cuda_coords._check(x, x, idx, m, mesh_cfg, torch.zeros(2000))
+    # the kernel takes a packed buffer (cuda_coords.pack_mesh), of exactly its length
+    with pytest.raises(ValueError, match="pack_mesh"):
+        cuda_coords._check(x, x, idx, m, mesh_cfg, torch.zeros(2000))
+    cuda_coords._check(x, x, idx, m, mesh_cfg, torch.zeros(cuda_coords.packed_len(mesh_cfg)))
     cuda_coords._check(x, x, idx, m, pcfg._replace(distortion_model="sony"))
     cuda_coords._check(x, x, idx, m, pcfg._replace(digital_lens="gopro_warp",
                                                    flags=HAS_DIGITAL_LENS))

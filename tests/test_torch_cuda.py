@@ -907,14 +907,19 @@ def _mesh(grid=(9, 9), fpd=True, seed=3):
     return torch.from_numpy(buf.astype(np.float32))
 
 
+def _packed(ref, cfg):
+    """The reference buffer packed for cfg (cuda_coords.pack_mesh)."""
+    return torch.from_numpy(cuda_coords.pack_mesh(ref, cfg))
+
+
 def _mesh_case(plane, flags, grid=(9, 9), model="opencv_fisheye", **kw):
-    """_case with the mesh flag, cfg.mesh_grid and a mesh buffer; flags adds
-    HAS_FPD_DATA, HAS_IBIS_DATA or FRAMEBUFFER_INVERTED."""
+    """_case with the mesh flag, cfg.mesh_grid and a packed mesh buffer;
+    flags adds HAS_FPD_DATA, HAS_IBIS_DATA or FRAMEBUFFER_INVERTED."""
     cfg, dyn, mats, img = _case(plane, flags=flags | HAS_MESH_DATA, **kw)
     cfg = cfg._replace(mesh_grid=grid, distortion_model=model)
     if model != "opencv_fisheye":
         dyn = dyn._replace(k=KernelDynamics.make(k=LENS_K[model]).k)
-    return cfg, dyn, mats, img, _mesh(grid, fpd=bool(flags & HAS_FPD_DATA))
+    return cfg, dyn, mats, img, _packed(_mesh(grid, fpd=bool(flags & HAS_FPD_DATA)), cfg)
 
 
 MESH_FLAGS = [0, HAS_FPD_DATA, HAS_FPD_DATA | HAS_IBIS_DATA]
@@ -942,15 +947,106 @@ def test_coords_kernel_mesh_vs_plain(dev, flags, inverted, grid, model):
     assert torch.equal(uk, up) and torch.equal(vk, vp)
 
 
+def _same_bits(k, p):
+    """Kernel and plain outputs bit-identical: the valid masks, and u, v
+    with NaN exactly where the other has NaN."""
+    for a, b in zip(k, p):
+        if a.dtype.is_floating_point:
+            assert torch.equal(a.isnan(), b.isnan())
+            a, b = (torch.where(t.isnan(), 0.0, t).view(torch.int32) for t in (a, b))
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("inverted", [False, True])
+@pytest.mark.parametrize("gh", range(2, 10))
+def test_coords_kernel_mesh_every_grid_edges_and_nonfinite(dev, gh, inverted):
+    """The mesh form with FPD on every grid height 2-9 (width 11 - gh):
+    points spread over -0.4 .. 1.4 of the frame, so the mesh's x and y
+    run beyond [0, size] on both sides in every warp (the edge pieces'
+    branches), NaN and +-inf among them; bit-identical to the plain
+    version, the valid masks too."""
+    grid = (11 - gh, gh)
+    flags = HAS_FPD_DATA | (FRAMEBUFFER_INVERTED if inverted else 0)
+    cfg, dyn, mats, _, mesh = _mesh_case("Y", flags, grid, "sony")
+    rng = np.random.default_rng(gh * 2 + inverted)
+    x = rng.uniform(-0.4 * W, 1.4 * W, (H, W)).astype(np.float32)
+    y = rng.uniform(-0.4 * H, 1.4 * H, (H, W)).astype(np.float32)
+    for col, val in ((3, np.nan), (11, np.inf), (19, -np.inf)):
+        x[:, col::32] = val
+        y[1::2, col + 1::32] = val
+    idx = rng.integers(0, H, (H, W)).astype(np.int32)
+    x, y, idx, m, mesh = (torch.from_numpy(a).to(dev) for a in (x, y, idx, mats, mesh.numpy()))
+    k = cuda_coords.project(x, y, idx, m, cfg, dyn, mesh)
+    p = cuda_coords.project_plain(x, y, idx, m, cfg, dyn, mesh)
+    torch.cuda.synchronize()
+    _same_bits(k, p)
+    # the mesh's y beyond both edges: the plain stage's input, before the mesh
+    nomesh = cfg._replace(flags=cfg.flags & ~(HAS_MESH_DATA | HAS_FPD_DATA))
+    _, v0, _ = cuda_coords.project_plain(x, y, idx, m, nomesh, dyn)
+    assert bool((v0 < 0).any()) and bool((v0 > H).any())
+
+
+ITERATIVE = [(m, d) for m, d in LENSES
+             if {m, d} & {"gopro", "gopro_superview", "gopro6_superview", "gopro_hyperview",
+                          "gopro_warp"}]
+
+
+@pytest.mark.parametrize("model,digital", ITERATIVE)
+def test_coords_kernel_iterative_lanes_leave_their_loop(dev, model, digital):
+    """The iterative forms (gopro's Newton loop, the digital lenses' fixed
+    point), where a done lane leaves its loop: every warp mixes a lane at
+    the lens centre (1 step), the lane of the most steps among 8192 spread
+    points, and a NaN lane (never done: all 10 or 12 steps); bit-identical
+    to the plain version."""
+    from chip_smoke import LOOP_OF, loop_steps
+    cfg, dyn, mats, _ = _lens_case("Y", model, digital)
+    m = torch.from_numpy(mats).to(dev)
+    loop = LOOP_OF[model if model in LOOP_OF else digital]
+    most = 10 if loop == "_gopro_poly_invert" else 12
+    rng = np.random.default_rng(len(model) + len(digital or ""))
+    # the lens centre: the output pixel whose camera-space (x, y) through row
+    # r is (0, 0) (the optical axis), or (W / 2, H / 2) for a digital lens
+    # as the main model, which takes (x, y) as pixels
+    r = rng.integers(0, H, 8192)
+    t = np.array([W / 2.0, H / 2.0]) if tdm.get_model(model).is_digital else np.zeros(2)
+    mr = mats[r[0], :9].reshape(3, 3).astype(np.float64)
+    cx, cy = np.linalg.solve(mr[:2, :2], t - mr[:2, 2])
+    px = np.concatenate([[cx], rng.uniform(-1.0 * W, 2.0 * W, 8191)]).astype(np.float32)
+    py = np.concatenate([[cy], rng.uniform(-1.0 * H, 2.0 * H, 8191)]).astype(np.float32)
+    pts = [torch.from_numpy(t).to(dev).reshape(64, 128) for t in (px, py, r.astype(np.int32))]
+    _, _, steps = loop_steps(lambda: cuda_coords.project_plain(*pts, m, cfg, dyn))
+    steps = steps[loop].reshape(-1).cpu().numpy()
+    finite = np.isfinite(px) & np.isfinite(py)
+    slow = int(np.argmax(np.where(finite, steps, -1)))
+    assert steps[0] == 1 and steps[slow] > 1
+    # warps of 32: the centre lane, the slowest finite lane, a NaN lane, then spread points
+    n = 32 * 16
+    wx = rng.uniform(0.0, W, n).astype(np.float32)
+    wy = rng.uniform(0.0, H, n).astype(np.float32)
+    wr = rng.integers(0, H, n).astype(np.int32)
+    for lane, (sx, sy, sr) in enumerate(((px[0], py[0], r[0]), (px[slow], py[slow], r[slow]),
+                                         (np.nan, py[0], r[0]))):
+        wx[lane::32], wy[lane::32], wr[lane::32] = sx, sy, sr
+    x, y, idx = (torch.from_numpy(t).to(dev).reshape(8, 64) for t in (wx, wy, wr))
+    k = cuda_coords.project(x, y, idx, m, cfg, dyn)
+    p, _, lane_steps = loop_steps(lambda: cuda_coords.project_plain(x, y, idx, m, cfg, dyn))
+    torch.cuda.synchronize()
+    _same_bits(k, p)
+    warps = lane_steps[loop].reshape(-1, 32).cpu().numpy()
+    assert (warps[:, 0] == 1).all() and (warps[:, 2] == most).all()
+    assert (warps[:, 1] == steps[slow]).all()
+
+
 def test_coords_kernel_fpd_only_and_digital_with_mesh(dev):
     """FPD without the mesh stage, and the mesh with a digital lens after
     it (remap.py:137-147): 0 px."""
     for flags, digital in ((HAS_FPD_DATA, None), (HAS_FPD_DATA, "gopro_superview")):
-        cfg, dyn, mats, _, mesh = _mesh_case("Y", flags)
+        cfg, dyn, mats, _, _ = _mesh_case("Y", flags)
         if digital is None:
             cfg = cfg._replace(flags=cfg.flags & ~HAS_MESH_DATA)
         else:
             cfg = cfg._replace(digital_lens=digital, flags=cfg.flags | HAS_DIGITAL_LENS)
+        mesh = _packed(_mesh(fpd=True), cfg)
         x, y, idx, m = _coords_inputs(cfg._replace(flags=0, mesh_grid=None,
                                                    digital_lens=None), dyn, mats, dev)
         k = cuda_coords.project(x, y, idx, m, cfg, dyn, mesh.to(dev))

@@ -147,11 +147,162 @@ class TestSplines:
         t = torch.from_numpy(mesh.astype(np.float32))
         a = cuda_coords.mesh_args(pcfg, t)
         assert a.data == t.data_ptr() and (a.gw, a.gh) == (9, 9)
-        assert a.fpd_offset == int(mesh[0]) == tmesh.fpd_offset(pcfg)
+        assert int(mesh[0]) == tmesh.fpd_offset(pcfg)
+        assert a.block_offset == cuda_coords.mesh_block_offset(pcfg) \
+            >= tmesh.fpd_offset(pcfg) + 24 and a.block_offset % 4 == 0
         assert list(a.mus) == [float(m) for m in tmesh.spline_mus(9)]
         assert a.inv_gw1 == float(np.float32(1.0) / np.float32(8.0))
         assert a.inv_width == float(np.float32(1.0) / np.float32(W))
         assert cuda_coords.mesh_args(pcfg._replace(flags=0, mesh_grid=None), None).data is None
+
+
+def _packed_case(gw, gh, inverted=False, seed=0):
+    """(port cfg, reference mesh buffer f32) of a gw x gh warped grid with
+    FPD shears, a mesh size, origin and crop that are not integers."""
+    rng = np.random.default_rng(seed * 100 + gw * 10 + gh)
+    size = (W * 1.03, H * 0.97)
+    gx, gy = np.meshgrid(np.linspace(0, size[0], gw), np.linspace(0, size[1], gh))
+    pts = np.stack([gx + rng.normal(0, 1.5, gx.shape), gy + rng.normal(0, 1.5, gy.shape)], -1)
+    ref = tsplines.build_mesh_buffer(pts, size, origin=(2.5, -1.75),
+                                     crop_size=(W * 0.99, H * 1.01),
+                                     focal_plane_shears=rng.normal(0, 0.01, (8, 2)),
+                                     fpd_enabled=True).astype(np.float32)
+    cfg = tkp.KernelConfig(width=W, height=H, output_width=W, output_height=H,
+                           flags=HAS_MESH_DATA | HAS_FPD_DATA
+                           | (FRAMEBUFFER_INVERTED if inverted else 0), mesh_grid=(gw, gh))
+    return cfg, ref
+
+
+def _block_matches_reference(packed, ref, cfg):
+    """The packed buffer: the reference part as given (zeros to the block),
+    the constants, the FPD shears, and each (channel, x segment, grid row)
+    as the reference's (a, b, c, d) of that row and segment."""
+    gw, gh = cfg.mesh_grid
+    off = cuda_coords.mesh_block_offset(cfg)
+    assert packed.dtype == np.float32 and packed.size == cuda_coords.packed_len(cfg)
+    assert off % 4 == 0 and packed.size % 4 == 0
+    np.testing.assert_array_equal(packed[:ref.size], ref)
+    assert not packed[ref.size:off].any()
+    np.testing.assert_array_equal(packed[off:off + 12], cuda_coords.mesh_consts(ref, cfg))
+    o = tmesh.fpd_offset(cfg)
+    np.testing.assert_array_equal(packed[off + 12:off + 28], ref[o + 4:o + 20])
+    rows = packed[off + 28:].reshape(2, gw - 1, gh, 4)
+    base = 9 + gw * gh * 2
+    for c in range(2):
+        for fi in range(gw - 1):
+            for j in range(gh):
+                rb = base + c * gh * 36 + j * 36 + fi
+                assert rows[c, fi, j].tolist() == [ref[rb + q * 9] for q in range(4)], (c, fi, j)
+
+
+class _CardDivision(torch.overrides.TorchFunctionMode):
+    """Runs torch ops as the card runs them where the CPU differs: a tensor
+    divided by a Python number is multiplied by the number's float32
+    reciprocal (the CPU divides). Keeps the bits of every 0-d result."""
+
+    def __init__(self):
+        super().__init__()
+        self.bits = set()
+
+    def __torch_function__(self, func, types, args=(), kwargs=None):
+        kwargs = kwargs or {}
+        if func in (torch.Tensor.__truediv__, torch.Tensor.div, torch.div) and len(args) == 2 \
+                and isinstance(args[1], (int, float)) and not kwargs:
+            out = args[0] * (torch.tensor(1.0) / torch.tensor(float(args[1])))
+        else:
+            out = func(*args, **kwargs)
+        if isinstance(out, torch.Tensor) and out.dim() == 0 and out.dtype == torch.float32:
+            self.bits.add(int(out.view(torch.int32)))
+        return out
+
+
+@pytest.mark.parametrize("inverted", [False, True])
+@pytest.mark.parametrize("gh", range(2, 10))
+def test_mesh_consts_are_the_plain_stages_values(gh, inverted):
+    """The packed block's launch-uniform constants, computed on the host in
+    numpy float32, are bit-equal to the 0-d values ops/mesh.py computes in
+    torch on the CPU (its header entries, the crop spans, the FPD band, the
+    spline's h, 1 / h, 3 * (1 / h), h / 3 and 3 * h), each division by a
+    Python number taken as torch takes it on the card, where the kernel's
+    plain version runs: torch on the CPU divides, the card multiplies by
+    the float32 reciprocal."""
+    cfg, ref = _packed_case(11 - gh, gh, inverted)
+    k = cuda_coords.mesh_consts(ref, cfg)
+    np.testing.assert_array_equal(k[:4], ref[3:7])
+    rec = _CardDivision()
+    u = torch.tensor([3.5, 60.25, 200.0, -7.0])
+    v = torch.tensor([1.25, 33.5, -4.0, 90.0])
+    mesh = torch.from_numpy(ref)
+    with rec:
+        tmesh.apply_mesh_correction(u, v, mesh, cfg)
+        tmesh.apply_focal_plane_distortion(u, v, mesh, tmesh.fpd_offset(cfg), cfg)
+    names = ["span_x", "span_y", "band", "h", "inv_h", "alpha_h", "h_3", "three_h"]
+    for name, val in zip(names, k[4:]):
+        if name == "alpha_h" and gh == 2:     # no interior row: mesh.py computes no alpha
+            continue
+        assert int(np.float32(val).view(np.int32)) in rec.bits, (name, val)
+
+
+@pytest.mark.parametrize("gw,gh", [(9, 9), (5, 4), (2, 3), (3, 2)])
+def test_pack_mesh_block_holds_the_reference(gw, gh):
+    """pack_mesh's block holds exactly the reference buffer's coefficients,
+    and a packed buffer goes through pack_mesh again unchanged."""
+    cfg, ref = _packed_case(gw, gh)
+    packed = cuda_coords.pack_mesh(ref, cfg)
+    _block_matches_reference(packed, ref, cfg)
+    np.testing.assert_array_equal(cuda_coords.pack_mesh(packed, cfg), packed)
+    np.testing.assert_array_equal(cuda_coords.pack_mesh(torch.from_numpy(ref), cfg), packed)
+
+
+def test_packed_buffers_through_the_manager(sony_managers, monkeypatch):
+    """The buffers the manager puts on its device: _mats_on_device's (one
+    frame) and the window's stack (stack_meshes of each frame's packed
+    buffer, caught where the window step takes it), each row the frame's
+    reference buffer with its block."""
+    from gyroflow_torch.parallel import pipeline
+    tm, _ = sony_managers
+    seen = []
+    orig = pipeline.stabilize_window_production
+
+    def spy(*a, meshes=None, **kw):
+        seen.append(meshes)
+        return orig(*a, meshes=meshes, **kw)
+
+    monkeypatch.setattr(pipeline, "stabilize_window_production", spy)
+    tm.process_pixels_window(TS[:2], _sony_plane(n=2), None, interpolation=2,
+                             max_pixel_value=1023.0)
+    (stack,) = seen
+    assert stack.shape[0] == 2
+    for i, ts in enumerate(TS[:2]):
+        ft = tm.frame_transform_at(tm._adjusted_ts_ms(ts))
+        _block_matches_reference(stack[i], ft.mesh_data, ft.kernel_cfg)
+        _, mesh = tm._mats_on_device(tm._adjusted_ts_ms(ts), ft)
+        _block_matches_reference(mesh.numpy(), ft.mesh_data, ft.kernel_cfg)
+
+
+def test_coords_wrapper_refuses_unpacked_or_misaligned_mesh():
+    """cuda_coords.project takes only a packed buffer that starts on 16
+    bytes (the kernel reads the block as float4s), on the CPU too; the
+    remap wrapper packs a host buffer itself."""
+    cfg, dyn, _, mats, mesh = _mesh_case(fpd=True)
+    pcfg, pdyn = tkp.from_reference(cfg, dyn)
+    ref = mesh.astype(np.float32)
+    x = torch.full((4, 8), 30.0)
+    y = torch.full((4, 8), 20.0)
+    idx = torch.zeros((4, 8), dtype=torch.int32)
+    m = torch.from_numpy(mats)
+    with pytest.raises(ValueError, match="pack_mesh"):
+        cuda_coords.project(x, y, idx, m, pcfg, pdyn, torch.from_numpy(ref))
+    packed = cuda_coords.pack_mesh(ref, pcfg)
+    shifted = torch.zeros(packed.size + 1)[1:]
+    shifted.copy_(torch.from_numpy(packed))
+    with pytest.raises(ValueError, match="16 bytes"):
+        cuda_coords.project(x, y, idx, m, pcfg, pdyn, shifted)
+    with pytest.raises(ValueError, match="needs"):
+        cuda_coords.pack_mesh(ref[:100], pcfg)
+    got = cuda_coords.project(x, y, idx, m, pcfg, pdyn, torch.from_numpy(packed))
+    want = cuda_coords.project_plain(x, y, idx, m, pcfg, pdyn, torch.from_numpy(ref))
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
 
 
 class TestMeshGolden:
