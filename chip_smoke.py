@@ -101,7 +101,19 @@ exits non-zero without the final line):
    an 8-frame 4K y4m through render(), an ST-map export, a per-frame
    undistort map (its rolling-shutter probe on the coords kernel) and one
    overlay frame, each 0 codes from the plain path, and the Sony frame's
-   device time and launches under torch.profiler.
+   device time and launches under torch.profiler;
+10. the sharded window (parallel.pipeline: frames over "dp", output-row
+   bands over "sp", each band through remap_plane_cuda(out_rows, oy0)) on a
+   2 x 2 mesh of logical shards of cuda:0: (a) phase 4e's 8 timestamps of
+   the 4K Y and UV planes (16 coords and 16 sampler launches a plane), (b)
+   its EWA window of 2 (4 coords and 4 EWA launches a plane), (c) 4 frames
+   of phase 9's Sony clip (the probe and the projection: 2 coords launches
+   a band), each frame 0 codes from the one-device window of its phase, no
+   plain version run; (d) gyroflow_torch.entry.entry() on cuda:0, 0 codes
+   from the same step with each wrapper's plain version; (e)
+   dryrun_multichip(4) on 4 logical shards; (f) (a) over the real cards
+   where there is more than one (else it says so); then the host-clock ms
+   per frame of (a) against the one-device window (printed, not claimed).
 
 Each kernel's bound (the least time the card could take for the same work)
 is the larger of its bytes (each input read once, each output written once)
@@ -1127,7 +1139,7 @@ def canvas_reach(canvas, scale, points):
 
 
 def sony_phase(dev, smi, workdir, planes, dev_planes, kernel_ms, driven, expect, drive,
-               drive_window, device_rows, out_cf, ptxas):
+               drive_window, device_rows, out_cf, ptxas, keep=None):
     """Phase 9: a synthesised 4K Sony clip (sony lens, IBIS, a 9x9 lens mesh
     and FPD on every frame). The mesh form of gf_coords and the overlay
     kernel against their plain versions at the 4K planes' shapes, with
@@ -1135,7 +1147,9 @@ def sony_phase(dev, smi, workdir, planes, dev_planes, kernel_ms, driven, expect,
     process_pixels_window (F = 8), render() of an 8-frame y4m, an EWA frame,
     an ST-map export and one overlay frame (tracking points and a safe-area
     rect from manager.draw_overlays), each held at 0 codes from the plain
-    path. Returns (entries for the kernels line, report)."""
+    path. keep, a dict, gets the Sony manager ("manager") and its window's
+    planes ("window"), which phase 10 holds its sharded window to. Returns
+    (entries for the kernels line, report)."""
     import numpy as np
     import torch
     from gyroflow_torch.core.drawing import DrawCanvas
@@ -1151,6 +1165,8 @@ def sony_phase(dev, smi, workdir, planes, dev_planes, kernel_ms, driven, expect,
     phase(f"Sony clip: a {SONY_FRAMES}-frame {W}x{H} clip with IBIS, a {SONY_GRID}x{SONY_GRID} "
           f"lens mesh and FPD; the mesh form of gf_coords and the overlay kernel vs plain torch")
     sm = make_sony_manager(dev, workdir)
+    keep = {} if keep is None else keep
+    keep["manager"] = sm
     ts0 = 500_000
     cfg0 = sm.frame_transform_at(sm._adjusted_ts_ms(ts0)).kernel_cfg
     check(cfg0.distortion_model == "sony" and cfg0.mesh_grid == (SONY_GRID, SONY_GRID)
@@ -1257,7 +1273,7 @@ def sony_phase(dev, smi, workdir, planes, dev_planes, kernel_ms, driven, expect,
     launches = drive(8, expect(coords=4 * FRAMES, sampler=2 * FRAMES), m=sm, tol=0)
     phase(f"Sony clip: process_pixels_window, {WINDOW} timestamps, lanczos4")
     launches_window = drive_window(8, WINDOW, expect(coords=4 * WINDOW, sampler=2 * WINDOW),
-                                   m=sm, tol=0)
+                                   m=sm, tol=0, keep=keep.setdefault("window", {}))
     phase(f"Sony clip: process_pixels, {FRAMES} frames, interpolation {EWA_INTERP} (the probe "
           f"and the stacked 3-eval launch)")
     launches_ewa = drive(EWA_INTERP, expect(coords=4 * FRAMES, ewa=2 * FRAMES), m=sm, tol=0)
@@ -1411,6 +1427,140 @@ def sony_phase(dev, smi, workdir, planes, dev_planes, kernel_ms, driven, expect,
                                   "overlay": launches_overlay},
                      "render": render_stats, "profiled_wall_ms": wall, "device_ms": busy,
                      "kernels_per_frame": n_k}
+
+
+def sharded_phase(dev, smi, mgr, planes, win_ts, windows, driven, expect, device_rows):
+    """Phase 10: the production window over a (dp, sp) mesh of logical
+    shards on the card (parallel.pipeline; each (frame, row band) through
+    remap_plane_cuda(out_rows, oy0)): (a) the 4K Y and UV planes over phase
+    4e's 8 timestamps on 2 x 2 shards, (b) the EWA window of 2 on 2 x 2, (c)
+    4 frames of phase 9's Sony clip on 2 x 2, each frame 0 codes from the
+    one-device window of its phase; (d) entry(): the kernel run 0 codes from
+    the same step with each wrapper's plain version; (e) dryrun_multichip(4)
+    on 4 logical shards; (f) (a) over the real cards when there are more
+    than one. Then the host-clock ms per frame of (a) against the one-device
+    window, and each one's device busy time under torch.profiler (printed,
+    not claimed). Returns the phase's report."""
+    import numpy as np
+    import torch
+    from gyroflow_torch.entry import dryrun_multichip, entry
+    from gyroflow_torch.ops import cuda_coords, cuda_sampler
+    from gyroflow_torch.parallel import make_frame_mesh
+
+    report = {}
+    shards = make_frame_mesh(devices=[dev] * 4, sp=2)
+
+    def sharded(m, n, interpolation, mesh, label, expected, ref):
+        """process_pixels_window of m over n timestamps of the Y and UV
+        planes on mesh inside driven(); each frame 0 codes from ref."""
+        outs = {}
+        with driven(label, expected, frames=n) as counts:
+            for name in ("Y", "UV"):
+                pi, host = planes[name]
+                outs[name] = m.process_pixels_window(
+                    win_ts[:n], np.stack([host] * n), mesh, interpolation=interpolation,
+                    plane_index=pi, max_pixel_value=MAXV, plane_rects=True)
+        for name, (out, info) in outs.items():
+            host = planes[name][1]
+            check(tuple(out.shape) == (n,) + host.shape and out.dtype == torch.uint16
+                  and out.device == dev, f"{label} {name}: {tuple(out.shape)} {out.dtype} on "
+                                         f"{out.device}")
+            check(info["backend"] == "cuda-sharded", f"{label} {name}: {info['backend']}")
+            d = int((out.to(torch.int32) - ref[name][:n].to(torch.int32)).abs().max())
+            print(f"{label} {name:2s}: {tuple(out.shape)} {out.dtype} on {out.device}, mesh "
+                  f"{mesh.shape}; vs the one-device window max|d| {d} codes (limit 0)")
+            check(d == 0, f"{label} {name}: the sharded window differs from the one-device one")
+        return counts
+
+    bands = 2 * 2   # Y and UV, 2 row bands each
+    phase(f"sharded window (a): process_pixels_window, {WINDOW} timestamps of 4K 10-bit YUV420, "
+          f"lanczos4, on 2 x 2 logical shards of {dev} (dp 2, sp 2)")
+    report["launches_a"] = sharded(mgr, WINDOW, 8, shards, "sharded window (a)",
+                                   expect(coords=bands * WINDOW, sampler=bands * WINDOW),
+                                   windows["lanczos4"])
+    phase(f"sharded window (b): the EWA window of {EWA_WINDOW}, interpolation {EWA_INTERP}, "
+          f"on 2 x 2 shards")
+    report["launches_b"] = sharded(mgr, EWA_WINDOW, EWA_INTERP, shards, "sharded window (b)",
+                                   expect(coords=bands * EWA_WINDOW, ewa=bands * EWA_WINDOW),
+                                   windows["ewa"])
+    phase("sharded window (c): 4 frames of the Sony clip on 2 x 2 shards (the probe and the "
+          "projection on the coords kernel: 2 launches a band)")
+    report["launches_c"] = sharded(windows["sony"]["manager"], 4, 8, shards,
+                                   "sharded window (c)", expect(coords=2 * bands * 4,
+                                                                sampler=bands * 4),
+                                   windows["sony"]["window"])
+
+    phase("entry (d): gyroflow_torch.entry.entry() on cuda:0, the kernels against the plain "
+          "versions")
+    fn, args = entry()
+    with driven("entry()", expect(coords=1, sampler=1), frames=1) as report["launches_d"]:
+        out_k = fn(*args)
+    saved = (cuda_coords.project, cuda_sampler.sample)
+    cuda_coords.project, cuda_sampler.sample = cuda_coords.project_plain, cuda_sampler.sample_plain
+    try:
+        out_p = fn(*args)
+    finally:
+        cuda_coords.project, cuda_sampler.sample = saved
+    d = float((out_k - out_p).abs().max())
+    print(f"entry(): {tuple(out_k.shape)} {out_k.dtype} on {out_k.device}; kernels vs plain "
+          f"versions max|d| {d} codes (limit 0)")
+    check(tuple(out_k.shape) == (720, 1280, 1) and bool(torch.isfinite(out_k).all()) and d == 0,
+          "entry(): the kernel run differs from the plain run")
+
+    phase("dryrun (e): gyroflow_torch.entry.dryrun_multichip(4) on 4 logical shards of "
+          f"{dev} (dp 2, sp 2)")
+    with driven("dryrun_multichip(4)", expect(coords=32, sampler=32),
+                frames=16) as report["launches_e"]:
+        dryrun_multichip(4, devices=[dev] * 4)
+
+    n_cards = torch.cuda.device_count()
+    if n_cards > 1:
+        n = 4 if n_cards >= 4 else 2
+        cards = make_frame_mesh(n, sp=2)
+        phase(f"sharded window (f): (a) over {n} cards (dp {n // 2}, sp 2)")
+        report["launches_f"] = sharded(mgr, WINDOW, 8, cards, "sharded window (f)",
+                                       expect(coords=bands * WINDOW, sampler=bands * WINDOW),
+                                       windows["lanczos4"])
+    else:
+        print(f"sharded window (f): one card present ({torch.cuda.get_device_name(0)}); the "
+              f"multi-card run was not exercised")
+
+    phase(f"sharded window times on {smi}")
+    staged = {name: torch.as_tensor(np.stack([planes[name][1]] * WINDOW)).to(dev)
+              for name in ("Y", "UV")}
+
+    def window_pass(mesh):
+        for name in ("Y", "UV"):
+            mgr.process_pixels_window(win_ts, staged[name], mesh, interpolation=8,
+                                      plane_index=planes[name][0], max_pixel_value=MAXV,
+                                      plane_rects=True)
+
+    def per_frame_ms(mesh, reps=3):
+        ms = []
+        for _ in range(reps):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            window_pass(mesh)
+            torch.cuda.synchronize()
+            ms.append((time.perf_counter() - t0) * 1e3 / WINDOW)
+        return statistics.median(ms)
+
+    window_pass(None)
+    window_pass(shards)
+    wms = [per_frame_ms(None), per_frame_ms(shards), per_frame_ms(shards), per_frame_ms(None)]
+    print(f"Y+UV per frame (host clock, median of 3, frames on the card; one device, 2 x 2 "
+          f"shards, 2 x 2 shards, one device): {wms[0]:.3f}, {wms[1]:.3f}, {wms[2]:.3f}, "
+          f"{wms[3]:.3f} ms (F = {WINDOW}); {smi}")
+    report["window_ms"] = {"one_device": [wms[0], wms[3]], "shards_2x2": [wms[1], wms[2]]}
+    for label, mesh in (("one device", None), ("2 x 2 shards", shards)):
+        wall, rows = device_rows(lambda i: window_pass(mesh), 1)
+        wall, busy = wall / WINDOW, sum(r[1] for r in rows) / WINDOW
+        n_k = sum(r[2] for r in rows) / WINDOW
+        print(f"window on {label} (Y+UV per frame, frame transforms cached): under "
+              f"torch.profiler {wall:.3f} ms, device busy {busy:.3f} ms ({100.0 * busy / wall:.1f}%)"
+              f" over {n_k:.0f} kernels; {smi}")
+        report[f"profile {label}"] = {"wall_ms": wall, "device_ms": busy, "kernels": n_k}
+    return report
 
 
 def main() -> int:
@@ -1713,11 +1863,12 @@ def main() -> int:
     import numpy as np
     win_ts = [int(round((i + 20) * 1e6 / FPS)) for i in range(WINDOW)]
 
-    def drive_window(interpolation, n, expected, m=None, tol=FRAME_TOL_CODES):
+    def drive_window(interpolation, n, expected, m=None, tol=FRAME_TOL_CODES, keep=None):
         """process_pixels_window of m (the main manager by default) over n
         timestamps of the Y and UV planes inside driven(); each frame held
         against process_pixels, frame 0 against the plain torch path (with
-        its mesh buffer) within tol codes."""
+        its mesh buffer) within tol codes. keep, a dict, gets each plane's
+        window by its name (phase 10 holds the sharded window to it)."""
         m = m or mgr
         outs = {}
         with driven(f"process_pixels_window (F = {n})", expected, frames=n) as counts:
@@ -1746,14 +1897,19 @@ def main() -> int:
                   f"path max|d| {d0} codes (limit {tol})")
             check(d_pf == 0, f"window {name}: differs from process_pixels")
             check(d0 <= tol, f"window {name}: frame 0 differs from the plain path")
+            if keep is not None:
+                keep[name] = out
         return counts
 
     phase(f"frame window: process_pixels_window, {WINDOW} timestamps of 4K 10-bit YUV420, "
           f"lanczos4")
-    launches_window = drive_window(8, WINDOW, expect(coords=2 * WINDOW, sampler=2 * WINDOW))
+    windows = {"lanczos4": {}, "ewa": {}, "sony": {}}   # phase 10's references
+    launches_window = drive_window(8, WINDOW, expect(coords=2 * WINDOW, sampler=2 * WINDOW),
+                                   keep=windows["lanczos4"])
     phase(f"EWA frame window: process_pixels_window, {EWA_WINDOW} timestamps, interpolation 11")
     launches_window_ewa = drive_window(EWA_INTERP, EWA_WINDOW,
-                                       expect(coords=2 * EWA_WINDOW, ewa=2 * EWA_WINDOW))
+                                       expect(coords=2 * EWA_WINDOW, ewa=2 * EWA_WINDOW),
+                                       keep=windows["ewa"])
 
     # ---- 4f. decode -> stabilize -> encode -----------------------------------
     from gyroflow_torch import cli
@@ -2145,8 +2301,12 @@ def main() -> int:
     # ---- 9. a Sony clip: mesh, FPD and the overlay ------------------------------
     sony_entries, report["sony"] = sony_phase(
         dev, smi, tmp.name, planes, dev_planes, kernel_ms, driven, expect, drive, drive_window,
-        device_rows, out_cf, report["ptxas"])
+        device_rows, out_cf, report["ptxas"], keep=windows["sony"])
     kernels += sony_entries
+
+    # ---- 10. the sharded window on the card ----------------------------------
+    report["sharded"] = sharded_phase(dev, smi, mgr, planes, win_ts, windows, driven, expect,
+                                      device_rows)
     OUT_DIR.mkdir(exist_ok=True)
     (OUT_DIR / "chip_smoke.json").write_text(json.dumps({**report, "bounds": bound_of,
                                                          "kernels": kernels}, indent=1))

@@ -1393,12 +1393,15 @@ class StabilizationManager:
         """Stabilize a window of F frames of one plane (gyroflow_tpu
         manager.py:1351; render_queue.rs:677).
 
-        frames: (F, H, W, C) numpy array or tensor, uint8/uint16/float32,
-        uploaded to ``self.device`` in one copy; timestamps_us: F video
-        timestamps. device_mesh: parallel.pipeline.make_frame_mesh's one
-        device (None: ``self.device``). Returns (out (F, OH, OW, C) tensor on
-        ``self.device`` in the output dtype of process_pixels, info dict).
-        Each frame comes out as process_pixels would give it: on a CUDA device
+        frames: (F, H, W, C) numpy array or tensor, uint8/uint16/float32;
+        timestamps_us: F video timestamps. device_mesh: a
+        parallel.pipeline.make_frame_mesh whose first device is
+        ``self.device`` (None: the 1 x 1 mesh on ``self.device``); frames go
+        data-parallel over its "dp" rows, each dp row's frames uploaded in
+        one copy to each of its devices, and output rows over its "sp"
+        columns. Returns (out (F, OH, OW, C) tensor on ``self.device`` in the
+        output dtype of process_pixels, info dict). Each frame comes out as
+        process_pixels would give it: on CUDA devices each of its bands
         through the coords kernel and the sampler or EWA kernel, on the CPU
         through the plain torch remap. A window whose kernel configs differ
         goes through process_pixels frame by frame. Each frame's Sony mesh /
@@ -1409,11 +1412,12 @@ class StabilizationManager:
         from ..parallel.pipeline import (make_frame_mesh, stabilize_window_production,
                                          stack_dynamics, stack_meshes)
 
-        if device_mesh is not None and device_mesh.device != self.device:
-            raise ValueError(f"frame mesh on {device_mesh.device}, manager on {self.device}")
-        imgs = torch.as_tensor(frames).to(self.device)
+        mesh = device_mesh if device_mesh is not None else make_frame_mesh(device=self.device)
+        if mesh.device != self.device:
+            raise ValueError(f"frame mesh on {mesh.device}, manager on {self.device}")
+        imgs = torch.as_tensor(frames)
         if not self.params.stab_enabled:
-            return imgs, {"fov": 1.0, "backend": "none"}
+            return imgs.to(self.device), {"fov": 1.0, "backend": "none"}
 
         self._lazy_recompute_if_invalidated()
         fts = [self.frame_transform_at(self._adjusted_ts_ms(ts)) for ts in timestamps_us]
@@ -1439,10 +1443,10 @@ class StabilizationManager:
         out_dtype, in_dtype = _plane_dtypes(imgs.dtype, max_pixel_value)
         mats = np.stack([ft.matrices for ft in fts]).astype(np.float32)
         out, backend = stabilize_window_production(
-            device_mesh or make_frame_mesh(device=self.device), imgs.to(in_dtype), mats,
-            cfgs[0], stack_dynamics(dyns), out_dtype=out_dtype,
+            mesh, imgs, mats, cfgs[0], stack_dynamics(dyns), out_dtype=out_dtype,
             meshes=stack_meshes([None if ft.mesh_data is None else
-                                 pack_mesh(ft.mesh_data, ft.kernel_cfg) for ft in fts]))
+                                 pack_mesh(ft.mesh_data, ft.kernel_cfg) for ft in fts]),
+            in_dtype=in_dtype)
         info = {"fov": fts[0].fov, "minimal_fov": fts[0].minimal_fov,
                 "backend": backend,
                 "xla_fallbacks": self.stats["xla_fallbacks"],

@@ -661,26 +661,30 @@ def use_fused(cfg: KernelConfig, matrices, drawing=None) -> bool:
 
 
 def _remap(img, matrices, cfg: KernelConfig, dyn_t: KernelDynamics, project, sample,
-           fused=None, mesh=None, probe=None, overlay=None):
+           fused=None, mesh=None, probe=None, overlay=None, out_rows=None, oy0: int = 0):
     """Shared body of remap_plane / remap_plane_cuda (remap.py:511, :662).
 
     dyn_t: tensor leaves on img's device. project(x, y, idx) -> (u, v, valid);
-    sample(u, v, valid, evals) -> (oh, ow, C), where evals is the stacked
-    (3*oh, ow) (u3, v3, valid3) after coords_post_uv for EWA and None
-    otherwise. fused(x, y, idx) -> (oh, ow, C), if given, replaces project,
+    sample(u, v, valid, evals) -> (rows, ow, C), where evals is the stacked
+    (3*rows, ow) (u3, v3, valid3) after coords_post_uv for EWA and None
+    otherwise. fused(x, y, idx) -> (rows, ow, C), if given, replaces project,
     coords_post_uv and sample (remap.py:720-730). mesh and probe go to
     coords_pre. overlay(pixel, u, v, ox, oy) -> pixel, if given, is the
-    drawing epilogue after the colour-range step (remap.py:1004-1007)."""
+    drawing epilogue after the colour-range step (remap.py:1004-1007).
+    out_rows, oy0: only output rows oy0 .. oy0 + out_rows (the whole plane
+    when out_rows is None); every coordinate stays in absolute output
+    space, so the bands of a plane assemble into the plane (remap.py:678)."""
     dev = img.device
     C = img.shape[-1]
     bg = (dyn_t.background * dyn_t.max_pixel_value)[:C]
 
     ow, oh = cfg.out_buffer
+    rows = oh if out_rows is None else out_rows
     if cfg.has(FILL_WITH_BACKGROUND):
         # the reference writes bg directly, skipping fix_range (remap.py:533-535)
-        return bg.expand(oh, ow, C).clone()
+        return bg.expand(rows, ow, C).clone()
 
-    oy, ox = torch.meshgrid(torch.arange(oh, dtype=torch.float32, device=dev),
+    oy, ox = torch.meshgrid(torch.arange(oy0, oy0 + rows, dtype=torch.float32, device=dev),
                             torch.arange(ow, dtype=torch.float32, device=dev),
                             indexing="ij")
     factor = torch.clamp_min(1.0 - dyn_t.lens_correction_amount, 0.001)
@@ -816,7 +820,8 @@ def remap_plane(img, matrices, cfg: KernelConfig, dyn: KernelDynamics, mesh=None
 
 
 def remap_plane_cuda(img, matrices, cfg: KernelConfig, dyn: KernelDynamics, mesh=None,
-                     drawing=None, out_dtype: str = "f32", fused: bool = False):
+                     drawing=None, out_dtype: str = "f32", fused: bool = False,
+                     out_rows=None, oy0: int = 0):
     """Remap one plane through the coords kernel and the sampler (or EWA)
     kernel, or with ``fused=True`` through the fused kernel.
 
@@ -827,17 +832,35 @@ def remap_plane_cuda(img, matrices, cfg: KernelConfig, dyn: KernelDynamics, mesh
     drawing overlay one overlay launch. With ``fused=True``, a plane that
     ``use_fused`` admits takes one fused launch instead of the coords and
     sampler launches; any other plane (mesh and drawing among them) takes
-    the split path, as remap_plane_pallas does. A mesh buffer on the card
-    must be packed already (``cuda_coords.pack_mesh``); one on the host is
-    packed here. ``img`` keeps its native
-    dtype (uint8, uint16 or float32): the kernels read it directly. On CPU
-    tensors the kernel wrappers run their plain versions."""
+    the split path, as remap_plane_pallas does. The frame's mesh buffer may
+    be in the reference layout or packed (``cuda_coords.pack_mesh``), on the
+    host or on the card: a buffer that is not packed is packed here and put
+    on its device. ``img`` keeps its native dtype (uint8, uint16 or
+    float32): the kernels read it directly. On CPU tensors the kernel
+    wrappers run their plain versions.
+
+    ``out_rows``, ``oy0``: compute only the band of output rows oy0 .. oy0 +
+    out_rows (remap_plane_pallas's row band, remap.py:678-709), with every
+    coordinate in absolute output space, so the bands give the bits of the
+    same rows of the whole plane. The overlay kernel draws whole planes (it
+    takes no row offset), so a band takes no drawing."""
     from . import cuda_coords, cuda_ewa, cuda_fused, cuda_overlay, cuda_sampler
 
-    if has_mesh(cfg) and mesh is not None and (not isinstance(mesh, torch.Tensor)
-                                               or mesh.device.type == "cpu"):
+    ow, oh = cfg.out_buffer
+    rows = oh if out_rows is None else int(out_rows)
+    oy0 = int(oy0)
+    if rows < 0 or oy0 < 0 or oy0 + rows > oh:
+        raise ValueError(f"output band of {rows} rows at {oy0}: the plane has {oh} rows")
+    if (rows, oy0) != (oh, 0) and drawing is not None and cfg.has(DRAWING_ENABLED):
+        raise ValueError("a band of output rows takes no drawing: the overlay kernel draws "
+                         "whole planes")
+    if has_mesh(cfg) and mesh is not None:
         _check_supported(cfg)
-        mesh = cuda_coords.pack_mesh(mesh, cfg)   # a host buffer goes up packed
+        on_card = isinstance(mesh, torch.Tensor) and mesh.device.type != "cpu"
+        if not on_card:
+            mesh = cuda_coords.pack_mesh(mesh, cfg)   # a host buffer goes up packed
+        elif mesh.numel() != cuda_coords.packed_len(cfg):
+            mesh = torch.from_numpy(cuda_coords.pack_mesh(mesh, cfg)).to(mesh.device)
     matrices, mesh = _prepare(img, matrices, cfg, mesh)
     C = img.shape[-1]
     bg = tuple(float(b) for b in
@@ -871,7 +894,8 @@ def remap_plane_cuda(img, matrices, cfg: KernelConfig, dyn: KernelDynamics, mesh
                                         drawing.safe_area_rect, cfg.src_rect, maxv)
 
     out = _remap(img, matrices, cfg, dyn_t, project, sample, fuse, mesh=mesh,
-                 probe=mesh_probe(matrices, cfg, dyn, mesh), overlay=overlay)
+                 probe=mesh_probe(matrices, cfg, dyn, mesh), overlay=overlay,
+                 out_rows=rows, oy0=oy0)
     return _cast_out(out, out_dtype, _host_scalar(dyn.max_pixel_value))
 
 

@@ -78,13 +78,12 @@ class RenderOptions:
     overlay: object = None             # core.drawing.DrawCanvas debug overlay
     trace: bool = False                # per-stage timing summary (SURVEY §5)
     pipeline_depth: int = 3            # frames in flight on the device queue
-    # frame windows (render_queue.rs:677): 0 = auto (8-frame windows on the
-    # one device), 1 = off, N>1 = stabilize N-frame windows through
-    # process_pixels_window (parallel.pipeline)
+    # frame windows (render_queue.rs:677): 0 = auto (one frame a card over
+    # several cards, 8-frame windows on one), 1 = off, N>1 = stabilize
+    # N-frame windows through process_pixels_window (parallel.pipeline)
     frame_window: int = 0
-    shard_sp: int = 1                  # output-row shards per frame, clipped
-                                       # to the one device (row bands over
-                                       # several cards: ROADMAP queue 1, item 9)
+    shard_sp: int = 1                  # output-row shards per frame ("sp"
+                                       # axis), clipped to the card count
     async_encode: bool = True          # encode on a writer thread so the
                                        # device queue + decode overlap encode
     decode_ahead: int = 4              # decode-ahead thread queue depth
@@ -401,6 +400,25 @@ def _plane_backgrounds(fmt: RawFormat, bg_rgba01, limited: bool):
     return [bg]
 
 
+def plan_window(n_dev: int, frame_window: int, shard_sp: int, oh: int, yuv: bool):
+    """The renderer's window and mesh over n_dev devices
+    (gyroflow_tpu/render/renderer.py:535-560): (window, (dp, sp)), or (1,
+    None) for the per-frame path. frame_window 0 picks one frame a device
+    over several devices and 8 frames on one; sp is shard_sp clipped to the
+    devices, dp the devices left per sp (at most the window), and the window
+    rounds down to a multiple of dp. Row bands must divide every plane's
+    output height (YUV's chroma is oh / 2)."""
+    window = frame_window or (n_dev if n_dev > 1 else 8)
+    if window <= 1:
+        return 1, None
+    sp = min(max(shard_sp, 1), n_dev)
+    dp = max(min(n_dev // sp, window), 1)
+    window = (window // dp) * dp
+    if oh % (2 * sp if yuv else sp) != 0:
+        return 1, None
+    return window, (dp, sp)
+
+
 def render(mgr, input_path: str, output_path: str,
            options: Optional[RenderOptions] = None,
            progress_cb: Optional[Callable[[float], None]] = None,
@@ -509,26 +527,27 @@ def render(mgr, input_path: str, output_path: str,
         reader = _AsyncReader(reader, depth=options.decode_ahead,
                               prefetch=_warm_ft)
 
-    # frame windows: stabilize decoded frames F at a time on the manager's
-    # device (parallel/pipeline.py). Only the planar path windows (the cv2
-    # "rgb" fallback stays per-frame), and the debug overlay forces the
-    # per-frame path (drawing state is per-frame).
-    window = options.frame_window
-    if window == 0:
-        # auto: 8-frame windows (one matrix upload and one frame upload per
-        # window and plane). frame_window=1 opts out (low-latency
-        # preview-style rendering).
-        window = 8
+    # frame windows: stabilize decoded frames F at a time over a mesh of the
+    # cards, frames over "dp" and output-row bands over "sp", starting at the
+    # manager's device (parallel/pipeline.py). Only the planar path windows
+    # (the cv2 "rgb" fallback stays per-frame), and the debug overlay forces
+    # the per-frame path (drawing state is per-frame). frame_window=1 opts
+    # out (low-latency preview-style rendering).
+    n_dev = torch.cuda.device_count() if mgr.device.type == "cuda" else 1
+    window, grid = plan_window(n_dev, options.frame_window, options.shard_sp, oh,
+                               fmt is not None and fmt.is_yuv)
     device_mesh = None
     show_dbg = bool(getattr(mgr.params, "show_detected_features", False)
                     or getattr(mgr.params, "show_optical_flow", False))
-    if window > 1 \
+    if grid is not None \
             and kind == "planar" and not show_dbg \
             and options.overlay is None and options.safe_area is None:
         from ..parallel.pipeline import make_frame_mesh
-        # one device: shard_sp clips to 1, as gyroflow_tpu clips it to the
-        # device count
-        device_mesh = make_frame_mesh(1, sp=1, device=mgr.device)
+        dp, sp = grid
+        # the manager's card first: the window assembles on it
+        others = [torch.device("cuda", i) for i in range(n_dev) if i != mgr.device.index]
+        device_mesh = make_frame_mesh(dp * sp, sp=sp, devices=[mgr.device] + others) \
+            if dp * sp > 1 else make_frame_mesh(1, device=mgr.device)
     else:
         window = 1
 

@@ -1157,3 +1157,113 @@ def test_overlay_kernel_vs_plain(dev, dtype, c):
         assert cuda_overlay.overlay.launches == n0 + 1
         want = remap.remap_plane(timg, m, icfg, idyn, drawing=d, out_dtype=out_dtype)
         assert torch.equal(got, want)
+
+
+# ---- row bands, the sharded window and the entry points ----------------------
+
+@pytest.mark.parametrize("plane", ["Y", "UV"])
+def test_reference_layout_mesh_buffer_on_the_card(dev, plane):
+    """A mesh buffer in the reference layout, on the card or on the host,
+    goes through remap_plane_cuda (packed on its device) with the plain
+    path's bits, as the packed buffer does."""
+    cfg, dyn, mats, img, packed = _mesh_case(plane, HAS_FPD_DATA | HAS_IBIS_DATA)
+    ref = _mesh((9, 9), fpd=True)
+    timg, m = torch.from_numpy(img).to(dev), torch.from_numpy(mats).to(dev)
+    want = remap.remap_plane(timg, m, cfg, dyn, ref.to(dev), out_dtype="uint16")
+    for mesh in (ref.to(dev), ref, packed.to(dev)):
+        got = remap.remap_plane_cuda(timg, m, cfg, dyn, mesh, out_dtype="uint16")
+        assert torch.equal(got, want)
+
+
+def _band_cases():
+    return [("Y", 8, 0), ("UV", 8, 0), ("Y", 11, 0), ("UV", 11, 0), ("Y", 8, HAS_MESH_DATA),
+            ("UV", 8, HAS_MESH_DATA)]
+
+
+@pytest.mark.parametrize("plane,interpolation,mesh_flag", _band_cases())
+def test_bands_assemble_on_the_card(dev, plane, interpolation, mesh_flag):
+    """remap_plane_cuda(out_rows, oy0) bands of unequal height are the
+    whole plane's rows: 0 codes in uint16, within 1e-5 in float32."""
+    if mesh_flag:
+        cfg, dyn, mats, img, mesh = _mesh_case(plane, HAS_FPD_DATA | HAS_IBIS_DATA,
+                                               interpolation=interpolation)
+        mesh = mesh.to(dev)
+    else:
+        (cfg, dyn, mats, img), mesh = _case(plane, interpolation=interpolation), None
+    timg, m = torch.from_numpy(img).to(dev), torch.from_numpy(mats).to(dev)
+    oh = cfg.out_buffer[1]
+    cuts = (0, oh // 3, oh // 3 + 7, oh)
+    for out_dtype in ("uint16", "f32"):
+        full = remap.remap_plane_cuda(timg, m, cfg, dyn, mesh, out_dtype=out_dtype)
+        got = torch.cat([remap.remap_plane_cuda(timg, m, cfg, dyn, mesh, out_dtype=out_dtype,
+                                                out_rows=b - a, oy0=a)
+                         for a, b in zip(cuts[:-1], cuts[1:])])
+        if out_dtype == "uint16":
+            assert torch.equal(got, full)
+        else:
+            assert float((got - full).abs().max()) <= 1e-5
+
+
+@pytest.mark.parametrize("dtype,interpolation", [("uint16", 8), ("uint16", 11), ("uint8", 8)])
+@pytest.mark.parametrize("plane", ["Y", "UV"])
+def test_sharded_window_on_the_card(dev, tmp_path, plane, dtype, interpolation):
+    """A 2-frame window on 2 x 2 logical shards of the card: each frame's two
+    bands through the coords kernel and the sampler (or EWA) kernel (4
+    launches each), the output on the card 0 codes from the one-device
+    window."""
+    from gyroflow_torch.parallel import make_frame_mesh
+
+    m = _card_manager(dev, tmp_path)
+    shape = (H, W, 1) if plane == "Y" else (H // 2, W // 2, 2)
+    maxv = 255.0 if dtype == "uint8" else 1023.0
+    frames = np.random.default_rng(6).integers(0, int(maxv) + 1, (2,) + shape).astype(dtype)
+    ts = [500_000, 533_333]
+    kw = dict(interpolation=interpolation, plane_index=0 if plane == "Y" else 1,
+              max_pixel_value=maxv, plane_rects=True)
+    sample = cuda_ewa.sample if interpolation > 8 else cuda_sampler.sample
+    one, _ = m.process_pixels_window(ts, frames, None, **kw)
+    n0 = (cuda_coords.project.launches, sample.launches)
+    out, info = m.process_pixels_window(ts, frames, make_frame_mesh(devices=[dev] * 4, sp=2),
+                                        **kw)
+    torch.cuda.synchronize()
+    assert (cuda_coords.project.launches - n0[0], sample.launches - n0[1]) == (4, 4)
+    assert info["backend"] == "cuda-sharded" and out.device == dev
+    assert torch.equal(out, one)
+
+
+def test_entry_on_the_card(dev):
+    """gyroflow_torch.entry.entry(): one coords and one sampler launch, 0
+    codes from the same step with each wrapper's plain version."""
+    from gyroflow_torch.entry import entry
+
+    fn, args = entry()
+    assert args[0].device == dev
+    n0 = (cuda_coords.project.launches, cuda_sampler.sample.launches)
+    got = fn(*args)
+    torch.cuda.synchronize()
+    assert (cuda_coords.project.launches - n0[0], cuda_sampler.sample.launches - n0[1]) == (1, 1)
+    saved = (cuda_coords.project, cuda_sampler.sample)
+    cuda_coords.project, cuda_sampler.sample = cuda_coords.project_plain, cuda_sampler.sample_plain
+    try:
+        want = fn(*args)
+    finally:
+        cuda_coords.project, cuda_sampler.sample = saved
+    assert torch.equal(got, want)
+
+
+def test_dryrun_on_logical_shards_of_the_card(dev, capsys):
+    from gyroflow_torch.entry import dryrun_multichip
+
+    dryrun_multichip(4, devices=[dev] * 4)
+    out = capsys.readouterr().out
+    assert "smoke OK" in out and "via cuda-sharded on mesh {'dp': 2, 'sp': 2}" in out
+
+
+def test_frame_mesh_takes_the_cards(dev):
+    from gyroflow_torch.parallel import make_frame_mesh
+
+    n = torch.cuda.device_count()
+    mesh = make_frame_mesh()
+    assert mesh.shape == {"dp": n, "sp": 1} and mesh.device == dev
+    with pytest.raises(RuntimeError, match=f"{n} present"):
+        make_frame_mesh(n + 1)

@@ -305,6 +305,29 @@ def test_coords_wrapper_refuses_unpacked_or_misaligned_mesh():
     assert all(torch.equal(a, b) for a, b in zip(got, want))
 
 
+@pytest.mark.parametrize("interpolation", [8, 11])
+def test_remap_wrapper_takes_reference_or_packed_buffers(interpolation):
+    """remap_plane_cuda takes the frame's mesh buffer as the JAX remap does,
+    in the reference layout (a tensor or numpy) or packed, and packs it on
+    its device itself: each gives the plain path's bits (on a card:
+    test_torch_cuda.py)."""
+    cfg, dyn, _, mats, mesh = _mesh_case(fpd=True, ibis=True)
+    cfg = cfg._replace(interpolation=interpolation)
+    if interpolation > 8:
+        p, q = jremap.ewa_coeffs(interpolation)
+        dyn = dyn._replace(ewa_coeffs_p=np.asarray(p, np.float32),
+                           ewa_coeffs_q=np.asarray(q, np.float32))
+    pcfg, pdyn = tkp.from_reference(cfg, dyn._replace(max_pixel_value=np.float32(1023.0),
+                                                      pixel_value_limit=np.float32(1023.0)))
+    ref = np.asarray(mesh, np.float32)
+    img = torch.from_numpy(np.rint(make_image() * 4.0).astype(np.uint16))
+    m = torch.from_numpy(mats)
+    want = tremap.remap_plane(img, m, pcfg, pdyn, torch.from_numpy(ref), out_dtype="uint16")
+    for buf in (torch.from_numpy(ref), ref, torch.from_numpy(cuda_coords.pack_mesh(ref, pcfg))):
+        got = tremap.remap_plane_cuda(img, m, pcfg, pdyn, buf, out_dtype="uint16")
+        assert torch.equal(got, want)
+
+
 class TestMeshGolden:
     @pytest.mark.parametrize("fpd", [False, True])
     def test_oracle_golden(self, fpd):

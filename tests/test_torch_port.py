@@ -31,12 +31,12 @@ MEANT_TO_DIFFER = {
     "ops/distortion_models.py": "torch twin of the JAX models",
     "ops/kernel_params.py": "jax-free copy: the jnp annotations are dropped",
     "native/__init__.py": "its own build cache (gyroflow_torch/build/native) and env names",
-    "parallel/pipeline.py": "the window step on one torch device: no mesh sharding, no "
-                            "window ladder, no XLA fallback",
-    "parallel/__init__.py": "exports the port's window step (FrameMesh, no stabilize_window "
-                            "or stabilize_window_sharded)",
-    "render/renderer.py": "stabilizes on the manager's torch device: no jax backend pick, "
-                          "no overflow replay, .cpu() before the encode",
+    "parallel/pipeline.py": "the window sharded over a (dp, sp) grid of torch devices: no "
+                            "shard_map, no window ladder, no XLA fallback",
+    "parallel/__init__.py": "also exports the port's FrameMesh and stack_meshes",
+    "render/renderer.py": "stabilizes on the manager's torch device and its cards (the dp/sp "
+                          "rule in plan_window): no jax backend pick, no overflow replay, "
+                          ".cpu() before the encode",
     "cli.py": "its own name and a --device option (the manager's device)",
     "utils/stmap.py": "the undistort map's grid and projection on the manager's torch "
                       "device (the coords kernel on a card)",

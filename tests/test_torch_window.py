@@ -9,9 +9,13 @@ shutter, the seeded .gcsv of test_end_to_end.py), one per package.
   plane_rects: within 1 code for uint16 and uint8 out, 0.25 code in float32.
 - The port's window against its own per-frame process_pixels: 0 codes.
 - EWA (interpolation 11) on F = 2 frames, against both.
+- The window on dp x sp meshes of logical CPU shards against the
+  one-device window (0 codes) and, float32 on 2 x 2 shards, against the
+  JAX manager's window on its 4-device mesh (0.25 code); without enough
+  cards ``make_frame_mesh`` raises (the sharded window's kernel route and
+  the bands: test_torch_parallel.py).
 - A window whose kernel configs differ goes through process_pixels frame
-  by frame; a mesh over more than one device raises (ROADMAP queue 1,
-  item 9); a mesh buffer too short for its grid raises (Sony windows:
+  by frame; a mesh buffer too short for its grid raises (Sony windows:
   test_torch_mesh.py); with stabilization off the frames come back
   unchanged.
 """
@@ -138,20 +142,55 @@ def test_heterogeneous_window_goes_per_frame(managers, monkeypatch):
     assert not torch.equal(plain[1], got[1]) and torch.equal(plain[0], got[0])
 
 
-def test_frame_mesh_is_one_device():
+@pytest.mark.parametrize("plane", ["Y", "UV"])
+@pytest.mark.parametrize("n,sp,dtype", [(4, 2, "uint16"), (8, 2, "float32"), (4, 1, "uint8"),
+                                        (2, 2, "uint16")])
+def test_frame_mesh_dp_sp_matches_one_device(managers, plane, n, sp, dtype):
+    """The window on a dp x sp mesh of n logical CPU shards (F = 4: dp = n /
+    sp of 1, 2 or 4) is the one-device window, 0 codes, in its dtype."""
+    tm, _ = managers
+    maxv, _ = DTYPES[dtype]
+    frames = _frames(dtype, plane, len(TS_US))
+    mesh = make_frame_mesh(n, sp=sp, devices=["cpu"] * n)
+    assert mesh.shape == {"dp": n // sp, "sp": sp} and mesh.device == torch.device("cpu")
+    got, info = _window(tm, frames, TS_US, plane, maxv, mesh=mesh)
+    one, _ = _window(tm, frames, TS_US, plane, maxv)
+    assert info["backend"] == "torch-cpu-sharded" and got.device.type == "cpu"
+    assert got.dtype == one.dtype and torch.equal(got, one)
+
+
+def test_frame_mesh_dp_sp_matches_jax(managers):
+    """float32 Y on 2 x 2 logical shards against the JAX manager's window on
+    its 4-device (dp 2, sp 2) mesh, XLA path: 0.25 of a code."""
+    tm, jm = managers
+    frames = _frames("float32", "Y", len(TS_US))
+    got, _ = _window(tm, frames, TS_US, "Y", 1023.0,
+                     mesh=make_frame_mesh(4, sp=2, devices=["cpu"] * 4))
+    want, _ = jm.process_pixels_window(TS_US, frames, jax_frame_mesh(4, sp=2), interpolation=8,
+                                       plane_index=0, max_pixel_value=1023.0, plane_rects=True,
+                                       use_pallas=False)
+    assert np.abs(_codes(got) - _codes(want)).max() <= DTYPES["float32"][1]
+
+
+def test_frame_mesh_takes_cards():
+    """By default the mesh is the cards, and too few cards raise: nothing
+    moves to the CPU on its own. Named devices make a 1 x 1 mesh too."""
     mesh = make_frame_mesh(1, device="cpu")
-    assert mesh == FrameMesh(torch.device("cpu")) and mesh.shape == {"dp": 1, "sp": 1}
-    assert make_frame_mesh().device == torch.device("cuda", 0)
-    for n, sp in ((2, 1), (8, 2), (1, 2)):
-        with pytest.raises(NotImplementedError, match="item 9"):
-            make_frame_mesh(n, sp=sp, device="cpu")
+    assert mesh == FrameMesh(((torch.device("cpu"),),)) and mesh.shape == {"dp": 1, "sp": 1}
+    n_cards = torch.cuda.device_count() if torch.cuda.is_available() else 0
+    if n_cards < 2:
+        with pytest.raises(RuntimeError, match=f"over 2 CUDA devices: {n_cards} present"):
+            make_frame_mesh(2)
+    else:
+        assert make_frame_mesh(2).devices == ((torch.device("cuda", 0),),
+                                              (torch.device("cuda", 1),))
 
 
 def test_window_refuses_other_devices_and_mesh_data(managers, monkeypatch):
     tm, _ = managers
     frames = _frames("uint16", "Y", 2)
     with pytest.raises(ValueError, match="frame mesh on meta"):
-        _window(tm, frames, TS_US[:2], "Y", 1023.0, mesh=FrameMesh(torch.device("meta")))
+        _window(tm, frames, TS_US[:2], "Y", 1023.0, mesh=make_frame_mesh(devices=["meta"]))
     # a mesh buffer too short for the grid its flags name raises
     ft = tm.frame_transform_at(tm._adjusted_ts_ms(TS_US[0]))
     meshed = dataclasses.replace(ft, mesh_data=np.zeros(16, np.float32),
