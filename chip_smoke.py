@@ -100,8 +100,10 @@ exits non-zero without the final line):
    coords launches a plane), an 8-frame process_pixels_window, 3 EWA frames,
    an 8-frame 4K y4m through render(), an ST-map export, a per-frame
    undistort map (its rolling-shutter probe on the coords kernel) and one
-   overlay frame, each 0 codes from the plain path, and the Sony frame's
-   device time and launches under torch.profiler;
+   overlay frame, each 0 codes from the plain path, the overlay frame's Y
+   plane in 3 row bands (remap_plane_cuda(out_rows, oy0) with the drawing,
+   cut inside the safe-area rect's border) 0 codes from the whole plane,
+   and the Sony frame's device time and launches under torch.profiler;
 10. the sharded window (parallel.pipeline: frames over "dp", output-row
    bands over "sp", each band through remap_plane_cuda(out_rows, oy0)) on a
    2 x 2 mesh of logical shards of cuda:0: (a) phase 4e's 8 timestamps of
@@ -130,8 +132,8 @@ its definition so that it compares across runs.
 Second-to-last lines: the card's name and power limit, then one JSON object
 with the kernels; last line: {"ok": true, "device": {...}}. Needs one card and
 nvcc; a copy of the kernel library is built under gyroflow_torch/build/.
-A few minutes on an H100, the kernels' build (one nvcc per source, run
-together; ~55 s, fused.cu's 72 instantiations the longest), Triton's
+A few minutes on an H100 (150 s in all), the kernels' build (one nvcc per
+source, run together; ~55 s, fused.cu's 72 instantiations the longest), Triton's
 compile, phase 4g's host-side ST maps and phase 8's three extra managers
 included: the host's share varies with the machine's load.
 """
@@ -171,7 +173,7 @@ PEAK_FP32_S = 67e12
 # 4, theta_d 9, scale selects 5, scale/f/c/stretch 11.
 PROJECT_OPS = 77
 POST_OPS = 16               # fused: source-rect map 8, guard 6, tap offset 2
-GEN_PRE_OPS = 18            # gen: position 3, out-rect map 8, t2d 2, rint index 4, select 1
+GEN_PRE_OPS = 16            # gen: position 3, out-rect map 6, t2d 2, rint index 4, select 1
 # FP32 operations of each model's distort_xy (csrc/lens.cuh), counted as
 # PROJECT_OPS is: (outside its loop, per loop step). A masked loop (gopro's
 # Newton, a digital lens's fixed point: its map + 10) is counted at the
@@ -1371,6 +1373,29 @@ def sony_phase(dev, smi, workdir, planes, dev_planes, kernel_ms, driven, expect,
         print(f"overlay frame {name:2s}: vs the plain path max|d| {d} codes (limit 0)")
         check(d == 0, f"overlay frame {name}: differs from the plain path")
 
+    # the drawing on row bands (remap_plane_cuda(out_rows, oy0)), cut inside
+    # the safe-area rect's 5-px border at its top and bottom edges
+    phase("Sony clip: the overlay frame's Y plane in 3 row bands through remap_plane_cuda("
+          "out_rows, oy0), the bands against the whole plane")
+    cfg, dyn, mats = plane_setup(sm, planes, ts0, "Y", 8)
+    cfg = cfg._replace(flags=cfg.flags | DRAWING_ENABLED)
+    mesh = plane_mesh(sm, ts0)
+    whole = remap.remap_plane_cuda(dev_planes["Y"], mats, cfg, dyn, mesh, drawing=drawing,
+                                   out_dtype="uint16")
+    top, bottom = int(round(0.1 * H)) - 2, int(round(0.9 * H)) + 2
+    cuts = (0, top, bottom, H)
+    with driven("overlay bands", expect(coords=2 * 3, sampler=3, overlay=3),
+                frames=1) as launches_bands:
+        got = torch.cat([remap.remap_plane_cuda(dev_planes["Y"], mats, cfg, dyn, mesh,
+                                                drawing=drawing, out_dtype="uint16",
+                                                out_rows=b - a, oy0=a)
+                         for a, b in zip(cuts[:-1], cuts[1:])])
+    d = int((got.to(torch.int32) - whole.to(torch.int32)).abs().max())
+    print(f"overlay bands Y (rows {cuts}): {tuple(got.shape)} {got.dtype}; vs the whole plane "
+          f"max|d| {d} codes (limit 0); vs the overlay frame's Y {int((got != outs['Y']).sum())} "
+          f"px differ")
+    check(d == 0, "overlay bands: differ from the whole plane")
+
     # ---- where a Sony frame's device time goes ---------------------------------
     def frame(i):
         for name in ("Y", "UV"):
@@ -1401,7 +1426,7 @@ def sony_phase(dev, smi, workdir, planes, dev_planes, kernel_ms, driven, expect,
 
     n_coords = sum(c["coords"] for c in (launches, launches_window, launches_ewa,
                                           launches_render, launches_stmap, launches_stprobe,
-                                          launches_overlay))
+                                          launches_overlay, launches_bands))
     b_c = bound([rows[n]["bound"] for n in ("Y", "UV")])
     b_o = bound([ov_rows[n]["bound"] for n in ("Y", "UV")])
     entries = [
@@ -1414,7 +1439,7 @@ def sony_phase(dev, smi, workdir, planes, dev_planes, kernel_ms, driven, expect,
          "bound_ms": b_c[0], "bound_by": b_c[1], "library_ms": None},
         {"name": "overlay", "route": "cuda", "source": "gyroflow_torch/csrc/overlay.cu",
          "replaces": "gyroflow_tpu/ops/pallas_sampler.py:536",
-         "launches": launches_overlay["overlay"],
+         "launches": launches_overlay["overlay"] + launches_bands["overlay"],
          "max_abs_err": max(r["err"] for r in ov_rows.values()),
          "ms": sum(r["ms"] for r in ov_rows.values()),
          "plain_ms": sum(r["plain_ms"] for r in ov_rows.values()),
@@ -1424,7 +1449,7 @@ def sony_phase(dev, smi, workdir, planes, dev_planes, kernel_ms, driven, expect,
                      "launches": {"process_pixels": launches, "window": launches_window,
                                   "ewa": launches_ewa, "render": launches_render,
                                   "stmap": launches_stmap, "stmap_per_frame": launches_stprobe,
-                                  "overlay": launches_overlay},
+                                  "overlay": launches_overlay, "overlay_bands": launches_bands},
                      "render": render_stats, "profiled_wall_ms": wall, "device_ms": busy,
                      "kernels_per_frame": n_k}
 

@@ -58,7 +58,7 @@ class OverlayArgs(ctypes.Structure):
     _fields_ = [("colors", ctypes.c_float * 32), ("maxv", ctypes.c_float),
                 ("scale", ctypes.c_float), ("src", ctypes.c_float * 4),
                 ("safe", ctypes.c_int), ("rect", ctypes.c_float * 4),
-                ("band", ctypes.c_float * 4)]
+                ("band", ctypes.c_float * 4), ("oy0", ctypes.c_int)]
 
 
 class SamplerArgs(ctypes.Structure):
@@ -79,7 +79,7 @@ class FusedArgs(ctypes.Structure):
 class GenArgs(ctypes.Structure):
     """Mirror of ``GenArgs`` (csrc/coords.cu)."""
     _fields_ = [("oy0", ctypes.c_int), ("pos_d", ctypes.c_float * 2),
-                ("map_x", ctypes.c_float * 4), ("map_y", ctypes.c_float * 4),
+                ("map_x", ctypes.c_float * 3), ("map_y", ctypes.c_float * 3),
                 ("t2d", ctypes.c_float * 2), ("lim", ctypes.c_float)]
 
 

@@ -74,11 +74,29 @@
 // exact window check and overflow output, and project_tiles_gen's 6-point
 // coarse window plan are TPU-only and not ported. It reads no x, y, idx
 // and writes u, v, valid (9 B/px) while running two projection chains per
-// pixel (the probe and the projection, ~170 FP32 operations), so bytes and
-// operations bound it about equally on an H100 (chip_smoke.py prints both).
-// The simple design is the coords kernel's: one thread per output pixel on
-// 32x8 blocks; the centre row is read from the table (every thread the same
-// 14 floats, one cached line).
+// pixel (the probe and the projection, ~170 FP32 operations). Its bytes are
+// few (0.0279 ms on 4K Y+UV); what bounds it is instruction issue: each
+// chain's IEEE divisions and square root, the accurate arctangent, and each
+// multiply and add on its own (--fmad=false). Its first form issued ~498
+// instructions a pixel (the SASS walk of sampler_bench.py), 1.13x the time
+// the card needs to issue them (NVIDIA H100 80GB HBM3, 700.00 W: PERF.md),
+// so the redesign cuts instructions, not bytes:
+// - the probe keeps only the coordinate the row select reads (a branch on
+//   the launch-uniform HORIZONTAL_RS flag picks an inlined copy that has
+//   the other one's last steps, among them an IEEE division, left out);
+// - the arctangent divides once (lens.cuh atanf_cephes), and a stretch of
+//   exactly 1 divides not at all (project_point): the same bits, and every
+//   kernel that projects gains them;
+// - the out-rect map's "+ 0" is left out (gen_args sends t2d without -0);
+// - both matrix rows come in seven 8-byte loads each (a row is 56 bytes, so
+//   every row is 8-byte aligned when the table is).
+// Read one at a time and rejected: two pixels a thread on 32x4 blocks (46-48
+// registers against 32, fewer warps: 13% slower), the centre row staged in
+// shared memory once a block (no gain over its loads: the barrier and the
+// staging cost what the loads saved), and a pixel that selects the centre
+// row keeping the probe's result (3% slower: the branch diverges, and the
+// probe must then keep both coordinates). One thread a pixel on 32x8
+// blocks, as before.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -88,9 +106,9 @@
 struct GenArgs {
     int oy0;          // absolute output row of the band's first row
     float pos_d[2];   // pos_dx, pos_dy added to ox, oy
-    float map_x[4];   // out-rect map: in_min, out_max - out_min, 1 / (in_max - in_min), out_min
-    float map_y[4];
-    float t2d[2];     // translation2d
+    float map_x[3];   // out-rect map: in_min, out_max - out_min, 1 / (in_max - in_min)
+    float map_y[3];
+    float t2d[2];     // translation2d, -0 sent as +0
     float lim;        // RS row clip: width (horizontal RS) or height
 };
 
@@ -164,6 +182,37 @@ __device__ __forceinline__ int rint_index(float a, float lim) {
     return static_cast<int>(r);
 }
 
+// The 14 floats of a matrix row: seven 8-byte loads where the table starts
+// on 8 bytes (every row then does: a row is 56 bytes), else fourteen.
+__device__ __forceinline__ void load_matrix_row(const float* __restrict__ row, bool aligned8,
+                                                float* m) {
+    if (aligned8) {
+        const float2* q = reinterpret_cast<const float2*>(row);
+#pragma unroll
+        for (int j = 0; j < 7; ++j) {
+            const float2 f = __ldg(q + j);
+            m[2 * j] = f.x;
+            m[2 * j + 1] = f.y;
+        }
+    } else {
+#pragma unroll
+        for (int j = 0; j < 14; ++j) m[j] = __ldg(row + j);
+    }
+}
+
+// The rolling-shutter probe's row: the point through the centre row, and
+// of the projection only the coordinate the row select reads (the other
+// one's last steps, among them an IEEE division, are left out: the kept
+// coordinate's operations and their order are the projection's own).
+template <int MODEL, bool HORIZONTAL>
+__device__ __forceinline__ int probe_row(float x, float y, const float* mc,
+                                         const gf::CoordParams& p, int flags, float lim) {
+    float pu, pv;
+    bool pvalid;
+    gf::project_point<MODEL, false>(x, y, mc, p, flags, pu, pv, pvalid);
+    return rint_index(pvalid ? (HORIZONTAL ? pu : pv) : (HORIZONTAL ? x : y), lim);
+}
+
 template <int MODEL>
 __global__ void coords_gen_kernel(const float* __restrict__ mats, int rows, gf::CoordParams p,
                                   int flags, GenArgs g, int out_rows, int ow,
@@ -179,30 +228,28 @@ __global__ void coords_gen_kernel(const float* __restrict__ mats, int rows, gf::
     // as torch divides by a host scalar on the card.
     const float ox = static_cast<float>(col) + g.pos_d[0];
     const float oy = static_cast<float>(g.oy0 + row) + g.pos_d[1];
-    float x = ((ox - g.map_x[0]) * g.map_x[1]) * g.map_x[2] + g.map_x[3];
-    float y = ((oy - g.map_y[0]) * g.map_y[1]) * g.map_y[2] + g.map_y[3];
-    x = x + g.t2d[0];
-    y = y + g.t2d[1];
+    // The map's "+ out_min" (0) is left out: the translation's add follows,
+    // and (a + 0) + t has the bits of a + (t + 0) for every a and t; the
+    // host sends t2d with its -0 made +0 (gen_args).
+    const float x = ((ox - g.map_x[0]) * g.map_x[1]) * g.map_x[2] + g.t2d[0];
+    const float y = ((oy - g.map_y[0]) * g.map_y[1]) * g.map_y[2] + g.t2d[1];
 
     // rolling-shutter row select (remap.py:205-217)
     const bool horizontal = flags & gf::HORIZONTAL_RS;
-    int sy = rint_index(horizontal ? x : y, g.lim);
+    const bool aligned8 = (reinterpret_cast<uintptr_t>(mats) & 7) == 0;
+    int sy;
     if (rows > 1) {
-        const float* crow = mats + (long long)(rows / 2) * 14;
         float mc[14];
-#pragma unroll
-        for (int j = 0; j < 14; ++j) mc[j] = __ldg(crow + j);
-        float pu, pv;
-        bool pvalid;
-        gf::project_point<MODEL, false>(x, y, mc, p, flags, pu, pv, pvalid);
-        if (pvalid) sy = rint_index(horizontal ? pu : pv, g.lim);
+        load_matrix_row(mats + (long long)(rows / 2) * 14, aligned8, mc);
+        sy = horizontal ? probe_row<MODEL, true>(x, y, mc, p, flags, g.lim)
+                        : probe_row<MODEL, false>(x, y, mc, p, flags, g.lim);
+    } else {
+        sy = rint_index(horizontal ? x : y, g.lim);
     }
     const int r = sy < rows - 1 ? sy : rows - 1;
 
-    const float* mrow = mats + (long long)r * 14;
     float m[14];
-#pragma unroll
-    for (int j = 0; j < 14; ++j) m[j] = __ldg(mrow + j);
+    load_matrix_row(mats + (long long)r * 14, aligned8, m);
     float u, v;
     bool valid;
     gf::project_point<MODEL, false>(x, y, m, p, flags, u, v, valid);

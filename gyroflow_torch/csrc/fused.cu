@@ -42,15 +42,45 @@
 // round trip (9 B/px written by the coords kernel and read back by the
 // sampler): x, y, idx in (12 B/px), the plane's taps (mostly L1/L2 hits), the
 // float32 output. Per pixel it runs the ~60-operation projection chain and
-// then the 64-tap lanczos4 loop, so one thread holds both the chain's
-// registers and the tap loop's.
+// then the 64-tap lanczos4 loop. Its first form ran both in one thread per
+// pixel on 32x8 blocks: the thread held the chain's registers and the tap
+// loop's together (72), each thread had one pixel's loads to overlap, and it
+// read 0.3293 ms on 4K Y against the split pair's 0.0872 + 0.2083 ms
+// (PERF.md, NVIDIA H100 80GB HBM3, 700.00 W).
 //
-// What the design does about it: one thread per output pixel on 32x8
-// blocks, the matrix row read with __ldg, and the
-// split sampler's tap loop (taps.cuh): the interpolation's LUT slice staged
-// in shared memory by each block and read as float4s at the pixel's phases,
-// and the stencils that lie wholly inside the plane and the source rect
-// read row by row with aligned 16-byte loads.
+// What the design does about it: the split sampler's shape. 32x4 threads
+// cover a 32x8 tile, two rows a thread (rows r and r + 4 of the tile); a
+// thread projects its first pixel and samples it, then its second, in a
+// loop the compiler keeps rolled, so one pixel's chain and taps are live at
+// a time. At the 72 registers of <uint16, C1, lanczos4> a SM holds 7 such
+// blocks (28 warps), where it held 3 blocks of 32x8 threads (24 warps), and
+// the block's LUT staging and index work serve twice the pixels a thread.
+// The block stages its interpolation's LUT slice in shared memory and the
+// taps are taps.cuh's (float4 weights at the pixel's phases, aligned
+// 16-byte row loads for stencils wholly inside the plane and the source
+// rect). Read one step at a time against the first form (sampler_bench.py,
+// NVIDIA H100 80GB HBM3, 700.00 W; PERF.md has the final reading): 4K Y+UV
+// 0.4363 -> 0.3780 ms, below the split pair's 0.4040 in the same call.
+// Rejected:
+//   - two phases split by a barrier (each thread projects both pixels into
+//     a shared tile of tap positions, then samples them): 0.4008 ms with
+//     two rows a thread, and 0.4672 ms with one row a thread on 32x8
+//     blocks, slower than the first form: the barrier holds a block's tap
+//     loads back until all its chains are done;
+//   - two chains unrolled side by side: more registers, 0.4179 ms against
+//     0.4036 rolled (both with the barrier);
+//   - four rows a thread: 0.4205 ms with the barrier, and 1% faster for
+//     the fisheye form and 2% slower for the any-lens form without it;
+//   - a 64-register cap (8 blocks a SM): 2% faster for the fisheye form,
+//     which then spills 20 bytes, and 3% slower for the any-lens form (40
+//     bytes of spills); one bound serves both forms;
+//   - the block's source footprint staged in shared memory with cp.async
+//     (16-byte copies of the tile's stencil bounding box, clipped to the
+//     plane; 8 KB a block; a tile over the budget sampling from global
+//     memory; it needs the two-phase split, for the tile's positions):
+//     every fisheye tile and 82% of the any-lens tiles staged, and it read
+//     7.8% slower than the same two-phase form without it (0.4293 against
+//     0.3983 ms): the taps were L1 hits already, and the copy is extra work.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -62,51 +92,60 @@ using gf::Interp;
 
 namespace {
 
+// A block of 32 x 4 threads covers 32 x 8 output pixels: each thread takes
+// two, rows r and r + 4 of the block's tile.
+constexpr int kBlockX = 32, kBlockY = 4, kRowsPerThread = 2;
+constexpr int kTileY = kBlockY * kRowsPerThread;
+
 template <typename T, int C, int TAPS, bool ANY_LENS>
-__global__ void fused_kernel(const T* __restrict__ img, int H, int W,
-                             const float* __restrict__ xs, const float* __restrict__ ys,
-                             const int32_t* __restrict__ idx, const float* __restrict__ mats,
-                             int rows, const __grid_constant__ gf::CoordParams p, int flags,
-                             int model, int digital,
-                             const float* __restrict__ lut, FusedArgs a, int oh, int ow,
-                             float* __restrict__ out) {
+__global__ void __launch_bounds__(kBlockX * kBlockY)
+fused_kernel(const T* __restrict__ img, int H, int W, const float* __restrict__ xs,
+             const float* __restrict__ ys, const int32_t* __restrict__ idx,
+             const float* __restrict__ mats, int rows, const __grid_constant__ gf::CoordParams p,
+             int flags, int model, int digital, const float* __restrict__ lut, FusedArgs a,
+             int oh, int ow, float* __restrict__ out) {
     __shared__ __align__(16) float s_lut[gf::kSliceSize<TAPS>];
     gf::stage_lut<TAPS>(lut, s_lut);
 
-    const int col = blockIdx.x * blockDim.x + threadIdx.x;
-    const int row = blockIdx.y * blockDim.y + threadIdx.y;
-    if (col >= ow || row >= oh) return;
-    const long long i = (long long)row * ow + col;
-    float* o = out + i * C;
+    const int col = blockIdx.x * kBlockX + threadIdx.x;
+    if (col >= ow) return;
+#pragma unroll 1
+    for (int k = 0; k < kRowsPerThread; ++k) {
+        const int row = blockIdx.y * kTileY + k * kBlockY + threadIdx.y;
+        if (row >= oh) return;
+        const long long i = (long long)row * ow + col;
+        float* o = out + i * C;
 
-    int r = idx[i];
-    r = r < 0 ? 0 : (r >= rows ? rows - 1 : r);
-    const float* mrow = mats + (long long)r * 14;
-    float m[14];
+        int r = idx[i];
+        r = r < 0 ? 0 : (r >= rows ? rows - 1 : r);
+        const float* mrow = mats + (long long)r * 14;
+        float m[14];
 #pragma unroll
-    for (int j = 0; j < 14; ++j) m[j] = __ldg(mrow + j);
+        for (int j = 0; j < 14; ++j) m[j] = __ldg(mrow + j);
 
-    float u, v;
-    bool valid;
-    if constexpr (ANY_LENS) {
-        gf::project_point<gf::kAnyModel, true>(xs[i], ys[i], m, p, flags, u, v, valid, model,
-                                               digital);
-    } else {
-        gf::project_point<gf::kOpencvFisheye, false>(xs[i], ys[i], m, p, flags, u, v, valid);
-    }
-    if (!valid) {
+        float u, v;
+        bool valid;
+        if constexpr (ANY_LENS) {
+            gf::project_point<gf::kAnyModel, true>(xs[i], ys[i], m, p, flags, u, v, valid,
+                                                   model, digital);
+        } else {
+            gf::project_point<gf::kOpencvFisheye, false>(xs[i], ys[i], m, p, flags, u, v,
+                                                         valid);
+        }
+        if (!valid) {
 #pragma unroll
-        for (int c = 0; c < C; ++c) o[c] = a.s.bg[c];
-        return;
-    }
-    gf::post_uv(u, v, a);
-    // the JAX order: guard, then the tap offset (pallas_fused.py:123-137)
-    const float su = gf::guard_uv(u) - Interp<TAPS>::offset;
-    const float sv = gf::guard_uv(v) - Interp<TAPS>::offset;
-    float total[C];
-    gf::sample_taps<T, C, TAPS>(img, H, W, su, sv, a.s, s_lut, total);
+            for (int c = 0; c < C; ++c) o[c] = a.s.bg[c];
+            continue;
+        }
+        gf::post_uv(u, v, a);
+        // the JAX order: guard, then the tap offset (pallas_fused.py:123-137)
+        const float su = gf::guard_uv(u) - Interp<TAPS>::offset;
+        const float sv = gf::guard_uv(v) - Interp<TAPS>::offset;
+        float total[C];
+        gf::sample_taps<T, C, TAPS>(img, H, W, su, sv, a.s, s_lut, total);
 #pragma unroll
-    for (int c = 0; c < C; ++c) o[c] = fminf(total[c], a.s.limit);
+        for (int c = 0; c < C; ++c) o[c] = fminf(total[c], a.s.limit);
+    }
 }
 
 struct Launch {
@@ -118,8 +157,8 @@ struct Launch {
 
 template <typename T, int C, int TAPS, bool ANY_LENS>
 void launch_lens(const Launch& l) {
-    const dim3 block(32, 8);
-    const dim3 grid((l.ow + block.x - 1) / block.x, (l.oh + block.y - 1) / block.y);
+    const dim3 block(kBlockX, kBlockY);
+    const dim3 grid((l.ow + kBlockX - 1) / kBlockX, (l.oh + kTileY - 1) / kTileY);
     fused_kernel<T, C, TAPS, ANY_LENS><<<grid, block, 0, l.s>>>(
         static_cast<const T*>(l.img), l.H, l.W, static_cast<const float*>(l.x),
         static_cast<const float*>(l.y), static_cast<const int32_t*>(l.idx),

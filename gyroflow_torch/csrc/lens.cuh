@@ -132,9 +132,11 @@ __device__ __forceinline__ float atanf_cephes(float x) {
     const float ax = fabsf(x);
     const bool big = ax > 2.414213562373095f;           // tan(3*pi/8)
     const bool mid = (ax > 0.4142135623730950f) && !big;  // tan(pi/8)
-    const float z_big = -1.0f / (ax == 0.0f ? 1.0f : ax);
-    const float z_mid = (ax - 1.0f) / (ax + 1.0f);
-    const float z = big ? z_big : (mid ? z_mid : ax);
+    // -1 / ax above tan(3*pi/8), (ax - 1) / (ax + 1) above tan(pi/8): one
+    // IEEE division for both, of the operands the range selects (the same
+    // quotient bits as dividing each and selecting one)
+    const float q = (big ? -1.0f : ax - 1.0f) / (big ? ax : ax + 1.0f);
+    const float z = (big || mid) ? q : ax;
     const float y0 = big ? 1.57079632679489662f : (mid ? 0.785398163397448310f : 0.0f);
     const float z2 = z * z;
     const float p = ((8.05374449538e-2f * z2 - 1.38776856032e-1f) * z2
@@ -756,8 +758,10 @@ __device__ __forceinline__ void project_point(float px, float py, const float* m
             }
         }
     }
-    if (p.stretch_h > 0.001f) u = u / p.stretch_h;
-    if (p.stretch_v > 0.001f) v = v / p.stretch_v;
+    // a division by a stretch of exactly 1 returns its dividend (IEEE
+    // division is exact there), so it is left out
+    if (p.stretch_h > 0.001f && p.stretch_h != 1.0f) u = u / p.stretch_h;
+    if (p.stretch_v > 0.001f && p.stretch_v != 1.0f) v = v / p.stretch_v;
 }
 
 }  // namespace gf

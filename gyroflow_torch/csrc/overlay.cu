@@ -12,7 +12,9 @@
 //     blended where (u, v) lies inside the source rect and the byte's stage
 //     bit is 0;
 //   - the output stage: the byte at the output pixel (ox, oy), blended where
-//     its stage bit is 1;
+//     its stage bit is 1; oy is the absolute output row (oy0 + the row of a
+//     band of output rows, as remap_plane_pallas adds oy0 at remap.py:709),
+//     so a band draws what the same rows of the whole plane draw;
 //   - the blend (spirv drawing.rs:37-49): COLORS[color][c] * max_pixel_value
 //     at alpha 1 - 0.25 * alpha over the pixel;
 //   - the safe-area dim (drawing.rs:52-69): 1 inside the rect, 0.25 in its
@@ -43,6 +45,7 @@ struct OverlayArgs {
     int safe;           // 1: dim outside the safe-area rect
     float rect[4];      // safe-area rect rx, ry, rz, rw
     float band[4];      // its border band: rx - 5, ry - 5, rz + 5, rw + 5
+    int oy0;            // absolute output row of the plane's (or band's) first row
 };
 
 namespace {
@@ -90,7 +93,7 @@ __global__ void overlay_kernel(const float* __restrict__ pixel, const float* __r
     const float u = us[i];
     const float v = vs[i];
     const float ox = static_cast<float>(col);
-    const float oy = static_cast<float>(row);
+    const float oy = static_cast<float>(a.oy0 + row);
 
     const bool src_in = v >= a.src[1] && v < a.src[3] && u >= a.src[0] && u < a.src[2];
     const int d_in = canvas_fetch(canvas, hc, wc, u, v, a.scale);

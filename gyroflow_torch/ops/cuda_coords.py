@@ -291,7 +291,8 @@ def _check_gen(cfg: KernelConfig, matrices, out_rows: int, oy0: int):
 def gen_args(cfg: KernelConfig, dyn: KernelDynamics, oy0: int, pos_dx: float, pos_dy: float):
     """The kernel's by-value GenArgs. The out-rect map's division is a
     multiply by the float32 reciprocal, as torch divides by a host scalar on
-    the card."""
+    the card; its out_min is 0, which the kernel leaves out (so translation2d
+    goes up with a -0 made +0)."""
     from .._build import GenArgs
 
     f32 = np.float32
@@ -300,10 +301,13 @@ def gen_args(cfg: KernelConfig, dyn: KernelDynamics, oy0: int, pos_dx: float, po
     g.oy0 = int(oy0)
     g.pos_d[:] = [pos_dx, pos_dy]
     g.map_x[:] = [float(orx), float(cfg.output_width) - 0.0,
-                  float(f32(1.0) / f32(float(orx + orw) - float(orx))), 0.0]
+                  float(f32(1.0) / f32(float(orx + orw) - float(orx)))]
     g.map_y[:] = [float(ory), float(cfg.output_height) - 0.0,
-                  float(f32(1.0) / f32(float(ory + orh) - float(ory))), 0.0]
-    g.t2d[:] = np.asarray(dyn.translation2d, np.float32).reshape(-1)[:2].tolist()
+                  float(f32(1.0) / f32(float(ory + orh) - float(ory)))]
+    # + 0 turns a -0 into +0: the kernel adds t2d to the map without the
+    # map's + out_min (0), and (a + 0) + t == a + (t + 0) for every a and t
+    g.t2d[:] = (np.asarray(dyn.translation2d, np.float32).reshape(-1)[:2]
+                + np.float32(0.0)).tolist()
     g.lim = float(cfg.width if cfg.has(HORIZONTAL_RS) else cfg.height)
     return g
 

@@ -6,7 +6,8 @@ the canvas fetches that ride the Pallas sampler ``_sample_call`` through
 ``_canvas_fetch_t``, then the XLA blend and safe-area dim) with the CUDA
 kernel ``gf_overlay`` of ``csrc/overlay.cu``: one thread per output pixel
 fetches the canvas bytes under its source and output positions, blends
-them and dims outside the safe area. ``overlay_plain`` is the same function
+them and dims outside the safe area; on a band of output rows (``oy0``) the
+output positions are absolute rows, as in the JAX band. ``overlay_plain`` is the same function
 in plain torch (``remap._draw_overlay``).
 
 The wrapper checks its inputs, then runs the plain version for CPU tensors
@@ -23,21 +24,24 @@ from . import remap
 
 
 def overlay_plain(pixel, u, v, canvas, scale: float, safe_area_rect, src_rect,
-                  max_pixel_value: float):
-    """remap._draw_overlay on the output grid of pixel's (oh, ow)."""
+                  max_pixel_value: float, oy0: int = 0):
+    """remap._draw_overlay on the output grid of pixel's (oh, ow), whose
+    first row is absolute output row oy0."""
     oh, ow = pixel.shape[:2]
     dev = pixel.device
-    oy, ox = torch.meshgrid(torch.arange(oh, dtype=torch.float32, device=dev),
+    oy, ox = torch.meshgrid(torch.arange(oy0, oy0 + oh, dtype=torch.float32, device=dev),
                             torch.arange(ow, dtype=torch.float32, device=dev), indexing="ij")
     scale_t = torch.full((), float(scale), dtype=torch.float32, device=dev)
     return remap._draw_overlay(pixel, u, v, ox, oy, canvas, scale_t, safe_area_rect, src_rect,
                                max_pixel_value)
 
 
-def overlay_args(scale: float, safe_area_rect, src_rect, max_pixel_value: float):
+def overlay_args(scale: float, safe_area_rect, src_rect, max_pixel_value: float,
+                 oy0: int = 0):
     """The kernel's by-value OverlayArgs: the colour table, the source rect's
     bounds and the safe area's rect and band, as float32 (as the plain
-    version compares them)."""
+    version compares them), and the absolute output row oy0 of the first
+    row."""
     from .._build import OverlayArgs
 
     a = OverlayArgs()
@@ -51,6 +55,7 @@ def overlay_args(scale: float, safe_area_rect, src_rect, max_pixel_value: float)
         a.safe = 1
         a.rect[:] = rect
         a.band[:] = band
+    a.oy0 = int(oy0)
     return a
 
 
@@ -74,18 +79,21 @@ def _check(pixel, u, v, canvas):
 
 
 def overlay(pixel, u, v, canvas, scale: float, safe_area_rect, src_rect,
-            max_pixel_value: float):
+            max_pixel_value: float, oy0: int = 0):
     """Blend the drawing canvas into (oh, ow, C) float32 pixels.
 
     u, v: float32 (oh, ow) source positions (after coords_post_uv); canvas:
     (hc, wc) uint8 tensor of packed bytes (core/drawing.py); scale: the
     canvas scale; safe_area_rect: (rx, ry, rz, rw) or None; src_rect: the
-    plane's source rect (x, y, w, h). Returns a new (oh, ow, C) float32
-    tensor."""
+    plane's source rect (x, y, w, h); oy0: the absolute output row of
+    pixel's first row (a band of output rows starts at oy0 > 0). Returns a
+    new (oh, ow, C) float32 tensor."""
     _check(pixel, u, v, canvas)
+    if oy0 < 0:
+        raise ValueError(f"overlay kernel: oy0 {oy0} < 0")
     if pixel.device.type == "cpu":
         return overlay_plain(pixel, u, v, canvas, scale, safe_area_rect, src_rect,
-                             max_pixel_value)
+                             max_pixel_value, oy0)
     if pixel.device.type != "cuda":
         raise ValueError(f"overlay kernel: unsupported device {pixel.device}")
     from .._build import lib
@@ -98,7 +106,7 @@ def overlay(pixel, u, v, canvas, scale: float, safe_area_rect, src_rect,
     with torch.cuda.device(pixel.device):
         err = L.gf_overlay(pixel.data_ptr(), u.data_ptr(), v.data_ptr(), canvas.data_ptr(),
                            canvas.shape[0], canvas.shape[1], oh, ow, C,
-                           overlay_args(scale, safe_area_rect, src_rect, max_pixel_value),
+                           overlay_args(scale, safe_area_rect, src_rect, max_pixel_value, oy0),
                            out.data_ptr(), torch.cuda.current_stream(pixel.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"overlay kernel launch failed: cudaError {err}")

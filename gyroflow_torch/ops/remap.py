@@ -842,8 +842,8 @@ def remap_plane_cuda(img, matrices, cfg: KernelConfig, dyn: KernelDynamics, mesh
     ``out_rows``, ``oy0``: compute only the band of output rows oy0 .. oy0 +
     out_rows (remap_plane_pallas's row band, remap.py:678-709), with every
     coordinate in absolute output space, so the bands give the bits of the
-    same rows of the whole plane. The overlay kernel draws whole planes (it
-    takes no row offset), so a band takes no drawing."""
+    same rows of the whole plane; the drawing overlay too, at the band's
+    absolute rows (remap.py:709, 1005)."""
     from . import cuda_coords, cuda_ewa, cuda_fused, cuda_overlay, cuda_sampler
 
     ow, oh = cfg.out_buffer
@@ -851,9 +851,6 @@ def remap_plane_cuda(img, matrices, cfg: KernelConfig, dyn: KernelDynamics, mesh
     oy0 = int(oy0)
     if rows < 0 or oy0 < 0 or oy0 + rows > oh:
         raise ValueError(f"output band of {rows} rows at {oy0}: the plane has {oh} rows")
-    if (rows, oy0) != (oh, 0) and drawing is not None and cfg.has(DRAWING_ENABLED):
-        raise ValueError("a band of output rows takes no drawing: the overlay kernel draws "
-                         "whole planes")
     if has_mesh(cfg) and mesh is not None:
         _check_supported(cfg)
         on_card = isinstance(mesh, torch.Tensor) and mesh.device.type != "cpu"
@@ -891,7 +888,7 @@ def remap_plane_cuda(img, matrices, cfg: KernelConfig, dyn: KernelDynamics, mesh
         def overlay(pixel, u, v, ox, oy):
             return cuda_overlay.overlay(pixel, u.contiguous(), v.contiguous(), canvas,
                                         float(drawing.scale),
-                                        drawing.safe_area_rect, cfg.src_rect, maxv)
+                                        drawing.safe_area_rect, cfg.src_rect, maxv, oy0)
 
     out = _remap(img, matrices, cfg, dyn_t, project, sample, fuse, mesh=mesh,
                  probe=mesh_probe(matrices, cfg, dyn, mesh), overlay=overlay,

@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
-"""Time the sampler kernel (csrc/sampler.cu) and forms of the coords kernel
-(csrc/coords.cu) of one or more copies of gyroflow_torch on the 4K main-path
-inputs, on one CUDA card.
+"""Time the sampler kernel (csrc/sampler.cu), forms of the coords kernel
+(csrc/coords.cu), the fused kernel (csrc/fused.cu) and the self-contained
+coords kernel (gf_coords_gen) of one or more copies of gyroflow_torch on the
+4K main-path inputs, on one CUDA card.
 
     python3 sampler_bench.py [ROOT ...]
 
@@ -32,12 +33,25 @@ reverse (A B ... B A), and reads:
   masks identical (limit 1e-4; the other lenses' and the mesh forms
   bit-identical). A copy with ``cuda_coords.pack_mesh`` gets the mesh
   buffer packed by it, an older copy the reference buffer;
+- the device time for Y and UV of the fused kernel (``cuda_fused.remap_fused``
+  on the frame's x, y, idx: its fisheye form, and its any-lens form on the
+  fisheye + gopro_superview frame) and of the self-contained coords kernel
+  (``cuda_coords.project_gen``, fisheye, the whole plane), the same timer;
+  each held to that copy's plain version (``remap_fused_plain``: at most
+  0.01 codes, the largest difference printed; ``project_gen_plain``:
+  bit-identical);
 - the ptxas registers and spills of ``sampler_kernel<u16,C1,8>``,
   ``<u16,C2,8>`` and of the coords kernel's fisheye plain and digital forms,
   its gopro form and the sony mesh form, for a grid height read at run time
   and for the 9 rows of the Sony clip's grid where the copy has that form
   (a copy from before the mesh form was split off reports its two forms
-  under the same names).
+  under the same names), of the fused kernel's fisheye and any-lens forms
+  and of ``coords_gen_kernel<opencv_fisheye>``;
+- the SASS instructions of ``coords_gen_kernel<opencv_fisheye>`` and of the
+  fused kernel's fisheye form ``<u16,C1,8>`` (``cuobjdump -sass`` on the
+  copy's library: the kernel's instructions in all, and its FP32, MUFU,
+  load and branch instructions), each kernel's SASS written to
+  chiprun_out/sass/.
 
 Prints the card's name and power limit, one JSON line per reading and a
 summary; writes chiprun_out/sampler_bench.json. Exits non-zero if a build,
@@ -62,6 +76,11 @@ BUILDS_AT_ONCE = 3
 # the other lenses timed on the main-path frame: (main model, digital lens)
 LENSES = (("opencv_fisheye", "gopro_superview"), ("opencv_fisheye", "digital_stretch"),
           ("opencv_fisheye", "gopro_warp"), ("gopro", None))
+# the digital lens whose frame the fused kernel's any-lens form is timed on
+FUSED_ANY_LENS = ("opencv_fisheye", "gopro_superview")
+# the kernels whose SASS is counted, by their mangled names
+SASS_KERNELS = {"coords_gen<opencv_fisheye>": "coords_gen_kernelILi0EE",
+                "fused<u16,C1,8>": "fused_kernelItLi1ELi8ELb0EE"}
 # the coords kernel's forms by their mangled names: this tree's three forms,
 # then a tree whose kernel had two (plain, and digital with the mesh)
 COORDS_FORMS = {"coords": ("coords_kernelILi0ELb0ELb0EE", "coords_kernelILi0ELb0EE"),
@@ -141,16 +160,113 @@ def _same(k, p):
                for a, b in zip(k, p))
 
 
+def _sass_instructions(body):
+    """(address, predicate, opcode, operands) of each instruction of a
+    cuobjdump -sass listing."""
+    import re
+    return [(int(m.group(1), 16), m.group(2).strip(), m.group(3), m.group(4).strip())
+            for m in re.finditer(r"/\*([0-9a-f]{4,})\*/\s+((?:@!?U?P\w+\s+)?)([A-Z0-9_.]+)"
+                                 r"([^;]*);", body)]
+
+
+def main_path_instructions(ins):
+    """The instructions one thread issues on the kernel's longest path with
+    no IBIS, no underwater refraction and every IEEE division and square
+    root on its fast path: a conditional branch is always taken where it
+    skips a slow-path CALL within its next 8 instructions or follows a test
+    of the IBIS (0x100) or underwater (0x800) flag for the flag's absence,
+    and either way elsewhere, whichever issues more (so the walk runs the
+    rolling-shutter probe and both chains of the self-contained coords
+    kernel); a path ends at an EXIT that is not predicated, and a branch
+    back to an address on the path (a loop) ends it too. Returns
+    (instructions, double-precision instructions among them): the latter
+    are sin and cos's slow range reduction, 0 on the path this walk means."""
+    import re
+    import sys as _sys
+    at = {a: i for i, (a, *_r) in enumerate(ins)}
+    forced, flag_preds = set(), set()
+    for i, (a, pred, op, args) in enumerate(ins):
+        dest = args.split(",")[0].strip()
+        if re.match(r"U?P\d$", dest):
+            if op.lstrip("U").startswith("LOP3") and re.match(r"U?P\d, U?RZ, U?R\d+, (0x100|0x800),", args):
+                flag_preds.add(dest)
+            else:
+                flag_preds.discard(dest)
+        if op.startswith("BRA") and pred:
+            tgt = int(re.search(r"0x([0-9a-f]+)", args).group(1), 16)
+            if any(x[2].startswith("CALL") for x in ins[i + 1:i + 9] if x[0] < tgt) \
+                    or (pred.startswith("@!") and pred[2:] in flag_preds):
+                forced.add(a)
+    memo, on_path = {}, set()
+    _sys.setrecursionlimit(max(_sys.getrecursionlimit(), 4 * len(ins) + 100))
+
+    def longest(i):
+        """(instructions, f64 instructions) from instruction i to the end."""
+        if i >= len(ins) or i in on_path:
+            return 0, 0
+        if i in memo:
+            return memo[i]
+        on_path.add(i)
+        a, pred, op, args = ins[i]
+        here = (1, int(op.startswith("D")))
+        if op.startswith("EXIT") and not pred:
+            rest = (0, 0)
+        elif op.startswith("BRA"):
+            tgt = at[int(re.search(r"0x([0-9a-f]+)", args).group(1), 16)]
+            if not pred or a in forced:
+                rest = longest(tgt)
+            else:
+                rest = max(longest(i + 1), longest(tgt))
+        else:
+            rest = longest(i + 1)
+        on_path.discard(i)
+        memo[i] = (here[0] + rest[0], here[1] + rest[1])
+        return memo[i]
+
+    return longest(0)
+
+
+def sass_counts(lib_path, cuobjdump, tag):
+    """The SASS of SASS_KERNELS in the library: per kernel, its instructions
+    in all and by class, and those of its main path
+    (main_path_instructions); each kernel's listing goes to
+    chiprun_out/sass/."""
+    import re
+    res = subprocess.run([cuobjdump, "-sass", str(lib_path)], capture_output=True, text=True,
+                         check=True)
+    sections = re.split(r"\n\s*Function : ", res.stdout)
+    out = {}
+    (OUT_DIR / "sass").mkdir(parents=True, exist_ok=True)
+    for key, mangled in SASS_KERNELS.items():
+        body = next((sec for sec in sections if mangled in sec.split("\n", 1)[0]), None)
+        if body is None:
+            continue
+        (OUT_DIR / "sass" / f"{tag}_{mangled}.sass").write_text(body)
+        ins = _sass_instructions(body)
+        base = [op.split(".")[0] for _, _, op, _ in ins]
+        main, f64 = main_path_instructions(ins)
+        out[key] = {"instructions": len(ins), "main_path": main, "main_path_f64": f64,
+                    "fp32": sum(o in ("FADD", "FMUL", "FFMA", "FSETP", "FMNMX", "FSEL", "FSET",
+                                      "FCHK", "FRND", "F2I", "I2F", "F2F") for o in base),
+                    "mufu": base.count("MUFU"),
+                    "loads": sum(o in ("LDG", "LDS", "LDC", "LD", "ULDC") for o in base),
+                    "branches": sum(o in ("BRA", "CALL", "RET", "BSSY", "BSYNC", "EXIT")
+                                    for o in base)}
+    return out
+
+
 def _build(root):
     """Build ROOT's kernel library (run in a process of its own); ptxas
     reports only when this process built it."""
     sys.path.insert(0, str(root))
     from gyroflow_torch import _build as b
     t0 = time.perf_counter()
-    b.build(verbose=True)
+    lib_path = b.build(verbose=True)
+    build_s = time.perf_counter() - t0
     sys.path.insert(0, str(REPO))
     import chip_smoke as cs
-    ptxas = {k: v for k, v in cs.ptxas_summary(b.build_log).items() if k.startswith("sampler")}
+    ptxas = {k: v for k, v in cs.ptxas_summary(b.build_log).items()
+             if k.startswith(("sampler", "fused<u16", "coords_gen"))}
     current = None
     for ln in b.build_log.splitlines():
         if "Compiling entry function" in ln:
@@ -158,7 +274,9 @@ def _build(root):
                             if any(m in ln for m in names)), None)
         elif current and ("spill" in ln or "registers" in ln):
             ptxas[current] = (ptxas.get(current, "") + " " + ln.split(":")[-1].strip()).strip()
-    print(json.dumps({"build_s": time.perf_counter() - t0, "ptxas": ptxas}))
+    cuobjdump = str(Path(b.find_nvcc()).with_name("cuobjdump"))
+    print(json.dumps({"build_s": build_s, "ptxas": ptxas,
+                      "sass": sass_counts(lib_path, cuobjdump, Path(root).name)}))
 
 
 def _time(root, path):
@@ -168,12 +286,32 @@ def _time(root, path):
     sys.path.insert(0, str(root))
     import gyroflow_torch
     from gyroflow_torch.experiments import perf_probe
-    from gyroflow_torch.ops import cuda_coords, cuda_sampler
+    from gyroflow_torch.ops import cuda_coords, cuda_fused, cuda_sampler
+    from gyroflow_torch.ops.kernel_params import dyn_to_torch
 
     if Path(gyroflow_torch.__file__).resolve().parent != (Path(root) / "gyroflow_torch").resolve():
         raise RuntimeError(f"imported {gyroflow_torch.__file__}, not the copy in {root}")
     dev = torch.device("cuda", 0)
     res = {}
+
+    def staged_share(fn):
+        """The share of the fused kernel's tiles that staged their footprint
+        in one call, where the copy's library counts them
+        (gf_fused_tile_counts), else None."""
+        import ctypes
+        from gyroflow_torch import _build
+        counts = getattr(_build.lib(), "gf_fused_tile_counts", None)
+        if counts is None:
+            return None
+        counts.argtypes = [ctypes.c_void_p, ctypes.c_int]
+        buf = (ctypes.c_ulonglong * 2)()
+        torch.cuda.synchronize()
+        counts(ctypes.addressof(buf), 1)
+        fn()
+        torch.cuda.synchronize()
+        counts(ctypes.addressof(buf), 1)
+        return buf[1] / max(buf[0], 1)
+
     for name, d in torch.load(path, weights_only=False).items():
         img, u, v, valid = (d[k].to(dev) for k in ("img", "u", "v", "valid"))
         args = (img, u, v, valid, d["bg"], d["src_rect"], 8, d["limit"])
@@ -195,6 +333,28 @@ def _time(root, path):
         res[name].update(coords_ms=perf_probe.cuda_ms(lambda: cuda_coords.project(*cargs), dev),
                          coords_max_err=cerr)
         mats = d["mats"].to(dev)
+        fargs = (img, *cargs[:4], d["cfg"], d["dyn"], d["bg"], d["limit"])
+        any_lens = d["lenses"][lens_key(*FUSED_ANY_LENS)]
+        aargs = (img, *(any_lens[k].to(dev) for k in ("x", "y", "idx")), mats, any_lens["cfg"],
+                 any_lens["dyn"], d["bg"], d["limit"])
+        for label, a in (("fused", fargs), ("fused_any_lens", aargs)):
+            k = cuda_fused.remap_fused(*a)
+            p = cuda_fused.remap_fused_plain(*a)
+            torch.cuda.synchronize()
+            ferr = float((k - p).abs().max())
+            if not (bool(torch.isfinite(k).all()) and ferr <= TOL):
+                raise AssertionError(f"{root} {name}: {label} off its plain version by {ferr}")
+            res[name][f"{label}_ms"] = perf_probe.cuda_ms(lambda: cuda_fused.remap_fused(*a),
+                                                          dev)
+            res[name][f"{label}_max_err"] = ferr
+            share = staged_share(lambda: cuda_fused.remap_fused(*a))
+            if share is not None:
+                res[name][f"{label}_staged_share"] = share
+        dyn_t = dyn_to_torch(d["dyn"], dev)
+        gargs = (d["cfg"], d["dyn"], mats, d["cfg"].out_buffer[1], 0, *cs_out_cf(d["cfg"], dyn_t))
+        if not _same(cuda_coords.project_gen(*gargs), cuda_coords.project_gen_plain(*gargs)):
+            raise AssertionError(f"{root} {name}: project_gen differs from its plain version")
+        res[name]["gen_ms"] = perf_probe.cuda_ms(lambda: cuda_coords.project_gen(*gargs), dev)
         for key, g in d["lenses"].items():
             largs = (*(g[k].to(dev) for k in ("x", "y", "idx")), mats, g["cfg"], g["dyn"])
             if not _same(cuda_coords.project(*largs), cuda_coords.project_plain(*largs)):
@@ -223,6 +383,8 @@ def _time(root, path):
                 lambda: cuda_coords.project(*pargs), dev)
     res["Y+UV ms"] = res["Y"]["ms"] + res["UV"]["ms"]
     res["coords Y+UV ms"] = res["Y"]["coords_ms"] + res["UV"]["coords_ms"]
+    for key in ("fused", "fused_any_lens", "gen"):
+        res[f"{key} Y+UV ms"] = res["Y"][f"{key}_ms"] + res["UV"][f"{key}_ms"]
     for key in map(lambda ld: lens_key(*ld), LENSES):
         res[f"{key} Y+UV ms"] = res["Y"][f"{key}_ms"] + res["UV"][f"{key}_ms"]
     if "mesh_coords_ms" in res["Y"]:
@@ -275,7 +437,13 @@ def main(roots) -> int:
             print(json.dumps({"root": r, **readings[r][-1]}), flush=True)
     keys = [lens_key(*ld) for ld in LENSES]
     summary = {"card": smi, "roots": [
-        {"root": r, "ptxas": builds[r]["ptxas"],
+        {"root": r, "ptxas": builds[r]["ptxas"], "sass": builds[r]["sass"],
+         **{f"{k} Y ms": [x["Y"][f"{k}_ms"] for x in readings[r]]
+            for k in ("fused", "fused_any_lens", "gen")},
+         **{f"{k} Y+UV ms": [x[f"{k} Y+UV ms"] for x in readings[r]]
+            for k in ("fused", "fused_any_lens", "gen")},
+         "fused max_err": max(max(x[n][f"{k}_max_err"] for n in ("Y", "UV")
+                                  for k in ("fused", "fused_any_lens")) for x in readings[r]),
          "Y ms": [x["Y"]["ms"] for x in readings[r]],
          "UV ms": [x["UV"]["ms"] for x in readings[r]],
          "Y+UV ms": statistics.mean(x["Y+UV ms"] for x in readings[r]),

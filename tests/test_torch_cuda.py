@@ -1267,3 +1267,208 @@ def test_frame_mesh_takes_the_cards(dev):
     assert mesh.shape == {"dp": n, "sp": 1} and mesh.device == dev
     with pytest.raises(RuntimeError, match=f"{n} present"):
         make_frame_mesh(n + 1)
+
+
+# ---- the two-phase fused kernel, the self-contained coords kernel's blocks
+# and the overlay on a band --------------------------------------------------
+
+FUSED_PLANES = [(dt, c, taps) for dt in (torch.uint8, torch.uint16, torch.float32)
+                for c in (1, 2, 3, 4) for taps in (2, 4, 8)]
+
+
+def _fused_pre(cfg, dyn, m, dev):
+    """coords_pre's x, y, idx on cfg's whole output grid."""
+    dt = dyn_to_torch(dyn, dev)
+    ow, oh = cfg.out_buffer
+    oy, ox = torch.meshgrid(torch.arange(oh, dtype=torch.float32, device=dev),
+                            torch.arange(ow, dtype=torch.float32, device=dev), indexing="ij")
+    out_f = (dt.f[0] / dt.fov, dt.f[1] / dt.fov)
+    return remap.coords_pre(ox, oy, m, cfg, dt, (cfg.output_width / 2.0,
+                                                 cfg.output_height / 2.0), out_f)
+
+
+def _hold_fused_to_plain(img, x, y, idx, m, cfg, dyn, bg, limit=240.0):
+    n0 = cuda_fused.remap_fused.launches
+    k = cuda_fused.remap_fused(img, x, y, idx, m, cfg, dyn, bg, limit)
+    p = cuda_fused.remap_fused_plain(img, x, y, idx, m, cfg, dyn, bg, limit)
+    torch.cuda.synchronize()
+    assert cuda_fused.remap_fused.launches == n0 + 1
+    assert k.shape == p.shape == x.shape + (img.shape[2],)
+    # the same arithmetic in the same order: the same bits
+    assert torch.equal(k, p)
+
+
+@pytest.mark.parametrize("zoom", [0.5, 1.0, 2.0])
+@pytest.mark.parametrize("rotation", [-0.3, 0.3])
+@pytest.mark.parametrize("dtype,c,taps", FUSED_PLANES)
+def test_fused_kernel_warp_maps_bits(dev, dtype, c, taps, rotation, zoom):
+    """Rolled and zoomed frames (zoom 0.5: the output covers twice the
+    plane, so tiles reach past every edge) over a plane whose rows are not a
+    multiple of 16 bytes, each type, channel count and tap count: the fused
+    kernel gives its plain version's bits."""
+    cfg, dyn, mats, _ = _warp_fused_case("Y", rotation, zoom)
+    cfg = cfg._replace(interpolation=taps)
+    m = torch.from_numpy(mats).to(dev)
+    x, y, idx = _fused_pre(cfg, dyn, m, dev)
+    img = _plane(dev, dtype, c, PH, PW, seed=c * 10 + taps)
+    bg = tuple(float(b) for b in np.linspace(20.0, 200.0, c))
+    _hold_fused_to_plain(img, x, y, idx, m, cfg, dyn, bg)
+
+
+@pytest.mark.parametrize("case", ["left", "right", "top", "bottom", "rect_outside",
+                                  "non_finite", "odd_offset"])
+@pytest.mark.parametrize("dtype,c,taps", TAP_PLANES)
+def test_fused_kernel_edges_bits(dev, dtype, c, taps, case):
+    """Footprints across each plane edge, a source rect partly outside the
+    plane, non-finite and huge x/y, and a plane that is a view at an odd
+    element offset: the fused kernel gives its plain version's bits."""
+    cfg, dyn, mats, _ = _warp_fused_case("Y", 0.0, 1.0)
+    cfg = cfg._replace(interpolation=taps)
+    rng = np.random.default_rng(11)
+    oh, ow = 40, 64
+    x = rng.uniform(0, PW, (oh, ow))
+    y = rng.uniform(0, PH, (oh, ow))
+    offset = 0
+    if case == "left":
+        x = rng.uniform(-9, 9, (oh, ow))
+    elif case == "right":
+        x = rng.uniform(PW - 9, PW + 9, (oh, ow))
+    elif case == "top":
+        y = rng.uniform(-9, 9, (oh, ow))
+    elif case == "bottom":
+        y = rng.uniform(PH - 9, PH + 9, (oh, ow))
+    elif case == "rect_outside":
+        cfg = cfg._replace(source_rect=(-5, -3, PW - 10, PH + 10),
+                           flags=cfg.flags | HAS_SOURCE_RECT)
+    elif case == "non_finite":
+        x[0, :4] = [np.nan, np.inf, -np.inf, 1e30]
+        y[1, :4] = [np.inf, np.nan, -1e30, -np.inf]
+        x[2, :2] = [4e4, -4e4]
+    elif case == "odd_offset":
+        offset = 1
+    m = torch.from_numpy(mats).to(dev)
+    x, y = (torch.from_numpy(a.astype(np.float32)).to(dev) for a in (x, y))
+    idx = torch.from_numpy(rng.integers(0, PH, (oh, ow)).astype(np.int32)).to(dev)
+    img = _plane(dev, dtype, c, PH, PW, seed=c * 10 + taps + 1, offset=offset)
+    assert img.storage_offset() == offset and img.is_contiguous()
+    bg = tuple(float(b) for b in np.linspace(20.0, 200.0, c))
+    _hold_fused_to_plain(img, x, y, idx, m, cfg, dyn, bg)
+
+
+@pytest.mark.parametrize("plane", ["Y", "UV"])
+def test_fused_bands_assemble_on_the_card(dev, plane):
+    """remap_plane_cuda(fused=True, out_rows, oy0): one fused launch a band,
+    and the bands (one starts at an odd row) are the whole plane's rows."""
+    cfg, dyn, mats, img = _case(plane)
+    timg, m = torch.from_numpy(img).to(dev), torch.from_numpy(mats).to(dev)
+    oh = cfg.out_buffer[1]
+    cuts = (0, 13, oh // 2 + 3, oh)
+    full = remap.remap_plane_cuda(timg, m, cfg, dyn, out_dtype="uint16", fused=True)
+    n0 = cuda_fused.remap_fused.launches
+    got = torch.cat([remap.remap_plane_cuda(timg, m, cfg, dyn, out_dtype="uint16", fused=True,
+                                            out_rows=b - a, oy0=a)
+                     for a, b in zip(cuts[:-1], cuts[1:])])
+    assert cuda_fused.remap_fused.launches == n0 + 3
+    assert torch.equal(got, full)
+    assert torch.equal(full, remap.remap_plane(timg, m, cfg, dyn, out_dtype="uint16"))
+
+
+GEN_OUT_CF = ((W / 2.0, H / 2.0), (F[0] / 1.05, F[1] / 1.05))
+
+
+def _gen_bits(cfg, dyn, m, rows, oy0, pos_dx=0.0):
+    out_c, out_f = GEN_OUT_CF
+    n0 = cuda_coords.project_gen.launches
+    k = cuda_coords.project_gen(cfg, dyn, m, rows, oy0, out_c, out_f, pos_dx=pos_dx)
+    p = cuda_coords.project_gen_plain(cfg, dyn, m, rows, oy0, out_c, out_f, pos_dx=pos_dx)
+    torch.cuda.synchronize()
+    assert cuda_coords.project_gen.launches == n0 + 1
+    assert k[0].shape == (rows, cfg.out_buffer[0])
+    _same_bits(k, p)
+
+
+@pytest.mark.parametrize("case", ["odd_band", "last_rows", "horizontal", "one_row", "ibis",
+                                  "uv_band", "offset_table"])
+def test_coords_gen_kernel_bits(dev, case):
+    """Bands at odd rows (a tile cut by the band's end), horizontal RS, a
+    table of one matrix row, IBIS, the UV plane, and a table that starts 8
+    bytes into its buffer: u, v, valid bit-identical to project_gen_plain."""
+    plane = "UV" if case == "uv_band" else "Y"
+    flags = {"horizontal": HORIZONTAL_RS, "ibis": HAS_IBIS_DATA}.get(case, 0)
+    cfg, dyn, mats, _ = _case(plane, flags=flags)
+    m = torch.from_numpy(mats).to(dev)
+    oh = cfg.out_buffer[1]
+    rows, oy0 = {"odd_band": (37, 13), "last_rows": (11, oh - 11),
+                 "uv_band": (19, 5)}.get(case, (oh, 0))
+    if case == "one_row":
+        m = m[:1].contiguous()
+    elif case == "offset_table":
+        buf = torch.zeros(m.numel() + 2, dtype=torch.float32, device=dev)
+        buf[2:] = m.reshape(-1)
+        m = buf[2:].view(m.shape)
+        assert m.is_contiguous() and m.data_ptr() % 16 == 8
+    _gen_bits(cfg, dyn, m, rows, oy0, pos_dx=0.01 if case == "odd_band" else 0.0)
+
+
+@pytest.mark.parametrize("model", list(tdm.MODEL_IDS))
+def test_coords_gen_kernel_every_model_bits(dev, model):
+    """Every main model on a band at an odd row, with IBIS: u, v, valid
+    bit-identical to project_gen_plain."""
+    cfg, dyn, mats, _ = _lens_case("Y", model, None, flags=HAS_IBIS_DATA)
+    _gen_bits(cfg, dyn, torch.from_numpy(mats).to(dev), 45, 7, pos_dx=0.01)
+
+
+@pytest.mark.parametrize("n_rows", [2, H])
+def test_coords_gen_kernel_centre_row_tables(dev, n_rows):
+    """A table of 2 rows, where every pixel selects the centre row (row 1,
+    the probe's), and one of H rows, where a band of pixels does and the
+    others select their own: bit-identical to project_gen_plain either
+    way."""
+    cfg, dyn, mats, _ = _case("Y")
+    mats = np.ascontiguousarray(mats[np.linspace(0, H - 1, n_rows).round().astype(int)])
+    m = torch.from_numpy(mats).to(dev)
+    _gen_bits(cfg, dyn, m, H, 0)
+    oy, ox = torch.meshgrid(torch.arange(H, dtype=torch.float32, device=dev),
+                            torch.arange(W, dtype=torch.float32, device=dev), indexing="ij")
+    _, _, idx = remap.coords_pre(ox, oy, m, cfg, dyn_to_torch(dyn, dev), *GEN_OUT_CF)
+    centre = int((idx == n_rows // 2).sum())
+    if n_rows == 2:
+        assert centre == idx.numel()
+    else:
+        assert 0 < centre < idx.numel()
+
+
+@pytest.mark.parametrize("plane", ["Y", "UV"])
+def test_overlay_on_bands_on_the_card(dev, plane):
+    """A drawing on bands of output rows: the overlay kernel on a band at
+    oy0 gives the rows of the whole plane's overlay, and remap_plane_cuda's
+    bands with a drawing (one overlay launch each) are the whole plane's
+    rows and the plain path's, 0 codes."""
+    c = 1 if plane == "Y" else 2
+    rng = np.random.default_rng(5)
+    pixel = torch.from_numpy(rng.uniform(0, 1000, (H, W, c)).astype(np.float32)).to(dev)
+    u = torch.from_numpy(rng.uniform(-4, W + 4, (H, W)).astype(np.float32)).to(dev)
+    v = torch.from_numpy(rng.uniform(-4, H + 4, (H, W)).astype(np.float32)).to(dev)
+    d = _drawing()
+    canvas = torch.from_numpy(d.canvas).to(dev)
+    args = (canvas, d.scale, d.safe_area_rect, (2, 1, W - 4, H - 2), 1023.0)
+    whole = cuda_overlay.overlay(pixel, u, v, *args)
+    for a, b in ((9, 40), (40, 41), (77, H)):
+        band = cuda_overlay.overlay(pixel[a:b].contiguous(), u[a:b].contiguous(),
+                                    v[a:b].contiguous(), *args, oy0=a)
+        assert torch.equal(band, whole[a:b])
+        assert torch.equal(band, cuda_overlay.overlay_plain(
+            pixel[a:b].contiguous(), u[a:b].contiguous(), v[a:b].contiguous(), *args, oy0=a))
+    cfg, dyn, mats, img = _case(plane)
+    cfg = cfg._replace(flags=cfg.flags | DRAWING_ENABLED)
+    timg, m = torch.from_numpy(img).to(dev), torch.from_numpy(mats).to(dev)
+    oh = cfg.out_buffer[1]
+    cuts = (0, 7, oh // 2 + 1, oh)
+    full = remap.remap_plane_cuda(timg, m, cfg, dyn, drawing=d, out_dtype="uint16")
+    n0 = cuda_overlay.overlay.launches
+    got = torch.cat([remap.remap_plane_cuda(timg, m, cfg, dyn, drawing=d, out_dtype="uint16",
+                                            out_rows=b - a, oy0=a)
+                     for a, b in zip(cuts[:-1], cuts[1:])])
+    assert cuda_overlay.overlay.launches == n0 + 3
+    assert torch.equal(got, full)
+    assert torch.equal(full, remap.remap_plane(timg, m, cfg, dyn, drawing=d, out_dtype="uint16"))

@@ -161,3 +161,53 @@ def test_overlay_wrapper_checks():
     assert args.safe == 1 and list(args.band) == [-4.0, -3.0, 8.0, 9.0]
     assert list(args.src) == [0.0, 1.0, 5.0, 5.0] and args.maxv == 1023.0
     assert cuda_overlay.overlay_args(1.0, None, (0, 0, 5, 4), 255.0).safe == 0
+
+
+@pytest.mark.parametrize("oy0,rows", [(5, 35), (57, 39)])
+@pytest.mark.parametrize("c", [1, 2])
+def test_band_with_drawing_matches_the_jax_band(oy0, rows, c):
+    """A band of output rows with a drawing: the safe-area rect's edge (and
+    its 5-px border) crosses the band, output-stage marks lie above and
+    below that edge, and the RS matrices move the input stage. The port's
+    band (remap_plane_cuda(out_rows, oy0), the overlay's plain version on
+    the CPU) matches the JAX band of remap_plane_pallas (interpret mode),
+    which draws at absolute rows, and equals the same rows of the port's
+    whole plane."""
+    cfg, dyn = make_cfg_dyn()
+    state = _busy_canvas(1).state(safe_area_rect=(12.0, 9.0, W - 15.0, H - 11.0))
+    mats = _rs_matrices()
+    img = np.full((H, W, c), 100.0, np.float32)
+    pcfg, pdyn = tkp.from_reference(cfg, dyn)
+    args = (torch.from_numpy(img), torch.from_numpy(mats), pcfg, pdyn)
+    band = tremap.remap_plane_cuda(*args, drawing=state, out_rows=rows, oy0=oy0).numpy()
+    whole = tremap.remap_plane_cuda(*args, drawing=state).numpy()
+    pal, ov = jremap.remap_plane_pallas(jnp.asarray(img), jnp.asarray(mats), cfg, dyn,
+                                        drawing=state, out_rows=rows, oy0=oy0)
+    assert not bool(ov)
+    assert band.shape == (rows, W, c)
+    assert np.array_equal(band, whole[oy0:oy0 + rows])
+    assert np.abs(band - np.asarray(pal)).max() <= TOL
+    # the drawing is there: dimmed rows outside the safe area and marks
+    assert np.abs(band - 100.0).max() > 1.0
+
+
+def test_overlay_band_rows_are_absolute():
+    """overlay_args carries the band's first row; the plain version draws an
+    output-stage mark and the safe-area dim at absolute rows."""
+    assert cuda_overlay.overlay_args(1.0, None, (0, 0, 5, 4), 255.0).oy0 == 0
+    assert cuda_overlay.overlay_args(1.0, None, (0, 0, 5, 4), 255.0, oy0=37).oy0 == 37
+    c = DrawCanvas(W, H, W, H, 1)
+    c.put_pixel(40, 30, COLOR_RED, 0, STAGE_ON_OUTPUT)
+    state = c.state(safe_area_rect=(0.0, 28.0, W - 1.0, H - 1.0))
+    canvas = torch.from_numpy(np.ascontiguousarray(state.canvas, np.uint8))
+    pixel = torch.full((4, W, 3), 100.0)
+    u = torch.full((4, W), -10.0)
+    args = (canvas, 1.0, state.safe_area_rect, (0, 0, W, H), 255.0)
+    out = cuda_overlay.overlay(pixel, u, u, *args, oy0=28).numpy()
+    np.testing.assert_allclose(out[2, 40], [255.0, 0.0, 0.0])     # row 30
+    np.testing.assert_allclose(out[0, 10], 100.0)                 # row 28: inside
+    np.testing.assert_allclose(out[2, 41], 100.0)
+    top = cuda_overlay.overlay(pixel, u, u, *args).numpy()         # rows 0-3: outside
+    np.testing.assert_allclose(top[:, 40], 50.0)
+    with pytest.raises(ValueError):
+        cuda_overlay.overlay(pixel, u, u, *args, oy0=-1)

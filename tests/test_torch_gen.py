@@ -113,6 +113,21 @@ def test_gen_args_layout():
     g = cuda_coords.gen_args(pcfg, pdyn, 5, 0.01, 0.0)
     orx, ory, orw, orh = pcfg.out_rect
     assert g.oy0 == 5 and list(g.pos_d) == [np.float32(0.01), 0.0]
-    assert list(g.map_x) == [orx, pcfg.output_width, np.float32(1.0) / np.float32(orw), 0.0]
-    assert list(g.map_y) == [ory, pcfg.output_height, np.float32(1.0) / np.float32(orh), 0.0]
+    assert list(g.map_x) == [orx, pcfg.output_width, np.float32(1.0) / np.float32(orw)]
+    assert list(g.map_y) == [ory, pcfg.output_height, np.float32(1.0) / np.float32(orh)]
     assert list(g.t2d) == [3.0, -1.0] and g.lim == pcfg.width
+
+
+def test_gen_args_translation_has_no_negative_zero():
+    """The kernel adds translation2d straight to the out-rect map (no + 0
+    for the map's out_min): gen_args sends a -0 as +0, and then the kernel's
+    sum has the plain version's bits for every map value, -0 included."""
+    _, _, pcfg, pdyn, _, _ = make_case("Y", translation2d=(-0.0, 2.5))
+    g = cuda_coords.gen_args(pcfg, pdyn, 0, 0.0, 0.0)
+    assert list(g.t2d) == [0.0, 2.5] and not np.signbit(g.t2d[0])
+    f32 = np.float32
+    for a in (f32(-0.0), f32(0.0), f32(1.5), f32(-3.25), f32(np.inf), f32(-np.inf)):
+        for t in (f32(-0.0), f32(0.0), f32(2.5), f32(-1.0)):
+            want = (a + f32(0.0)) + t
+            got = a + (t + f32(0.0))
+            assert np.array_equal(np.array(want).view(np.int32), np.array(got).view(np.int32))
