@@ -455,6 +455,7 @@ MAIN_PATH_KERNELS = {"coords": "coords_kernelILi0ELb0ELb0EE",
                      "probe_sampler<C1,full,bf16>": "probe_sampler_kernelILi1ELi3ELi1EE",
                      "probe_sampler<C1,full,bf16x3>": "probe_sampler_kernelILi1ELi3ELi2EE",
                      "probe_sampler<C2,full,fp32>": "probe_sampler_kernelILi2ELi3ELi0EE",
+                     "probe_sampler<C1,nomatmul>": "probe_sampler_kernelILi1ELi2ELi0EE",
                      "fused<u16,C1,8,any lens>": "fused_kernelItLi1ELi8ELb1EE",
                      "overlay<C1>": "overlay_kernelILi1EE", "overlay<C2>": "overlay_kernelILi2EE"}
 
@@ -613,6 +614,8 @@ def experiments_phase(dev, smi):
         u, v, val = cuda_coords.project(x, y, idx, mats, cfg, dyn)
         u, v = remap.coords_post_uv(u, v, cfg)
         u, v = remap._guard_uv(u), remap._guard_uv(v)
+        print(f"fused_bbox {name:2s}: {fb.fast_share(u, v, cfg, img.shape):.4f} of the pixels' "
+              f"stencils take the fast path (wholly inside the source rect and the plane)")
         n_px, C, ntiles = x.numel(), img.shape[2], k_box.shape[0] * k_box.shape[1]
         srx, sry, srw, srh = cfg.src_rect
         taps, rows = window_taps(u, v, srx, srx + srw, sry, sry + srh)
@@ -653,6 +656,10 @@ def experiments_phase(dev, smi):
               f"window {window}, bg {bg}): max|d| {d:.3g} (limit {limit:.3g})")
         check(bool(torch.isfinite(k).all()) and d <= limit,
               f"probe sampler {label} {mode} {precision}: differs from its plain version")
+        if mode == "full":
+            print(f"probe sampler {label} {mode} {precision}: "
+                  f"{psm.fast_share(img.shape, u, v, y0, x0, xoff, window):.4f} of the pixels' "
+                  f"stencils take the fast path (wholly inside the window and the frame)")
         err[key] = max(err[key], d)
         pms = cuda_ms(lambda: psm.sample_plain(img, u, v, y0, x0, xoff, window, mode, precision,
                                                bg), reps=3, warm=1)

@@ -192,17 +192,14 @@ def lib() -> ctypes.CDLL:
                                         vp]
             L.gf_coords_gen.restype = ci
             L.gf_fused_bbox.argtypes = [vp, ci, ci, ci, vp, vp, vp, vp, ci, CoordParams, ci, ci,
-                                        ci, ci, ci, ci, FusedArgs, vp, vp, vp, vp]
+                                        ci, ci, ci, ci, vp, FusedArgs, vp, vp, vp, vp]
             L.gf_fused_bbox.restype = ci
             L.gf_overlay.argtypes = [vp, vp, vp, vp, ci, ci, ci, ci, ci, OverlayArgs, vp, vp]
             L.gf_overlay.restype = ci
             L.gf_window_colsum.argtypes = [vp, ci, ci, vp, vp, ci, ci, ci, vp, vp]
             L.gf_window_colsum.restype = ci
-            L.gf_probe_sampler.argtypes = [vp, ci, vp, vp, vp, vp, vp, ci, ProbeArgs, ci, ci,
-                                           vp, vp]
+            L.gf_probe_sampler.argtypes = [vp, ci, vp, vp, vp, vp, vp, ci, vp, ProbeArgs, ci,
+                                           ci, vp, vp]
             L.gf_probe_sampler.restype = ci
-            for name in ("gf_fused_bbox_set_lut", "gf_probe_sampler_set_lut"):
-                getattr(L, name).argtypes = [vp, ci]
-                getattr(L, name).restype = ci
             _lib = L
     return _lib

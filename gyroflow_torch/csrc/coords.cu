@@ -182,24 +182,6 @@ __device__ __forceinline__ int rint_index(float a, float lim) {
     return static_cast<int>(r);
 }
 
-// The 14 floats of a matrix row: seven 8-byte loads where the table starts
-// on 8 bytes (every row then does: a row is 56 bytes), else fourteen.
-__device__ __forceinline__ void load_matrix_row(const float* __restrict__ row, bool aligned8,
-                                                float* m) {
-    if (aligned8) {
-        const float2* q = reinterpret_cast<const float2*>(row);
-#pragma unroll
-        for (int j = 0; j < 7; ++j) {
-            const float2 f = __ldg(q + j);
-            m[2 * j] = f.x;
-            m[2 * j + 1] = f.y;
-        }
-    } else {
-#pragma unroll
-        for (int j = 0; j < 14; ++j) m[j] = __ldg(row + j);
-    }
-}
-
 // The rolling-shutter probe's row: the point through the centre row, and
 // of the projection only the coordinate the row select reads (the other
 // one's last steps, among them an IEEE division, are left out: the kept
@@ -240,7 +222,7 @@ __global__ void coords_gen_kernel(const float* __restrict__ mats, int rows, gf::
     int sy;
     if (rows > 1) {
         float mc[14];
-        load_matrix_row(mats + (long long)(rows / 2) * 14, aligned8, mc);
+        gf::load_matrix_row(mats + (long long)(rows / 2) * 14, aligned8, mc);
         sy = horizontal ? probe_row<MODEL, true>(x, y, mc, p, flags, g.lim)
                         : probe_row<MODEL, false>(x, y, mc, p, flags, g.lim);
     } else {
@@ -249,7 +231,7 @@ __global__ void coords_gen_kernel(const float* __restrict__ mats, int rows, gf::
     const int r = sy < rows - 1 ? sy : rows - 1;
 
     float m[14];
-    load_matrix_row(mats + (long long)r * 14, aligned8, m);
+    gf::load_matrix_row(mats + (long long)r * 14, aligned8, m);
     float u, v;
     bool valid;
     gf::project_point<MODEL, false>(x, y, m, p, flags, u, v, valid);

@@ -698,6 +698,25 @@ __device__ __forceinline__ float forward_refraction(float x, float y, float w, f
     return w * scale;
 }
 
+// The 14 floats of a matrix row: seven 8-byte loads where the table starts
+// on 8 bytes (every row then does: a row is 56 bytes), else fourteen
+// (coords.cu, fused_bbox.cu).
+__device__ __forceinline__ void load_matrix_row(const float* __restrict__ row, bool aligned8,
+                                                float* m) {
+    if (aligned8) {
+        const float2* q = reinterpret_cast<const float2*>(row);
+#pragma unroll
+        for (int j = 0; j < 7; ++j) {
+            const float2 f = __ldg(q + j);
+            m[2 * j] = f.x;
+            m[2 * j + 1] = f.y;
+        }
+    } else {
+#pragma unroll
+        for (int j = 0; j < 14; ++j) m[j] = __ldg(row + j);
+    }
+}
+
 // rotate_and_distort_core (remap.py:95): matrix row m (14 floats: 3x3
 // inverse rotation-intrinsics, then IBIS/OIS shifts). MODEL is the main
 // model's ModelId, or kAnyModel to take `model`; with DIGITAL, `digital`

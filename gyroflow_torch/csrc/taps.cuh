@@ -27,11 +27,9 @@
 //   combinations whose row is 16 or 32 bytes (uint16 C=1 and C=2 lanczos4,
 //   float32 C=1 lanczos4, ...); the others always take the checked loop.
 //
-// c_coeffs, the whole LUT in __constant__ memory, serves the experiments'
-// kernels (fused_bbox.cu, probe_sampler.cu), which read it as the TPU
-// probes did. __constant__ memory belongs to its translation unit (the
-// kernels are compiled without -rdc), so it is declared static here and each
-// .cu that reads it uploads its own copy (set_lut).
+// The experiments' float32 kernels (fused_bbox.cu, probe_sampler.cu) stage
+// the LUT slice the same way and read a stencil's taps a pixel at a time
+// (load_pixel): for float32 planes that beat the row loads (PERF.md).
 #pragma once
 
 #include <cuda_runtime.h>
@@ -39,11 +37,8 @@
 
 namespace gf {
 
-constexpr int kLutSize = 448;
 constexpr int kInterBits = 5;
 constexpr int kInterTabSize = 1 << kInterBits;  // 32 phases
-
-static __constant__ float c_coeffs[kLutSize];
 
 // Tap layout of the LUT per interpolation (interpolation.INTERP_INFO).
 template <int TAPS> struct Interp;
@@ -167,6 +162,31 @@ __device__ __forceinline__ void load_row(const T* p, float* px) {
         word_values<T>(__funnelshift_r(s[m], s[m + 1], (o & 3) * 8), px + m * kPerWord);
 }
 
+// Bytes a float32 pixel of C channels must be aligned to for load_pixel:
+// one 8-byte load for C = 2, one 16-byte load for C = 4, else 4-byte loads.
+template <int C>
+constexpr int kPixelAlign = C == 2 ? 8 : (C == 4 ? 16 : 4);
+
+// The C channels of the float32 pixel at p, which is kPixelAlign<C>-byte
+// aligned, in one load (C = 1, 2, 4) or one a channel (C = 3).
+template <int C>
+__device__ __forceinline__ void load_pixel(const float* __restrict__ p, float* px) {
+    if constexpr (C == 2) {
+        const float2 f = __ldg(reinterpret_cast<const float2*>(p));
+        px[0] = f.x;
+        px[1] = f.y;
+    } else if constexpr (C == 4) {
+        const float4 f = __ldg(reinterpret_cast<const float4*>(p));
+        px[0] = f.x;
+        px[1] = f.y;
+        px[2] = f.z;
+        px[3] = f.w;
+    } else {
+#pragma unroll
+        for (int c = 0; c < C; ++c) px[c] = __ldg(p + c);
+    }
+}
+
 // The separable tap sum at (u, v), which the caller has already guarded and
 // shifted by Interp<TAPS>::offset; s_lut is the block's staged LUT slice.
 // total[c] gets the unclamped sum.
@@ -242,15 +262,6 @@ __device__ __forceinline__ void sample_taps(const T* __restrict__ img, int H, in
 #pragma unroll
         for (int c = 0; c < C; ++c) total[c] = total[c] + xsum[c] * wy[yp];
     }
-}
-
-// Copies the 448-float host LUT into this translation unit's c_coeffs on
-// the current device. Returns the cudaError_t of the copy (-1 for a wrong n).
-// static: each translation unit keeps its own copy, bound to its own c_coeffs
-// (an inline function would be merged across units at link time).
-static int set_lut(const float* lut, int n) {
-    if (n != kLutSize) return -1;
-    return static_cast<int>(cudaMemcpyToSymbol(c_coeffs, lut, sizeof(float) * kLutSize));
 }
 
 }  // namespace gf

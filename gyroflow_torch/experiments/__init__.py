@@ -14,7 +14,10 @@ it:
 - ``perf_probe8``: an elementwise pass, a Triton kernel.
 
 ``run_all(device)`` runs every probe; ``python -m
-gyroflow_torch.experiments.perf_probeN`` runs one on ``cuda:0``.
+gyroflow_torch.experiments.perf_probeN`` runs one on ``cuda:0``. Two
+modules are no probes: ``ewa_bench`` and ``probe_bench`` time the EWA kernel
+and the probe-sampler and fused_bbox kernels of several copies of the
+package side by side.
 """
 from .perf_probe import run_all
 

@@ -18,7 +18,10 @@ raises ValueError. ``fused_bbox_plain`` is the same function in torch.
 
 ``fused_bbox`` checks its inputs, then runs the plain version for CPU
 tensors only; for CUDA tensors it launches the kernel or raises.
-``fused_bbox.launches`` counts kernel launches. ``run`` is the probe: the
+``fused_bbox.launches`` counts kernel launches. The kernel reads the
+interpolation's LUT slice from the device (``cuda_sampler.lut_slice``).
+``fast_share`` is the share of pixels whose stencil takes the kernel's
+fast path. ``run`` is the probe: the
 kernel on the 4K Y and UV planes of the JAX package's probes, against the
 port's split path.
 """
@@ -29,12 +32,10 @@ import json
 import numpy as np
 import torch
 
-from ..ops import cuda_coords, cuda_fused, remap
-from ..ops.interpolation import COEFFS, INTERP_INFO
+from ..ops import cuda_coords, cuda_fused, cuda_sampler, remap
+from ..ops.interpolation import INTERP_INFO
 from ..ops.kernel_params import KernelConfig, KernelDynamics, dyn_to_torch
 from . import perf_probe as pp
-
-_lut_devices = set()
 
 # (W, H, plane_index, channels) of the probe planes: 4K YUV420, and a small
 # pair for a quick run on the CPU
@@ -101,15 +102,20 @@ def _check(img, x, y, idx, matrices, cfg: KernelConfig, bg, tile_h: int, tile_w:
         raise ValueError(f"fused bbox kernel: tile {tile_h}x{tile_w}")
 
 
-def _ensure_lut(L, device):
-    """Copy the reference LUT into fused_bbox.cu's constant memory, once per device."""
-    if device.index in _lut_devices:
-        return
-    lut = np.ascontiguousarray(COEFFS, np.float32)
-    err = L.gf_fused_bbox_set_lut(lut.ctypes.data, lut.size)
-    if err != 0:
-        raise RuntimeError(f"fused bbox kernel: LUT upload failed: cudaError {err}")
-    _lut_devices.add(device.index)
+def fast_share(u, v, cfg: KernelConfig, shape) -> float:
+    """The share of the pixels at (u, v) (after coords_post_uv and the
+    guard) whose stencil lies wholly inside the source rect and the (H, W)
+    plane: the pixels whose taps the kernel reads with no test (on a plane
+    that starts aligned to a pixel, as a torch allocation does)."""
+    H, W, _ = shape
+    info = INTERP_INFO[cfg.interpolation]
+    taps = info["taps"]
+    fx, _ = pp.phase_weights(u - info["offset"], cfg.interpolation)
+    fy, _ = pp.phase_weights(v - info["offset"], cfg.interpolation)
+    srx, sry, srw, srh = cfg.src_rect
+    fast = ((fx >= max(srx, 0)) & (fx + taps <= min(srx + srw, W))
+            & (fy >= max(sry, 0)) & (fy + taps <= min(sry + srh, H)))
+    return float(fast.to(torch.float64).mean()) if fast.numel() else 0.0
 
 
 def fused_bbox(img, x, y, idx, matrices, cfg: KernelConfig, dyn: KernelDynamics, bg,
@@ -136,18 +142,16 @@ def fused_bbox(img, x, y, idx, matrices, cfg: KernelConfig, dyn: KernelDynamics,
     bbox = torch.empty((ny, nx, 4), dtype=torch.float32, device=img.device)
     if x.numel() == 0:
         return out, valid, bbox
-    L = lib()
+    lut = cuda_sampler.lut_slice(cfg.interpolation, img.device)
     with torch.cuda.device(img.device):
-        _ensure_lut(L, img.device)
         # the experiment clamps nothing: the sampler's limit is not read
-        err = L.gf_fused_bbox(img.data_ptr(), H, W, C, x.data_ptr(),
-                              y.data_ptr(), idx.data_ptr(), matrices.data_ptr(),
-                              matrices.shape[0], cuda_coords.coord_params(cfg, dyn),
-                              int(cfg.flags),
-                              oh, ow, tile_h, tile_w, INTERP_INFO[cfg.interpolation]["taps"],
-                              cuda_fused.fused_args(cfg, bg, 0.0), out.data_ptr(),
-                              valid.data_ptr(), bbox.data_ptr(),
-                              torch.cuda.current_stream(img.device).cuda_stream)
+        err = lib().gf_fused_bbox(img.data_ptr(), H, W, C, x.data_ptr(), y.data_ptr(),
+                                  idx.data_ptr(), matrices.data_ptr(), matrices.shape[0],
+                                  cuda_coords.coord_params(cfg, dyn), int(cfg.flags), oh, ow,
+                                  tile_h, tile_w, INTERP_INFO[cfg.interpolation]["taps"],
+                                  lut.data_ptr(), cuda_fused.fused_args(cfg, bg, 0.0),
+                                  out.data_ptr(), valid.data_ptr(), bbox.data_ptr(),
+                                  torch.cuda.current_stream(img.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"fused bbox kernel launch failed: error {err}")
     fused_bbox.launches += 1

@@ -25,19 +25,20 @@ and guarded) with per-tile window origins y0, x0 and column offset xoff
 width (K = Sc, or 128 in the rolled probes 5 and 6). ``sample`` checks its
 inputs, then runs ``sample_plain`` for CPU tensors only; for CUDA tensors it
 launches the kernel or raises. ``sample.launches`` counts kernel launches.
+The kernel reads the lanczos4 slice of the LUT from the device
+(``cuda_sampler.lut_slice``). ``fast_share`` is the share of pixels whose
+stencil takes the kernel's fast path in ``full``.
 """
 from __future__ import annotations
 
-import numpy as np
 import torch
 
-from ..ops.interpolation import COEFFS
+from ..ops import cuda_sampler
 from . import perf_probe as pp
 
 MODES = {"noop": 0, "nobuild": 1, "nomatmul": 2, "full": 3}
 PRECISIONS = {"fp32": 0, "bf16": 1, "bf16x3": 2}
 NOBUILD_MAX_ROWS = 64
-_lut_devices = set()
 
 
 def _corner(img, y0, x0):
@@ -136,15 +137,21 @@ def _check(img, u, v, y0, x0, xoff, window, mode, precision, bg):
         raise ValueError("probe sampler: u, v must be (ntiles, P), the plane contiguous")
 
 
-def _ensure_lut(L, device):
-    """Copy the reference LUT into probe_sampler.cu's constant memory, once per device."""
-    if device.index in _lut_devices:
-        return
-    lut = np.ascontiguousarray(COEFFS, np.float32)
-    err = L.gf_probe_sampler_set_lut(lut.ctypes.data, lut.size)
-    if err != 0:
-        raise RuntimeError(f"probe sampler: LUT upload failed: cudaError {err}")
-    _lut_devices.add(device.index)
+def fast_share(shape, u, v, y0, x0, xoff, window) -> float:
+    """The share of the (ntiles, P) pixels whose 8 x 8 stencil lies wholly
+    inside its tile's window (rows y0 .. y0 + Sr, columns x0 + xoff .. x0 +
+    xoff + K) and inside the (H, W) frame: the pixels whose full mode reads
+    every tap with no test (on a plane that starts aligned to a pixel, as a
+    torch allocation does)."""
+    H, W, _ = shape
+    Sr, _, K = window
+    fx, _ = pp.phase_weights(u - pp.OFFSET)
+    fy, _ = pp.phase_weights(v - pp.OFFSET)
+    fx_rel = fx - (x0 + xoff)[:, None]
+    fy_rel = fy - y0[:, None]
+    fast = ((fy_rel >= 0) & (fy_rel + pp.TAPS <= Sr) & (fx_rel >= 0) & (fx_rel + pp.TAPS <= K)
+            & (fx >= 0) & (fx + pp.TAPS <= W) & (fy >= 0) & (fy + pp.TAPS <= H))
+    return float(fast.to(torch.float64).mean()) if fast.numel() else 0.0
 
 
 def sample(img, u, v, y0, x0, xoff, window, mode: str = "full", precision: str = "fp32",
@@ -169,13 +176,13 @@ def sample(img, u, v, y0, x0, xoff, window, mode: str = "full", precision: str =
     a.Sr, a.Sc, a.K = (int(w) for w in window)
     a.P = P
     a.bg[:] = [float(b) for b in (bg or (0.0,) * C)] + [0.0] * (4 - C)
-    L = lib()
+    lut = cuda_sampler.lut_slice(pp.TAPS, img.device)
     with torch.cuda.device(img.device):
-        _ensure_lut(L, img.device)
-        err = L.gf_probe_sampler(img.data_ptr(), C, u.data_ptr(), v.data_ptr(), y0.data_ptr(),
-                                 x0.data_ptr(), xoff.data_ptr(), ntiles, a, MODES[mode],
-                                 PRECISIONS[precision], out.data_ptr(),
-                                 torch.cuda.current_stream(img.device).cuda_stream)
+        err = lib().gf_probe_sampler(img.data_ptr(), C, u.data_ptr(), v.data_ptr(),
+                                     y0.data_ptr(), x0.data_ptr(), xoff.data_ptr(), ntiles,
+                                     lut.data_ptr(), a, MODES[mode], PRECISIONS[precision],
+                                     out.data_ptr(),
+                                     torch.cuda.current_stream(img.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"probe sampler launch failed: error {err}")
     sample.launches += 1

@@ -60,3 +60,65 @@ def test_uniform_flag_tests(flag):
              (0x20, "FADD R1, R1, R1"),
              (0x30, "EXIT")]
     assert sb.main_path_instructions(sb._sass_instructions(_listing(lines))) == (3, 0)
+
+
+# ---- gyroflow_torch.experiments.probe_bench's pure helpers ------------------
+
+PTXAS_LOG = """\
+ptxas info    : Compiling entry function '_ZN12_GLOBAL__N_120probe_sampler_kernelILi1ELi3ELi0EEEvPKfS2_S2_PKiS4_S4_S2_8ProbeArgsiPf' for 'sm_90a'
+ptxas info    : Function properties for _ZN12_GLOBAL__N_120probe_sampler_kernelILi1ELi3ELi0EEEvPKfS2_S2_PKiS4_S4_S2_8ProbeArgsiPf
+    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 40 registers, used 1 barriers, 1024 bytes smem, 468 bytes cmem[0]
+ptxas info    : Compiling entry function '_ZN12_GLOBAL__N_120window_colsum_kernelEPKfiiPKiS3_iiiPf' for 'sm_90a'
+ptxas info    : Function properties for _ZN12_GLOBAL__N_120window_colsum_kernelEPKfiiPKiS3_iiiPf
+    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 22 registers, used 0 barriers, 436 bytes cmem[0]
+ptxas info    : Compiling entry function '_ZN12_GLOBAL__N_114sampler_kernelItLi1ELi8EEEvPKT_iiPKfS5_PKhiiS5_N2gf11SamplerArgsEPf' for 'sm_90a'
+ptxas info    : Function properties for _ZN12_GLOBAL__N_114sampler_kernelItLi1ELi8EEEvPKT_iiPKfS5_PKhiiS5_N2gf11SamplerArgsEPf
+    8 bytes stack frame, 4 bytes spill stores, 8 bytes spill loads
+ptxas info    : Used 64 registers, used 1 barriers, 1024 bytes smem, 420 bytes cmem[0]
+"""
+
+
+def test_probe_bench_ptxas_report():
+    from gyroflow_torch.experiments import probe_bench as pb
+
+    got = pb.ptxas_report(PTXAS_LOG)
+    assert got == {"probe_sampler_kernelILi1ELi3ELi0EE": {"spill": [0, 0], "registers": 40},
+                   "sampler_kernelItLi1ELi8EE": {"spill": [4, 8], "registers": 64}}
+    assert pb.ptxas_report(PTXAS_LOG, ("window_colsum_kernel",)) == {
+        "window_colsum_kernel": {"spill": [0, 0], "registers": 22}}
+    assert pb.ptxas_report("") == {}
+
+
+def test_probe_bench_order_and_summary():
+    from gyroflow_torch.experiments import probe_bench as pb
+
+    assert pb.order(["a", "b", "c"]) == ["a", "b", "c", "c", "b", "a"]
+    assert pb.order(["a"]) == ["a", "a"]
+
+    def reading(t):
+        return {"probe5 Y": {"ms": t, "err": 0.0}, "probe5 UV": {"ms": t / 4, "err": 0.5},
+                "probe4 full": {"ms": 2 * t, "err": 0.0}}
+
+    s = pb.summarise({"A": [reading(0.4), reading(0.6)], "B": [reading(0.2), reading(0.2)]})
+    a, b = s["A"], s["B"]
+    assert a["cases"]["probe5 Y"]["ms"] == [0.4, 0.6]
+    assert a["cases"]["probe5 Y"]["mean_ms"] == pytest.approx(0.5)
+    assert a["cases"]["probe5 UV"]["max_err"] == 0.5
+    assert a["sums"] == {"probe5 Y+UV": pytest.approx(0.625)}    # fused_bbox not read
+    assert b["cases"]["probe4 full"]["mean_ms"] == pytest.approx(0.4)
+
+
+def test_probe_bench_cases_cover_phase7():
+    """Every probe-sampler mode and precision of probes 4-6 and both
+    fused_bbox planes, each once."""
+    from gyroflow_torch.experiments import perf_probe4 as p4, perf_probe6 as p6
+    from gyroflow_torch.experiments import probe_bench as pb
+
+    names = [c[0] for c in pb.CASES]
+    assert len(set(names)) == len(names)
+    assert {m for _, k, m, _ in pb.CASES if k == "p4"} == set(p4.MODES)
+    assert {p for _, k, _, p in pb.CASES if k == "p6"} == set(p6.PRECISIONS)
+    assert {k for _, k, _, _ in pb.CASES} == {"p4", "p5 Y", "p5 UV", "p6", "fb Y", "fb UV"}
+    assert all(all(c in names for c in parts) for parts in pb.SUMS.values())

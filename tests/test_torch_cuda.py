@@ -719,9 +719,47 @@ def test_fused_bbox_kernel_vs_plain(dev, plane, interpolation, bg_mode, flags, t
     assert fb.fused_bbox.launches == n0 + 1
     assert k[0].shape == p[0].shape == idx.shape + (img.shape[2],)
     assert k[2].shape == (-(-idx.shape[0] // tile[0]), -(-idx.shape[1] // tile[1]), 4)
-    assert float((k[0] - p[0]).abs().max()) <= 1e-3
+    assert torch.equal(k[0], p[0])
     assert torch.equal(k[1], p[1])
-    assert float((k[2] - p[2]).abs().max()) <= 1e-4
+    assert torch.equal(k[2], p[2])
+
+
+def _ragged(t, oh, ow):
+    """The top-left (oh, ow) of a map, contiguous."""
+    return t[:oh, :ow].contiguous()
+
+
+# (plane, output rows, output columns): no tile shape below divides them
+FUSED_BBOX_RAGGED = [("Y", 90, 150), ("UV", 45, 75)]
+
+
+@pytest.mark.parametrize("tile", [(16, 128), (8, 32), (16, 96)])
+@pytest.mark.parametrize("plane,oh,ow", FUSED_BBOX_RAGGED)
+def test_fused_bbox_paths_vs_plain(dev, plane, oh, ow, tile):
+    """Ragged tiles at each of the three tile shapes, with stencils both
+    wholly inside the source rect (the fast path) and across its edges (the
+    checked loop): output, valid and bbox equal to the plain version's, and
+    a second launch gives the same bits."""
+    from gyroflow_torch.experiments import fused_bbox as fb
+
+    cfg, dyn, mats, img = _case(plane, fov=1.2)
+    x, y, idx, m = _coords_inputs(cfg, dyn, mats, dev)
+    x, y, idx = (_ragged(t, oh, ow) for t in (x, y, idx))
+    timg = torch.from_numpy(img.astype(np.float32)).to(dev)
+    bg = tuple(float(b) * 1023.0 for b in np.asarray(dyn.background)[:img.shape[2]])
+    k = fb.fused_bbox(timg, x, y, idx, m, cfg, dyn, bg, *tile)
+    again = fb.fused_bbox(timg, x, y, idx, m, cfg, dyn, bg, *tile)
+    p = fb.fused_bbox_plain(timg, x, y, idx, m, cfg, dyn, bg, *tile)
+    torch.cuda.synchronize()
+    u, v, valid = cuda_coords.project_plain(x, y, idx, m, cfg, dyn)
+    u, v = remap.coords_post_uv(u, v, cfg)
+    share = fb.fast_share(remap._guard_uv(u), remap._guard_uv(v), cfg, timg.shape)
+    assert 0.0 < share < 1.0
+    assert k[2].shape == (-(-oh // tile[0]), -(-ow // tile[1]), 4)
+    for a, b, c in zip(k, p, again):
+        assert torch.equal(a, b)
+        assert torch.equal(a.view(torch.int32), c.view(torch.int32))
+    assert bool(valid.any())
 
 
 def test_window_colsum_kernel_vs_plain(dev):
@@ -765,7 +803,68 @@ def test_probe_sampler_kernel_vs_plain(dev, mode, precision):
         if mode == "nobuild":
             assert d <= 1e-4 * float(p.abs().max())
         else:
-            assert d <= 1e-3
+            assert d == 0.0
+
+
+def _probe_inputs(dev, C, inside, seed, H=40, W=72, offset=False):
+    """A small plane and tiled u/v for the probe sampler: with inside,
+    every stencil lies wholly inside its tile's window (24 x 64, K 40) and
+    the frame; else u, v spread over the frame and 8 px past it, so stencils
+    straddle the window's rows, the compute width and the frame's edges.
+    offset: the plane starts 4 bytes past a 16-byte boundary (for C=2 not
+    on a pixel's 8 bytes, so every stencil takes the checked loop)."""
+    from gyroflow_torch.experiments import probe_sampler as ps
+
+    rng = np.random.default_rng(seed)
+    ntiles, P, window = 6, 320, (24, 64, 40)
+    Sr, _, K = window
+    y0 = rng.integers(0, (H - Sr) // 8 + 1, ntiles) * 8
+    x0 = rng.integers(0, 3, ntiles) * 8
+    xoff = rng.integers(0, 3, ntiles) * 8
+    if inside:
+        fx = (x0 + xoff)[:, None] + rng.integers(0, K - 8 + 1, (ntiles, P))
+        fy = y0[:, None] + rng.integers(0, Sr - 8 + 1, (ntiles, P))
+        ph = rng.integers(0, 32, (2, ntiles, P)) + rng.uniform(-0.4, 0.4, (2, ntiles, P))
+        u = 3.0 + (fx * 32 + ph[0]) / 32.0
+        v = 3.0 + (fy * 32 + ph[1]) / 32.0
+    else:
+        u = rng.uniform(-8.0, W + 8.0, (ntiles, P))
+        v = rng.uniform(-8.0, H + 8.0, (ntiles, P))
+    host = rng.uniform(0, 1023, H * W * C + 1).astype(np.float32)
+    flat = torch.from_numpy(host).to(dev)
+    img = (flat[1:] if offset else flat[:-1]).view(H, W, C)
+    t = [torch.from_numpy(np.ascontiguousarray(a, np.float32)).to(dev) for a in (u, v)]
+    o = [torch.from_numpy(a.astype(np.int32)).to(dev) for a in (y0, x0, xoff)]
+    share = ps.fast_share(img.shape, *t, *o, window)
+    assert (share == 1.0) if inside else (0.05 < share < 0.95)
+    return img, *t, *o, window
+
+
+PROBE_FORMS = [("noop", "fp32"), ("nobuild", "fp32"), ("nomatmul", "fp32"), ("full", "fp32"),
+               ("full", "bf16"), ("full", "bf16x3")]
+
+
+@pytest.mark.parametrize("mode,precision", PROBE_FORMS)
+@pytest.mark.parametrize("C,inside,offset", [(1, False, False), (1, True, False),
+                                             (2, False, False), (2, True, False),
+                                             (1, False, True), (2, True, True)])
+def test_probe_sampler_paths_vs_plain(dev, C, inside, offset, mode, precision):
+    """Every mode and precision on stencils that straddle the window's rows,
+    the compute width and the frame's edges (the checked loop), and on
+    stencils wholly inside (the fast path; C=2 is probe 5's UV plane), also
+    on a plane that does not start on 16 bytes: equal to the plain version."""
+    from gyroflow_torch.experiments import probe_sampler as ps
+
+    img, u, v, y0, x0, xoff, window = _probe_inputs(dev, C, inside, 7 + C, offset=offset)
+    bg = (17.0, 3.5)[:C]
+    k = ps.sample(img, u, v, y0, x0, xoff, window, mode, precision, bg)
+    p = ps.sample_plain(img, u, v, y0, x0, xoff, window, mode, precision, bg)
+    torch.cuda.synchronize()
+    assert k.shape == u.shape + (C,) and bool(torch.isfinite(k).all())
+    if mode == "nobuild":
+        assert float((k - p).abs().max()) <= 1e-4 * float(p.abs().max())
+    else:
+        assert torch.equal(k, p)
 
 
 @pytest.mark.parametrize("variant", ["chain", "chain_plus1", "sum10"])

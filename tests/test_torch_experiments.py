@@ -305,6 +305,67 @@ def test_probe_sampler_background_weight():
     assert float((a - (b + extra)).abs().max()) <= 1e-3
 
 
+def _brute_fast(fx, fy, inside_x, inside_y, taps):
+    """Pixel by pixel, tap by tap: the share of the stencils at (fx, fy)
+    whose every tap is inside (inside_x(x) and inside_y(y))."""
+    n = 0
+    for x, y in zip(fx.reshape(-1).tolist(), fy.reshape(-1).tolist()):
+        n += all(inside_x(x + t) and inside_y(y + t) for t in range(taps))
+    return n / fx.numel()
+
+
+@pytest.mark.parametrize("C,seed", [(1, 0), (2, 1)])
+def test_probe_sampler_fast_share_vs_brute_force(C, seed):
+    """fast_share against a pixel-by-pixel count: each of the 64 taps in
+    its tile's window rows and compute width and in the frame, on a small
+    plane (11 x 13 pixels): the stencils of tile 0 end on its last pixel."""
+    H, W, window = 11, 13, (9, 12, 10)
+    rng = np.random.default_rng(seed)
+    ntiles, P = 5, 64
+    u = torch.from_numpy(rng.uniform(-4.0, W + 4.0, (ntiles, P)).astype(np.float32))
+    v = torch.from_numpy(rng.uniform(-4.0, H + 4.0, (ntiles, P)).astype(np.float32))
+    y0 = torch.from_numpy(rng.integers(-1, 3, ntiles).astype(np.int32))
+    x0 = torch.from_numpy(rng.integers(-1, 3, ntiles).astype(np.int32))
+    xoff = torch.from_numpy(rng.integers(0, 2, ntiles).astype(np.int32))
+    v[0] = 3.0 + (H - 8) + 0.01
+    u[0] = 3.0 + (W - 8) + 0.01
+    x0[0], xoff[0], y0[0] = W - 10, 0, H - 9
+    got = ps.fast_share((H, W, C), u, v, y0, x0, xoff, window)
+    fx = torch.round((u - 3.0) * 32).to(torch.int64) >> 5
+    fy = torch.round((v - 3.0) * 32).to(torch.int64) >> 5
+    Sr, _, K = window
+    n, total = 0.0, 0
+    for t in range(ntiles):
+        xs, ys = int(x0[t] + xoff[t]), int(y0[t])
+        n += _brute_fast(fx[t], fy[t], lambda x: xs <= x < xs + K and 0 <= x < W,
+                         lambda y: ys <= y < ys + Sr and 0 <= y < H, 8) * P
+        total += P
+    assert got == pytest.approx(n / total, abs=1e-12)
+    assert 0.0 < got < 1.0
+
+
+@pytest.mark.parametrize("C,interpolation", [(1, 8), (2, 8), (1, 2), (3, 4)])
+def test_fused_bbox_fast_share_vs_brute_force(C, interpolation):
+    """fast_share against a pixel-by-pixel count: each tap inside the
+    source rect and the plane."""
+    H, W = 9, 14
+    cfg = tkp.KernelConfig(width=W, height=H, output_width=W, output_height=H,
+                           interpolation=interpolation, source_rect=(1, 0, 12, 8))
+    rng = np.random.default_rng(C + interpolation)
+    u = torch.from_numpy(rng.uniform(-3.0, W + 3.0, (6, 40)).astype(np.float32))
+    v = torch.from_numpy(rng.uniform(-3.0, H + 3.0, (6, 40)).astype(np.float32))
+    info = tremap.INTERP_INFO[interpolation]
+    taps, off = info["taps"], info["offset"]
+    got = fb.fast_share(u, v, cfg, (H, W, C))
+    fx = torch.round((u - off) * 32).to(torch.int64) >> 5
+    fy = torch.round((v - off) * 32).to(torch.int64) >> 5
+    srx, sry, srw, srh = cfg.src_rect
+    want = _brute_fast(fx, fy, lambda x: srx <= x < srx + srw and 0 <= x < W,
+                       lambda y: sry <= y < sry + srh and 0 <= y < H, taps)
+    assert got == pytest.approx(want, abs=1e-12)
+    assert 0.0 < got < 1.0
+
+
 def test_window_colsum_vs_numpy():
     img, cases = p3.inputs("cpu", small=True)
     a = img.numpy().astype(np.float64)
