@@ -451,6 +451,7 @@ MAIN_PATH_KERNELS = {"coords": "coords_kernelILi0ELb0ELb0EE",
                      "fused_bbox<C1,8>": "fused_bbox_kernelILi1ELi8E",
                      "fused_bbox<C2,8>": "fused_bbox_kernelILi2ELi8E",
                      "window_colsum": "window_colsum_kernel",
+                     "window_colsum<tma>": "window_colsum_tma_kernel",
                      "probe_sampler<C1,full,fp32>": "probe_sampler_kernelILi1ELi3ELi0EE",
                      "probe_sampler<C1,full,bf16>": "probe_sampler_kernelILi1ELi3ELi1EE",
                      "probe_sampler<C1,full,bf16x3>": "probe_sampler_kernelILi1ELi3ELi2EE",
@@ -633,10 +634,11 @@ def experiments_phase(dev, smi):
         p = p3.window_colsum_plain(img, y0, x0, p3.SR, Sc)
         torch.cuda.synchronize()
         d = float((k - p).abs().max())
-        rel = float(((k - p).abs() / p.abs().clamp_min(1.0)).max())
-        print(f"window  align {align:3d} Sc {Sc} ({y0.shape[0]} tiles of {p3.SR}x{Sc}): max|d| "
-              f"{d:.3g}, relative {rel:.3g} (limit 1e-5)")
-        check(rel <= 1e-5, f"window align {align} Sc {Sc}: differs from its plain version")
+        print(f"window  align {align:3d} Sc {Sc} ({y0.shape[0]} tiles of {p3.SR}x{Sc}, design "
+              f"{p3.window_path(img, p3.SR, Sc)}, {int((x0 % 4 != 0).sum())} tiles at an origin "
+              f"column off 16 bytes, which sum with the checked loop): bit-identical "
+              f"{torch.equal(k, p)}, max|d| {d:.3g} (limit: bit-identical)")
+        check(torch.equal(k, p), f"window align {align} Sc {Sc}: differs from its plain version")
         err["window"] = max(err["window"], d)
         plain_ms["window"] += cuda_ms(lambda: p3.window_colsum_plain(img, y0, x0, p3.SR, Sc))
         n = y0.shape[0]

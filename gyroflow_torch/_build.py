@@ -198,6 +198,8 @@ def lib() -> ctypes.CDLL:
             L.gf_overlay.restype = ci
             L.gf_window_colsum.argtypes = [vp, ci, ci, vp, vp, ci, ci, ci, vp, vp]
             L.gf_window_colsum.restype = ci
+            L.gf_window_colsum_path.argtypes = [vp, ci, ci, ci]
+            L.gf_window_colsum_path.restype = ci
             L.gf_probe_sampler.argtypes = [vp, ci, vp, vp, vp, vp, vp, ci, vp, ProbeArgs, ci,
                                            ci, vp, vp]
             L.gf_probe_sampler.restype = ci

@@ -14,7 +14,13 @@ thread per output pixel reads its taps where they lie), so it reads None.
 
 ``window_colsum`` checks its inputs, then runs the plain version for CPU
 tensors only; for CUDA tensors it launches the kernel or raises.
-``window_colsum.launches`` counts kernel launches.
+``window_colsum.launches`` counts kernel launches. The kernel takes one of
+two designs by shape alone (``window_path``): "tma", each tile's window
+copied into shared memory by TMA, for a 16-byte aligned plane with W % 4 ==
+0, Sr and Sc <= 256 and a window that fits shared memory (every probe case;
+a tile whose origin column is not a multiple of 4 sums with the checked
+loop), else "checked", a thread a column with a bounds test a row. Both are
+bit-identical to ``window_colsum_plain``.
 """
 from __future__ import annotations
 
@@ -29,6 +35,8 @@ SR = 48
 CASES = ((128, 256), (32, 256), (32, 160), (8, 160))     # (align, Sc)
 FULL = {"H": 2176, "W": 3840, "ntiles": 512}
 SMALL = {"H": 128, "W": 512, "ntiles": 16}
+PATHS = ("checked", "tma")      # gf_window_colsum_path's codes
+NO_ENCODE = -1000000            # gf_window_colsum: cuTensorMapEncodeTiled not found
 NO_LADDER = ("the port has no window ladder: each output pixel reads its taps where they "
              "lie, so no window is picked")
 
@@ -61,6 +69,19 @@ def _check(img, y0, x0, Sr: int, Sc: int):
         raise ValueError(f"window kernel: window {Sr}x{Sc}")
 
 
+def window_path(img, Sr: int = SR, Sc: int = 256) -> str:
+    """What ``window_colsum`` runs for this plane and window: on a card the
+    kernel's design, by shape alone, "tma" or "checked" (``PATHS``); on the
+    CPU "plain"."""
+    if img.device.type == "cpu":
+        return "plain"
+    if img.device.type != "cuda":
+        raise ValueError(f"window kernel: unsupported device {img.device}")
+    from .._build import lib
+
+    return PATHS[lib().gf_window_colsum_path(img.data_ptr(), img.shape[1], Sr, Sc)]
+
+
 def window_colsum(img, y0, x0, Sr: int = SR, Sc: int = 256):
     """Column sums of each tile's Sr x Sc window: img float32 (H, W), y0, x0
     int32 (ntiles,). Returns (ntiles, Sc) float32."""
@@ -78,6 +99,10 @@ def window_colsum(img, y0, x0, Sr: int = SR, Sc: int = 256):
         err = lib().gf_window_colsum(img.data_ptr(), img.shape[0], img.shape[1], y0.data_ptr(),
                                      x0.data_ptr(), y0.shape[0], Sr, Sc, out.data_ptr(),
                                      torch.cuda.current_stream(img.device).cuda_stream)
+    if err == NO_ENCODE:
+        raise RuntimeError("window kernel: cuTensorMapEncodeTiled not found")
+    if err < 0:
+        raise RuntimeError(f"window kernel: cuTensorMapEncodeTiled failed: CUresult {-err}")
     if err != 0:
         raise RuntimeError(f"window kernel launch failed: cudaError {err}")
     window_colsum.launches += 1

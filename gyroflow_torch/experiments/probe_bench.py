@@ -1,6 +1,7 @@
-"""Time the experiments' sampler-probe kernel (csrc/probe_sampler.cu) and
-per-tile-bbox fused kernel (csrc/fused_bbox.cu) of one or more copies of
-gyroflow_torch at chip_smoke.py phase 7's shapes, on one CUDA card.
+"""Time the experiments' sampler-probe kernel (csrc/probe_sampler.cu),
+per-tile-bbox fused kernel (csrc/fused_bbox.cu) and window-column-sum kernel
+(csrc/probe_window.cu) of one or more copies of gyroflow_torch at
+chip_smoke.py phase 7's shapes, on one CUDA card.
 
     python -m gyroflow_torch.experiments.probe_bench [ROOT ...]
 
@@ -11,21 +12,28 @@ makes them: probe 4's Y plane (tile 16x128, window 48x256), probe 5's Y and
 UV planes and probe 6's Y plane (tile 16x96, window 48 or 40 x 256, K 128),
 float32 4K planes with their tiled u/v and window origins, and
 ``fused_bbox``'s Y and UV planes with coords_pre's x, y, idx and the matrix
-table; with each case the share of pixels whose stencil takes the new
-kernels' fast path (``probe_sampler.fast_share``, ``fused_bbox.fast_share``).
+table, and probe 3's plane and the origins of its four (align, Sc) cases
+(``perf_probe3.inputs``) and of three more window cases that show its fixed
+cost and the cost of its overlapping reads; with each sampler case the share
+of pixels whose stencil takes the new kernels' fast path
+(``probe_sampler.fast_share``, ``fused_bbox.fast_share``), and the timer's
+floor (``perf_probe.cuda_ms`` of an add to 8 floats).
 Every ROOT's kernel library is built first, three builds at a time. Then each
 ROOT runs in a process of its own, in the order given and again in reverse
 (A B ... B A), and reads for every case (``CASES``: probe 4 in the modes
 noop, nobuild, nomatmul and full; probe 5 Y and UV; probe 6 in bf16, bf16x3
-and fp32; fused_bbox Y and UV):
+and fp32; fused_bbox Y and UV; the window at align 128, 32, 32, 8 and Sc 256,
+256, 160, 160, then one tile, 512 tiles at one origin and 512 side by side,
+with the design each copy's ``perf_probe3.window_path`` names, where it has
+one):
 
 - the kernel's device time with that copy's ``experiments.perf_probe.cuda_ms``
   (median of 10 calls, each behind an L2-flushing read and a device spin);
 - the largest difference from that copy's plain version on the same inputs
   (nobuild: relative to the plain output's largest value, as phase 7 reads
-  it; fused_bbox: over output, valid and bbox);
+  it; fused_bbox: over output, valid and bbox; the window must equal it);
 
-and the ptxas registers and spills of the two kernels' instantiations, and of
+and the ptxas registers and spills of the three kernels' instantiations, and of
 the uint16 forms of sampler.cu and fused.cu, which share taps.cuh. Prints the
 card's name and power limit, one JSON line per reading and a summary; writes
 the summary to probe_bench.json in chip_smoke.py's output directory
@@ -56,12 +64,22 @@ CASES = (("probe4 noop", "p4", "noop", "fp32"), ("probe4 nobuild", "p4", "nobuil
          ("probe5 Y", "p5 Y", "full", "fp32"), ("probe5 UV", "p5 UV", "full", "fp32"),
          ("probe6 bf16", "p6", "full", "bf16"), ("probe6 bf16x3", "p6", "full", "bf16x3"),
          ("probe6 fp32", "p6", "full", "fp32"),
-         ("fused_bbox Y", "fb Y", None, None), ("fused_bbox UV", "fb UV", None, None))
+         ("fused_bbox Y", "fb Y", None, None), ("fused_bbox UV", "fb UV", None, None),
+         *((f"window align{a} Sc{sc}", f"p3 {a} {sc}", "window", None)
+           for a, sc in ((128, 256), (32, 256), (32, 160), (8, 160))),
+         # the window kernel's fixed cost and what its overlapping reads cost:
+         # one tile; 512 tiles at one origin (their union one window); 512
+         # tiles side by side (union = window bytes, 25.2 MB)
+         ("window 1 tile Sc256", "p3 1 tile", "window", None),
+         ("window same origin x512 Sc256", "p3 same", "window", None),
+         ("window disjoint x512 Sc256", "p3 disjoint", "window", None))
 # sums read in the summary, each a list of cases
 SUMS = {"probe5 Y+UV": ("probe5 Y", "probe5 UV"),
-        "fused_bbox Y+UV": ("fused_bbox Y", "fused_bbox UV")}
+        "fused_bbox Y+UV": ("fused_bbox Y", "fused_bbox UV"),
+        "window": tuple(c[0] for c in CASES if c[0].startswith("window align"))}
 # the kernels whose registers the summary keeps: mangled-name pieces
 PTXAS_KERNELS = ("probe_sampler_kernel", "probe_tile_kernel", "fused_bbox_kernel",
+                 "window_colsum_kernel", "window_colsum_tma_kernel",
                  "sampler_kernelItLi1ELi8E", "sampler_kernelItLi2ELi8E",
                  "fused_kernelItLi1ELi8ELb0EE", "fused_kernelItLi2ELi8ELb0EE")
 
@@ -98,15 +116,17 @@ def order(roots):
 
 def summarise(readings: dict) -> dict:
     """Per root, from its readings ({root: [reading, ...]}, each reading
-    {case: {"ms": t, "err": e}}): each case's times in run order and their
-    mean, the SUMS of the means, and each case's largest difference."""
+    {case: {"ms": t, "err": e}}, a window case also {"path": design}): each
+    case's times in run order and their mean, the SUMS of the means, each
+    case's largest difference and its design."""
     out = {}
     for root, runs in readings.items():
         cases = {}
         for case in runs[0]:
             ms = [r[case]["ms"] for r in runs]
             cases[case] = {"ms": ms, "mean_ms": statistics.mean(ms),
-                           "max_err": max(r[case]["err"] for r in runs)}
+                           "max_err": max(r[case]["err"] for r in runs),
+                           **{k: runs[0][case][k] for k in ("path",) if k in runs[0][case]}}
         sums = {k: sum(cases[c]["mean_ms"] for c in parts) for k, parts in SUMS.items()
                 if all(c in cases for c in parts)}
         out[root] = {"cases": cases, "sums": sums}
@@ -120,6 +140,8 @@ def _inputs(path):
 
     sys.path.insert(0, str(REPO))
     from gyroflow_torch.experiments import fused_bbox as fb
+    from gyroflow_torch.experiments import perf_probe
+    from gyroflow_torch.experiments import perf_probe3 as p3
     from gyroflow_torch.experiments import perf_probe4 as p4
     from gyroflow_torch.experiments import perf_probe5 as p5
     from gyroflow_torch.experiments import perf_probe6 as p6
@@ -142,10 +164,21 @@ def _inputs(path):
         u, v = remap.coords_post_uv(u, v, cfg)
         share[f"fb {name}"] = fb.fast_share(remap._guard_uv(u), remap._guard_uv(v), cfg,
                                             img.shape)
+    img, cases = p3.inputs(dev)
+    for align, sc, y0, x0 in cases:
+        out[f"p3 {align} {sc}"] = (img, y0, x0, sc)
+    _, _, y0, x0 = cases[0]
+    i = torch.arange(y0.shape[0], dtype=torch.int32, device=dev)
+    out["p3 1 tile"] = (img, y0[:1], x0[:1], 256)
+    out["p3 same"] = (img, i * 0 + 1000, i * 0 + 1024, 256)
+    out["p3 disjoint"] = (img, (i // 15) * p3.SR, (i % 15) * 256, 256)
     host = {k: tuple(a.cpu() if isinstance(a, torch.Tensor) else a for a in t)
             for k, t in out.items()}
     torch.save(host, path)
-    print(json.dumps({"inputs": path, "fast_share": share}))
+    # the timer's floor: an add to 8 floats, read as every case is
+    small = torch.zeros(8, device=dev)
+    floor = perf_probe.cuda_ms(lambda: small.add_(1), dev)
+    print(json.dumps({"inputs": path, "fast_share": share, "timer_floor_ms": floor}))
 
 
 def _build(root):
@@ -159,7 +192,7 @@ def _build(root):
 
 
 def _time(root, path):
-    """Time and check ROOT's two kernels on the saved inputs (a process of
+    """Time and check ROOT's three kernels on the saved inputs (a process of
     its own)."""
     import torch
 
@@ -167,6 +200,7 @@ def _time(root, path):
     import gyroflow_torch
     from gyroflow_torch.experiments import fused_bbox as fb
     from gyroflow_torch.experiments import perf_probe
+    from gyroflow_torch.experiments import perf_probe3 as p3
     from gyroflow_torch.experiments import probe_sampler as ps
 
     if Path(gyroflow_torch.__file__).resolve().parent != (Path(root) / "gyroflow_torch").resolve():
@@ -177,7 +211,17 @@ def _time(root, path):
     res = {}
     for case, key, mode, precision in CASES:
         args = inputs[key]
-        if mode is None:
+        design = None
+        if mode == "window":
+            img, y0, x0, sc = args
+            k = p3.window_colsum(img, y0, x0, p3.SR, sc)
+            p = p3.window_colsum_plain(img, y0, x0, p3.SR, sc)
+            err = float((k - p).abs().max())
+            ok = torch.equal(k, p)
+            ms = perf_probe.cuda_ms(lambda: p3.window_colsum(img, y0, x0, p3.SR, sc), dev)
+            if hasattr(p3, "window_path"):
+                design = p3.window_path(img, p3.SR, sc)
+        elif mode is None:
             k = fb.fused_bbox(*args)
             p = fb.fused_bbox_plain(*args)
             err = max(float((a - b).abs().max()) for a, b in zip(k, p))
@@ -193,7 +237,7 @@ def _time(root, path):
         torch.cuda.synchronize()
         if not (ok and bool(torch.isfinite(k[0] if mode is None else k).all())):
             raise AssertionError(f"{root} {case}: kernel off its plain version by {err}")
-        res[case] = {"ms": ms, "err": err}
+        res[case] = {"ms": ms, "err": err, **({"path": design} if design else {})}
     print(json.dumps(res))
 
 
@@ -235,12 +279,13 @@ def main(roots) -> int:
     readings = {r: [] for r in roots}
     with tempfile.TemporaryDirectory() as tmp:
         path = str(Path(tmp) / "inputs.pt")
-        share = _run(["--inputs", path])["fast_share"]
-        print(json.dumps({"fast_share": share}), flush=True)
+        got = _run(["--inputs", path])
+        share, floor = got["fast_share"], got["timer_floor_ms"]
+        print(json.dumps({"fast_share": share, "timer_floor_ms": floor}), flush=True)
         for r in order(roots):
             readings[r].append(_run(["--time", r, path]))
             print(json.dumps({"root": r, **readings[r][-1]}), flush=True)
-    summary = {"card": smi, "fast_share": share,
+    summary = {"card": smi, "fast_share": share, "timer_floor_ms": floor,
                "roots": [{"root": r, "ptxas": builds[r]["ptxas"], **s}
                          for r, s in summarise(readings).items()]}
     sys.path.insert(0, str(REPO))

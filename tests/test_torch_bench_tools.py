@@ -73,6 +73,10 @@ ptxas info    : Compiling entry function '_ZN12_GLOBAL__N_120window_colsum_kerne
 ptxas info    : Function properties for _ZN12_GLOBAL__N_120window_colsum_kernelEPKfiiPKiS3_iiiPf
     0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
 ptxas info    : Used 22 registers, used 0 barriers, 436 bytes cmem[0]
+ptxas info    : Compiling entry function '_ZN12_GLOBAL__N_124window_colsum_tma_kernelE14CUtensorMap_stPKfiiPKiS4_iiPf' for 'sm_90a'
+ptxas info    : Function properties for _ZN12_GLOBAL__N_124window_colsum_tma_kernelE14CUtensorMap_stPKfiiPKiS4_iiPf
+    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 32 registers, used 1 barriers, 564 bytes cmem[0]
 ptxas info    : Compiling entry function '_ZN12_GLOBAL__N_114sampler_kernelItLi1ELi8EEEvPKT_iiPKfS5_PKhiiS5_N2gf11SamplerArgsEPf' for 'sm_90a'
 ptxas info    : Function properties for _ZN12_GLOBAL__N_114sampler_kernelItLi1ELi8EEEvPKT_iiPKfS5_PKhiiS5_N2gf11SamplerArgsEPf
     8 bytes stack frame, 4 bytes spill stores, 8 bytes spill loads
@@ -85,6 +89,8 @@ def test_probe_bench_ptxas_report():
 
     got = pb.ptxas_report(PTXAS_LOG)
     assert got == {"probe_sampler_kernelILi1ELi3ELi0EE": {"spill": [0, 0], "registers": 40},
+                   "window_colsum_kernel": {"spill": [0, 0], "registers": 22},
+                   "window_colsum_tma_kernel": {"spill": [0, 0], "registers": 32},
                    "sampler_kernelItLi1ELi8EE": {"spill": [4, 8], "registers": 64}}
     assert pb.ptxas_report(PTXAS_LOG, ("window_colsum_kernel",)) == {
         "window_colsum_kernel": {"spill": [0, 0], "registers": 22}}
@@ -99,20 +105,26 @@ def test_probe_bench_order_and_summary():
 
     def reading(t):
         return {"probe5 Y": {"ms": t, "err": 0.0}, "probe5 UV": {"ms": t / 4, "err": 0.5},
-                "probe4 full": {"ms": 2 * t, "err": 0.0}}
+                "probe4 full": {"ms": 2 * t, "err": 0.0},
+                **{c: {"ms": t / 10, "err": 0.0, "path": "tma"} for c in pb.SUMS["window"]}}
 
     s = pb.summarise({"A": [reading(0.4), reading(0.6)], "B": [reading(0.2), reading(0.2)]})
     a, b = s["A"], s["B"]
     assert a["cases"]["probe5 Y"]["ms"] == [0.4, 0.6]
     assert a["cases"]["probe5 Y"]["mean_ms"] == pytest.approx(0.5)
     assert a["cases"]["probe5 UV"]["max_err"] == 0.5
-    assert a["sums"] == {"probe5 Y+UV": pytest.approx(0.625)}    # fused_bbox not read
+    assert a["sums"] == {"probe5 Y+UV": pytest.approx(0.625),     # fused_bbox not read
+                         "window": pytest.approx(0.2)}
     assert b["cases"]["probe4 full"]["mean_ms"] == pytest.approx(0.4)
+    assert "path" not in b["cases"]["probe4 full"]
+    assert b["cases"]["window align8 Sc160"]["path"] == "tma"
 
 
 def test_probe_bench_cases_cover_phase7():
-    """Every probe-sampler mode and precision of probes 4-6 and both
-    fused_bbox planes, each once."""
+    """Every probe-sampler mode and precision of probes 4-6, both
+    fused_bbox planes and probe 3's four window cases, each once, and the
+    window's three cases of its fixed cost and overlap, outside its sum."""
+    from gyroflow_torch.experiments import perf_probe3 as p3
     from gyroflow_torch.experiments import perf_probe4 as p4, perf_probe6 as p6
     from gyroflow_torch.experiments import probe_bench as pb
 
@@ -120,5 +132,11 @@ def test_probe_bench_cases_cover_phase7():
     assert len(set(names)) == len(names)
     assert {m for _, k, m, _ in pb.CASES if k == "p4"} == set(p4.MODES)
     assert {p for _, k, _, p in pb.CASES if k == "p6"} == set(p6.PRECISIONS)
-    assert {k for _, k, _, _ in pb.CASES} == {"p4", "p5 Y", "p5 UV", "p6", "fb Y", "fb UV"}
+    windows = {f"p3 {a} {sc}" for a, sc in p3.CASES}
+    assert {k for _, k, _, _ in pb.CASES} == {"p4", "p5 Y", "p5 UV", "p6", "fb Y", "fb UV",
+                                              "p3 1 tile", "p3 same", "p3 disjoint"} | windows
+    assert [c[0] for c in pb.CASES if c[1] in windows] == [
+        f"window align{a} Sc{sc}" for a, sc in p3.CASES]      # run_all's names
+    assert all(m == "window" for _, k, m, _ in pb.CASES if k in windows)
+    assert pb.SUMS["window"] == tuple(f"window align{a} Sc{sc}" for a, sc in p3.CASES)
     assert all(all(c in names for c in parts) for parts in pb.SUMS.values())

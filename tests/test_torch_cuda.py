@@ -773,7 +773,86 @@ def test_window_colsum_kernel_vs_plain(dev):
         torch.cuda.synchronize()
         assert p3.window_colsum.launches == n0 + 1
         assert k.shape == (y0.shape[0], Sc)
-        assert float(((k - p).abs() / p.abs().clamp_min(1.0)).max()) <= 1e-5
+        assert torch.equal(k, p)
+
+
+def _window_plane(H, W, dev, offset=0):
+    """A seeded float32 (H, W) plane on dev whose first and last 3 rows and
+    first 2 columns hold -0.0 (the sign of a zero sum is checked too);
+    offset floats ahead of it in its allocation (a plane not 16-byte
+    aligned)."""
+    a = np.random.default_rng(5).uniform(-1023, 1023, (H, W)).astype(np.float32)
+    a[:3] = a[-3:] = a[:, :2] = -0.0
+    flat = torch.zeros(offset + H * W, dtype=torch.float32, device=dev)
+    flat[offset:] = torch.from_numpy(a.reshape(-1)).to(dev)
+    return flat[offset:].view(H, W)
+
+
+# id: (H, W, Sr, Sc, y0s, x0s, plane offset in floats, design); tiles straddle
+# every edge, lie wholly outside, start at negative origins, run past the
+# bottom and the right
+WINDOW_PATH_CASES = {
+    "edges": (96, 160, 48, 64, [-47, -48, -5, 0, 40, 48, 90, 96, -200, 10, 50],
+              [-63, -64, -3, 0, 100, 96, 150, 160, 10, 500, -1], 0, "tma"),
+    "x0 % 4 != 0": (96, 512, 48, 160, [0, 7, 13, 48, 50, -9, 90, 1],
+                    [1, 2, 3, 5, 333, 351, -1, -3], 0, "tma"),
+    "W % 4 != 0": (96, 510, 48, 256, [0, -8, 60, 20, 5], [0, 255, 300, -5, 254], 0,
+                   "checked"),
+    "plane not 16-byte aligned": (96, 512, 48, 256, [0, -8, 60, 20], [0, 256, 300, -5], 1,
+                                  "checked"),
+    "Sr 1": (96, 512, 1, 256, [0, -1, 95, 96, 40], [0, 256, 300, -5, 7], 0, "tma"),
+    "Sr 47": (96, 512, 47, 256, [0, -46, 49, 50, 40], [0, 256, 300, -5, 7], 0, "tma"),
+    "Sr 48": (96, 512, 48, 256, [0, -47, 48, 49, 40], [0, 256, 300, -5, 7], 0, "tma"),
+    "Sr 300, past TMA's box": (400, 128, 300, 32, [0, -200, 100, 101, 399],
+                               [0, 96, -31, 5, 100], 0, "checked"),
+    "Sr 256 x Sc 256, past shared memory": (300, 512, 256, 256, [0, -100, 44, 60],
+                                            [0, 256, 300, -5], 0, "checked"),
+    "Sc 1": (96, 512, 48, 1, [0, -8, 60, 20, 5], [0, 511, 512, -1, 7], 0, "tma"),
+    "Sc 160": (96, 512, 48, 160, [0, -8, 60, 20, 5], [0, 352, 400, -5, 7], 0, "tma"),
+    "Sc 256": (96, 512, 48, 256, [0, -8, 60, 20, 5], [0, 256, 300, -5, 7], 0, "tma"),
+    "Sc 300": (96, 512, 48, 300, [0, -8, 60, 20, 5], [0, 212, 300, -5, 7], 0, "checked"),
+}
+
+
+def _window_check(p3, img, y0, x0, Sr, Sc, design):
+    assert p3.window_path(img, Sr, Sc) == design
+    n0 = p3.window_colsum.launches
+    k = p3.window_colsum(img, y0, x0, Sr, Sc)
+    p = p3.window_colsum_plain(img, y0, x0, Sr, Sc)
+    torch.cuda.synchronize()
+    assert p3.window_colsum.launches == n0 + 1
+    assert k.shape == (y0.shape[0], Sc)
+    assert torch.equal(k, p)
+    assert torch.equal(k.view(torch.int32), p.view(torch.int32))     # the sign of 0 too
+
+
+@pytest.mark.parametrize("case", [f"probe {s} align{a} Sc{sc}" for s in ("full", "small")
+                                  for a, sc in ((128, 256), (32, 256), (32, 160), (8, 160))]
+                         + list(WINDOW_PATH_CASES) + ["ntiles 0"])
+def test_window_colsum_paths_vs_plain(dev, case):
+    """Each design of csrc/probe_window.cu, picked by shape, bit-identical to
+    the plain version: the probe's four cases at full and small size, edge
+    and outside tiles, unaligned origins and planes, odd window shapes."""
+    from gyroflow_torch.experiments import perf_probe3 as p3
+
+    if case.startswith("probe"):
+        _, size, name = case.split(" ", 2)
+        img, cases = p3.inputs(dev, small=size == "small")
+        align, Sc, y0, x0 = next(c for c in cases if f"align{c[0]} Sc{c[1]}" == name)
+        _window_check(p3, img, y0, x0, p3.SR, Sc, "tma")
+    elif case == "ntiles 0":
+        img = _window_plane(96, 512, dev)
+        none = torch.zeros(0, dtype=torch.int32, device=dev)
+        n0 = p3.window_colsum.launches
+        k = p3.window_colsum(img, none, none, p3.SR, 160)
+        assert k.shape == (0, 160) and k.device == img.device
+        assert p3.window_colsum.launches == n0
+    else:
+        H, W, Sr, Sc, y0, x0, offset, design = WINDOW_PATH_CASES[case]
+        img = _window_plane(H, W, dev, offset)
+        y0 = torch.tensor(y0, dtype=torch.int32, device=dev)
+        x0 = torch.tensor(x0, dtype=torch.int32, device=dev)
+        _window_check(p3, img, y0, x0, Sr, Sc, design)
 
 
 def _probe_sampler_cases(dev):

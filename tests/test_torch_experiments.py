@@ -377,6 +377,41 @@ def test_window_colsum_vs_numpy():
         np.testing.assert_allclose(got, want, rtol=1e-5)
 
 
+@pytest.mark.parametrize("Sr,Sc,y0,x0", [
+    (48, 256, [-47, -48, -8, -300, 0], [-255, -256, -3, 0, -1000]),     # above, left
+    (48, 160, [80, 81, 127, 128, 500], [352, 353, 511, 512, 9000]),     # below, right
+    (48, 160, [-5, 100, -47, 90], [505, -100, 7, -159]),                # two edges at once
+    (47, 300, [-46, 81, 40, 0], [-299, 212, 213, 3]),
+    (1, 1, [-1, 0, 127, 128], [-1, 0, 511, 512]),
+    (130, 520, [-1, -2, 0], [-4, 0, -8]),                               # wider than the plane
+])
+def test_window_colsum_edges_vs_numpy(Sr, Sc, y0, x0):
+    """The plain version against the probe's ``jnp.sum(win, axis=0)`` over
+    a zero-padded plane (a window past the edge reads 0), summed in row
+    order in float32, bit for bit: a plane whose first and last rows and
+    first columns are -0.0 shows that a window past the edge adds +0."""
+    img = p3.inputs("cpu", small=True)[0].numpy().copy()
+    img[:3] = img[-3:] = img[:, :2] = -0.0
+    H, W = img.shape
+    pad = np.zeros((H + 2 * (Sr + 1000), W + 2 * (Sc + 10000)), np.float32)
+    pad[Sr + 1000:Sr + 1000 + H, Sc + 10000:Sc + 10000 + W] = img
+    want = []
+    for y, x in zip(y0, x0):
+        win = pad[y + Sr + 1000:y + 2 * Sr + 1000, x + Sc + 10000:x + 2 * Sc + 10000]
+        col = win[0].copy()
+        for r in range(1, Sr):
+            col = col + win[r]
+        want.append(col)
+    assert p3.window_path(torch.from_numpy(img), Sr, Sc) == "plain"
+    got = p3.window_colsum(torch.from_numpy(img), torch.tensor(y0, dtype=torch.int32),
+                           torch.tensor(x0, dtype=torch.int32), Sr, Sc).numpy()
+    np.testing.assert_array_equal(got.view(np.int32), np.stack(want).view(np.int32))
+    np.testing.assert_allclose(got, np.stack([pad[y + Sr + 1000:y + 2 * Sr + 1000,
+                                                  x + Sc + 10000:x + 2 * Sc + 10000]
+                                              .astype(np.float64).sum(axis=0)
+                                              for y, x in zip(y0, x0)]), rtol=1e-5)
+
+
 @pytest.mark.parametrize("variant", ["chain", "chain_plus1", "sum10"])
 def test_elementwise_vs_numpy(variant):
     x1, x8 = p8.inputs("cpu", small=True)
@@ -412,6 +447,8 @@ def test_wrappers_raise_on_other_devices():
     i32 = torch.empty(4, dtype=torch.int32, device=m)
     with pytest.raises(ValueError, match="unsupported device"):
         p3.window_colsum(torch.empty(64, 64, device=m), i32, i32)
+    with pytest.raises(ValueError, match="unsupported device"):
+        p3.window_path(torch.empty(64, 64, device=m))
     u = torch.empty(4, 16, device=m)
     with pytest.raises(ValueError, match="unsupported device"):
         ps.sample(torch.empty(32, 64, 1, device=m), u, u, i32, i32, i32, (8, 16, 16))
