@@ -115,7 +115,14 @@ exits non-zero without the final line):
    from the same step with each wrapper's plain version; (e)
    dryrun_multichip(4) on 4 logical shards; (f) (a) over the real cards
    where there is more than one (else it says so); then the host-clock ms
-   per frame of (a) against the one-device window (printed, not claimed).
+   per frame of (a) against the one-device window (printed, not claimed);
+11. the port's measurement path: one primary frame of gyroflow_torch.bench
+   (4K float32 Y + UV through remap_plane_cuda) within 0.25 codes of the
+   plain torch path; gyroflow_torch.bench.main() at its full size, its JSON
+   line printed and each of its numbers finite and > 0, with every coords
+   and sampler launch it makes counted (bench_launches); then
+   experiments.prod_path_probe and experiments.renderer_loop_bench (its
+   device step stubbed: no launch) once each at 4K.
 
 Each kernel's bound (the least time the card could take for the same work)
 is the larger of its bytes (each input read once, each output written once)
@@ -132,10 +139,11 @@ its definition so that it compares across runs.
 Second-to-last lines: the card's name and power limit, then one JSON object
 with the kernels; last line: {"ok": true, "device": {...}}. Needs one card and
 nvcc; a copy of the kernel library is built under gyroflow_torch/build/.
-A few minutes on an H100 (150 s in all), the kernels' build (one nvcc per
+A few minutes on an H100 (180-230 s in all), the kernels' build (one nvcc per
 source, run together; ~55 s, fused.cu's 72 instantiations the longest), Triton's
-compile, phase 4g's host-side ST maps and phase 8's three extra managers
-included: the host's share varies with the machine's load.
+compile, phase 4g's host-side ST maps, phase 8's three extra managers and
+phase 11's bench and probes (~20 s) included: the host's share varies with
+the machine's load.
 """
 from __future__ import annotations
 
@@ -1597,6 +1605,84 @@ def sharded_phase(dev, smi, mgr, planes, win_ts, windows, driven, expect, device
     return report
 
 
+BENCH_TOL = 0.25            # float32 codes: the bench's primary frame, kernels vs plain path
+BENCH_NUMBERS = ("value", "vs_baseline", "per_frame_dispatch_fps", "secondary_8k_y_ms_per_frame",
+                 "secondary_8k_y_fps", "production_path_fps", "production_window_fps")
+
+
+def bench_launches(bench):
+    """Coords (and sampler) launches of one bench.main() run: two a 4K
+    frame, one an 8K plane, warm-up calls included."""
+    frames = ((1 + bench.REPS * bench.CALLS) * bench.F + 1 + bench.REPS * bench.B
+              + 1 + bench.REPS * bench.NB + (1 + bench.REPS * bench.WINDOWS) * bench.FW)
+    return 2 * frames + 1 + bench.REPS * bench.CALLS_8K
+
+
+def bench_phase(dev, smi, driven, expect):
+    """Phase 11: the port's measurement path. One primary frame of
+    gyroflow_torch.bench (its Y and UV planes through remap_plane_cuda)
+    against the plain torch path on the card, within BENCH_TOL; then
+    bench.main() at its full size, launch counts set to 0 before and read
+    after, its JSON line printed and each of its numbers finite and > 0;
+    then the production-path probe and the render-loop probe (its device
+    step stubbed: no launch) once each at the 4K size. Returns the phase's
+    report."""
+    import numpy as np
+    import torch
+    from gyroflow_torch import bench
+    from gyroflow_torch.experiments import prod_path_probe, renderer_loop_bench
+    from gyroflow_torch.ops import remap
+
+    phase("bench: one primary frame (Y 3840x2160x1 + UV 1920x1080x2 float32, lanczos4) "
+          "through the kernels against the plain path on the card")
+    planes = bench.primary_planes(np.random.default_rng(0), dev, bench.UHD)
+    (_, _, y, yl), (_, _, uv, uvm) = planes
+    salt = torch.tensor(1e-3, dtype=torch.float32, device=dev)
+    errs = {}
+    for (cfg, dyn, img, mats), out, name in zip(planes, bench.remap_frame(planes, y, yl, uv, uvm,
+                                                                          salt), ("Y", "UV")):
+        ref = remap.remap_plane(img + salt, mats, cfg, dyn)
+        d = (out - ref).abs()
+        errs[name] = float(d.max())
+        print(f"bench primary {name} {tuple(out.shape)}: kernels vs plain max|d| {errs[name]:.3g} "
+              f"codes over {int((d > 0).sum())} px (limit {BENCH_TOL}); mean "
+              f"{float(out.mean()):.2f}")
+        check(bool(torch.isfinite(out).all()), f"bench primary {name}: non-finite output")
+        check(errs[name] <= BENCH_TOL, f"bench primary {name}: kernels differ from the plain path")
+    del planes, y, uv, yl, uvm
+
+    phase(f"bench: gyroflow_torch.bench.main() (the five readings at full size) on {smi}")
+    n = bench_launches(bench)
+    t0 = time.perf_counter()
+    with driven("bench.main", expect(coords=n, sampler=n), frames="all"):
+        result = bench.main()
+    secs = time.perf_counter() - t0
+    for key in BENCH_NUMBERS:
+        v = result.get(key)
+        check(isinstance(v, float) and math.isfinite(v) and v > 0, f"bench {key}: {v!r}")
+    card = result.get("device", {})
+    check(card.get("count") == torch.cuda.device_count() and card.get("name")
+          and card.get("power_limit"), f"bench device: {card!r}")
+    print(f"bench.main {secs:.1f} s: {result['value']:.3f} fps primary, "
+          f"{result['per_frame_dispatch_fps']:.3f} per-frame dispatch, "
+          f"{result['secondary_8k_y_ms_per_frame']:.3f} ms 8K Y, {result['production_path_fps']:.3f} "
+          f"production path, {result['production_window_fps']:.3f} production window; {smi}")
+
+    phase("bench: the production-path probe (experiments.prod_path_probe, 4K)")
+    n_probe = 12
+    with driven("prod_path_probe", expect(coords=2 * (1 + 3 * n_probe),
+                                          sampler=2 * (1 + 3 * n_probe)), frames=n_probe):
+        probe = prod_path_probe.run(dev, (W, H), n_probe)
+    print(probe.pop("profile"))
+    print(json.dumps(probe))
+    phase("bench: the render-loop probe (experiments.renderer_loop_bench, 4K, device stubbed)")
+    with driven("renderer_loop_bench", expect(), frames=renderer_loop_bench.N):
+        loop = renderer_loop_bench.run(dev, (W, H), renderer_loop_bench.N)
+    print(json.dumps(loop))
+    return {"primary_vs_plain": errs, "bench": result, "bench_s": secs,
+            "prod_path_probe": probe, "renderer_loop": loop}
+
+
 def main() -> int:
     t_start = time.perf_counter()
     import torch
@@ -2341,6 +2427,9 @@ def main() -> int:
     # ---- 10. the sharded window on the card ----------------------------------
     report["sharded"] = sharded_phase(dev, smi, mgr, planes, win_ts, windows, driven, expect,
                                       device_rows)
+
+    # ---- 11. the port's measurement path: bench.py's readings and the probes -
+    report["bench"] = bench_phase(dev, smi, driven, expect)
     OUT_DIR.mkdir(exist_ok=True)
     (OUT_DIR / "chip_smoke.json").write_text(json.dumps({**report, "bounds": bound_of,
                                                          "kernels": kernels}, indent=1))

@@ -14,10 +14,13 @@ it:
 - ``perf_probe8``: an elementwise pass, a Triton kernel.
 
 ``run_all(device)`` runs every probe; ``python -m
-gyroflow_torch.experiments.perf_probeN`` runs one on ``cuda:0``. Two
-modules are no probes: ``ewa_bench`` and ``probe_bench`` time the EWA kernel
-and the probe-sampler and fused_bbox kernels of several copies of the
-package side by side.
+gyroflow_torch.experiments.perf_probeN`` runs one on ``cuda:0``. Four
+modules are no kernel probes: ``ewa_bench`` and ``probe_bench`` time the EWA
+kernel and the probe-sampler and fused_bbox kernels of several copies of
+the package side by side; ``prod_path_probe`` and ``renderer_loop_bench``
+(the counterparts of the experiments of the same names) split a
+production-path frame into its host stages and time the render loop with
+the device step stubbed, for ``gyroflow_torch.bench``.
 """
 from .perf_probe import run_all
 

@@ -1,13 +1,16 @@
 """gyroflow_torch stands alone: no jax and nothing of gyroflow_tpu.
 
 - Every ``.py`` of the port, and ``chip_smoke.py``, is walked with ``ast``:
-  no import of ``jax``, ``jaxlib`` or ``gyroflow_tpu``.
+  no import of ``jax``, ``jaxlib``, ``gyroflow_tpu`` or the repository's
+  ``bench`` (the JAX bench).
 - The host modules the port carries are copies of the JAX package's modules
   at the same path. Each copy must equal its original once the import lines
   are normalised (``gyroflow_tpu`` -> ``gyroflow_torch``) and the reference
   citations are read as ``gyroflow src/...`` (the originals cite a local
   checkout of the reference). Files that are meant to differ are listed in
-  ``MEANT_TO_DIFFER`` with the reason.
+  ``MEANT_TO_DIFFER`` with the reason. The port's rewrites of scripts that
+  lie outside the JAX package are listed in ``REWRITES`` with their
+  originals.
 
 The import hook test (every module imports with jax and gyroflow_tpu
 blocked) is ``test_torch_manager.py::test_port_runs_with_jax_blocked``.
@@ -21,7 +24,7 @@ import pytest
 REPO = Path(__file__).resolve().parents[1]
 PORT = REPO / "gyroflow_torch"
 REF = REPO / "gyroflow_tpu"
-FORBIDDEN = ("jax", "jaxlib", "gyroflow_tpu")
+FORBIDDEN = ("jax", "jaxlib", "gyroflow_tpu", "bench")
 
 MEANT_TO_DIFFER = {
     "__init__.py": "the port's own package docstring",
@@ -42,6 +45,14 @@ MEANT_TO_DIFFER = {
                       "device (the coords kernel on a card)",
     "render/dng_seq.py": "bounds every IFD count and offset by the file and raises only "
                          "ValueError (DNGError) on a damaged file",
+}
+
+# port modules rewritten from a script of the repository outside the JAX
+# package (no copy: they run the port's path on torch devices)
+REWRITES = {
+    "bench.py": "bench.py",
+    "experiments/prod_path_probe.py": "experiments/prod_path_probe.py",
+    "experiments/renderer_loop_bench.py": "experiments/renderer_loop_bench.py",
 }
 
 
@@ -91,6 +102,10 @@ def test_copies_are_listed():
         if (REF / f).is_file():
             assert _normalise((PORT / f).read_text()) != _normalise((REF / f).read_text()), \
                 f"{f} equals its original: drop it from MEANT_TO_DIFFER ({why})"
+    for f, original in REWRITES.items():
+        assert (PORT / f).is_file() and (REPO / original).is_file(), (f, original)
+        assert not (REF / f).is_file() and f not in MEANT_TO_DIFFER, f
+        assert (PORT / f).read_text() != (REPO / original).read_text(), f
 
 
 @pytest.mark.parametrize("rel", COPIES)
