@@ -121,8 +121,9 @@ exits non-zero without the final line):
    plain torch path; gyroflow_torch.bench.main() at its full size, its JSON
    line printed and each of its numbers finite and > 0, with every coords
    and sampler launch it makes counted (bench_launches); then
-   experiments.prod_path_probe and experiments.renderer_loop_bench (its
-   device step stubbed: no launch) once each at 4K.
+   experiments.prod_path_probe (with a production frame's device busy time
+   and idle share under torch.profiler) and experiments.renderer_loop_bench
+   (its device step stubbed: no launch) once each at 4K.
 
 Each kernel's bound (the least time the card could take for the same work)
 is the larger of its bytes (each input read once, each output written once)
@@ -1670,11 +1671,17 @@ def bench_phase(dev, smi, driven, expect):
 
     phase("bench: the production-path probe (experiments.prod_path_probe, 4K)")
     n_probe = 12
-    with driven("prod_path_probe", expect(coords=2 * (1 + 3 * n_probe),
-                                          sampler=2 * (1 + 3 * n_probe)), frames=n_probe):
+    with driven("prod_path_probe", expect(coords=2 * (1 + 4 * n_probe),
+                                          sampler=2 * (1 + 4 * n_probe)), frames=n_probe):
         probe = prod_path_probe.run(dev, (W, H), n_probe)
     print(probe.pop("profile"))
     print(json.dumps(probe))
+    check(0 < probe["device_busy_ms"] < probe["profiled_frame_ms"],
+          f"prod_path_probe: device busy {probe['device_busy_ms']!r} ms of "
+          f"{probe['profiled_frame_ms']!r} ms a profiled frame")
+    print(f"production frame under torch.profiler: {probe['profiled_frame_ms']:.3f} ms, device "
+          f"busy {probe['device_busy_ms']:.3f} ms, idle {100.0 * probe['device_idle_share']:.1f}%; "
+          f"{smi}")
     phase("bench: the render-loop probe (experiments.renderer_loop_bench, 4K, device stubbed)")
     with driven("renderer_loop_bench", expect(), frames=renderer_loop_bench.N):
         loop = renderer_loop_bench.run(dev, (W, H), renderer_loop_bench.N)

@@ -13,12 +13,15 @@ median over n new timestamps (the manager's caches cleared first):
 3. a frame (Y, then UV) issued, then the same frame with a synchronize
    after it; and n frames issued with one synchronize after the last;
 4. ``cProfile`` of the issue path over n frames (the top 22 by cumulative
-   time go to stdout).
+   time go to stdout);
+5. on the card, n frames under ``torch.profiler``: the card's busy time a
+   frame (its kernels and copies) against the profiled frame's wall, and
+   the share of that wall the card idles.
 
     python -m gyroflow_torch.experiments.prod_path_probe   # on cuda:0
 
 ``run(device, size, n)`` returns the readings (ms); on the CPU it runs the
-plain path and its times are the CPU's.
+plain path, its times are the CPU's and step 5 is left out.
 """
 from __future__ import annotations
 
@@ -49,7 +52,7 @@ def _median_ms(fn, timestamps):
     return statistics.median(ms)
 
 
-def run(device="cuda:0", size=bench.UHD, n=12, profile_lines=22) -> dict:
+def run(device="cuda:0", size=bench.UHD, n=12) -> dict:
     device = torch.device(device)
     mgr = bench.production_manager(device, size)
     y_dev, uv_dev = bench.production_planes(np.random.default_rng(0), device, size)
@@ -106,9 +109,37 @@ def run(device="cuda:0", size=bench.UHD, n=12, profile_lines=22) -> dict:
     prof.disable()
     _sync(device)
     out = io.StringIO()
-    pstats.Stats(prof, stream=out).sort_stats("cumulative").print_stats(profile_lines)
+    pstats.Stats(prof, stream=out).sort_stats("cumulative").print_stats(22)
     res["profile"] = out.getvalue()
+
+    if device.type == "cuda":
+        res.update(_device_busy(lambda i: bench.production_frame(mgr, y_dev, uv_dev, i),
+                                frames, clear, device))
     return res
+
+
+def _device_busy(frame, frames, clear, device) -> dict:
+    """The frames under torch.profiler, caches cleared first: the profiled
+    wall a frame, the card's busy time a frame (the self device time of
+    every device-side event: kernels and copies, one stream, so none
+    overlap) and the share of the wall the card idles."""
+    from torch.profiler import ProfilerActivity, profile
+
+    def self_device_us(e):   # the attribute's name before torch 2.4
+        return getattr(e, "self_device_time_total", None) or getattr(e, "self_cuda_time_total", 0)
+
+    clear()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for i in frames:
+            frame(i)
+        _sync(device)
+        wall = (time.perf_counter() - t0) * 1e3 / len(frames)
+    events = [e for e in prof.key_averages() if str(e.device_type).endswith("CUDA")]
+    busy = sum(self_device_us(e) for e in events) / 1e3 / len(frames)
+    return {"profiled_frame_ms": wall, "device_busy_ms": busy,
+            "device_events_per_frame": sum(e.count for e in events) / len(frames),
+            "device_idle_share": 1.0 - busy / wall}
 
 
 if __name__ == "__main__":

@@ -27,13 +27,13 @@ import time
 
 import numpy as np
 
+from ..bench import UHD
 from ..core.manager import StabilizationManager
 from ..ops import cuda_coords, cuda_sampler
 from ..render import renderer
 from ..render.formats import RAW_FORMATS
 from ..render.y4m_io import Y4MWriter
 
-UHD = (3840, 2160)
 N, FPS = 96, 60.0
 
 
