@@ -1619,6 +1619,15 @@ def bench_launches(bench):
     return 2 * frames + 1 + bench.REPS * bench.CALLS_8K
 
 
+def dispatch_launches(probe):
+    """Coords (and sampler) launches of one window_dispatch_probe.run() on
+    the card: two a frame step; each reading's warm-up call, its REPS reps
+    and its profiled rep."""
+    reps = probe.REPS + 1
+    frames = 1 + reps * probe.B + sum(F * (1 + reps * probe.windows(F)) for F in probe.WINDOWS)
+    return 2 * frames
+
+
 def bench_phase(dev, smi, driven, expect):
     """Phase 11: the port's measurement path. One primary frame of
     gyroflow_torch.bench (its Y and UV planes through remap_plane_cuda)
@@ -1626,12 +1635,16 @@ def bench_phase(dev, smi, driven, expect):
     bench.main() at its full size, launch counts set to 0 before and read
     after, its JSON line printed and each of its numbers finite and > 0;
     then the production-path probe and the render-loop probe (its device
-    step stubbed: no launch) once each at the 4K size. Returns the phase's
+    step stubbed: no launch) once each at the 4K size; then the
+    window-dispatch probe (its coords and sampler launches counted, every
+    reading finite and > 0) and the host pipeline on a 4K 10-bit y4m (no
+    launch; each y4m it writes equal to its input). Returns the phase's
     report."""
     import numpy as np
     import torch
     from gyroflow_torch import bench
-    from gyroflow_torch.experiments import prod_path_probe, renderer_loop_bench
+    from gyroflow_torch.experiments import (host_pipeline_bench, prod_path_probe,
+                                            renderer_loop_bench, window_dispatch_probe)
     from gyroflow_torch.ops import remap
 
     phase("bench: one primary frame (Y 3840x2160x1 + UV 1920x1080x2 float32, lanczos4) "
@@ -1686,8 +1699,45 @@ def bench_phase(dev, smi, driven, expect):
     with driven("renderer_loop_bench", expect(), frames=renderer_loop_bench.N):
         loop = renderer_loop_bench.run(dev, (W, H), renderer_loop_bench.N)
     print(json.dumps(loop))
+
+    phase("bench: per-frame against windowed dispatch (experiments.window_dispatch_probe, 4K)")
+    n_disp = dispatch_launches(window_dispatch_probe)
+    with driven("window_dispatch_probe", expect(coords=n_disp, sampler=n_disp),
+                frames=n_disp // 2):
+        disp = window_dispatch_probe.run(dev, (W, H))
+    print(json.dumps(disp))
+    for key in ("per_frame",) + tuple(f"window_{F}" for F in window_dispatch_probe.WINDOWS):
+        for name, v in disp[key].items():
+            check(math.isfinite(v) and v > 0, f"window_dispatch_probe {key} {name}: {v!r}")
+        r = disp[key]
+        print(f"dispatch {key}: {r['ms_per_frame']:.3f} ms a frame ({r['fps']:.2f} fps); under "
+              f"torch.profiler {r['profiled_frame_ms']:.3f} ms, device busy "
+              f"{r['device_busy_ms']:.3f} ms, idle {100.0 * r['device_idle_share']:.1f}%; {smi}")
+
+    phase(f"bench: the host pipeline (experiments.host_pipeline_bench, {host_pipeline_bench.N} "
+          f"frames of a 4K 10-bit y4m, the device step an identity on the card)")
+    with driven("host_pipeline_bench", expect(), frames=host_pipeline_bench.N):
+        host = host_pipeline_bench.run(dev, (W, H), host_pipeline_bench.N)
+    print(json.dumps(host))
+    for name, st in host["stages"].items():
+        check(st["frames"] == host_pipeline_bench.N and all(
+            math.isfinite(st[k]) and st[k] > 0 for k in ("steady_fps", "mean_fps")),
+            f"host_pipeline_bench {name}: {st!r}")
+    for name in ("encode", "async_encode", "device_round_trip"):
+        check(host["stages"][name]["output_equals_input"] is True,
+              f"host_pipeline_bench {name}: the y4m it wrote differs from its input")
+    e = host["stages"]["device_round_trip"]
+    check(all(math.isfinite(v) and v > 0 for k in ("stack_ms", "upload_ms", "download_ms")
+              for v in e[k].values()), f"host_pipeline_bench copies: {e!r}")
+    print(f"host pipeline ({host['workdir']}, {host['cores']} cores), fps steady / mean: "
+          + ", ".join(f"{name} {st['steady_fps']:.1f} / {st['mean_fps']:.1f}"
+                      for name, st in host["stages"].items())
+          + f"; host stack {e['stack_ms']['steady']:.3f} ms a frame, upload "
+          f"{e['upload_ms']['steady']:.3f} ms ({e['upload_gb_s']:.2f} GB/s), download "
+          f"{e['download_ms']['steady']:.3f} ms ({e['download_gb_s']:.2f} GB/s); {smi}")
     return {"primary_vs_plain": errs, "bench": result, "bench_s": secs,
-            "prod_path_probe": probe, "renderer_loop": loop}
+            "prod_path_probe": probe, "renderer_loop": loop, "window_dispatch": disp,
+            "host_pipeline": host}
 
 
 def main() -> int:

@@ -14,13 +14,20 @@ it:
 - ``perf_probe8``: an elementwise pass, a Triton kernel.
 
 ``run_all(device)`` runs every probe; ``python -m
-gyroflow_torch.experiments.perf_probeN`` runs one on ``cuda:0``. Four
+gyroflow_torch.experiments.perf_probeN`` runs one on ``cuda:0``. Six
 modules are no kernel probes: ``ewa_bench`` and ``probe_bench`` time the EWA
 kernel and the probe-sampler and fused_bbox kernels of several copies of
 the package side by side; ``prod_path_probe`` and ``renderer_loop_bench``
 (the counterparts of the experiments of the same names) split a
 production-path frame into its host stages and time the render loop with
-the device step stubbed, for ``gyroflow_torch.bench``.
+the device step stubbed, for ``gyroflow_torch.bench``;
+``host_pipeline_bench`` and ``window_dispatch_probe`` (likewise) time a
+render's decode, grouping, encode and copies to the card and back on a
+y4m, and per-frame against windowed dispatch of the bench's frame with
+the card's busy time. These four run on ``cuda:0`` with ``python -m
+gyroflow_torch.experiments.<name>`` and raise with no card; their ``run``
+takes a device and a size, which is how ``tests/test_torch_bench.py`` and
+``tests/test_torch_host_probes.py`` reach them on the CPU.
 """
 from .perf_probe import run_all
 

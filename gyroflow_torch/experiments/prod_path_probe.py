@@ -113,32 +113,31 @@ def run(device="cuda:0", size=bench.UHD, n=12) -> dict:
     res["profile"] = out.getvalue()
 
     if device.type == "cuda":
-        res.update(_device_busy(lambda i: bench.production_frame(mgr, y_dev, uv_dev, i),
-                                frames, clear, device))
+        clear()
+        res.update(device_busy(lambda: [bench.production_frame(mgr, y_dev, uv_dev, i)
+                                        for i in frames], n, device))
     return res
 
 
-def _device_busy(frame, frames, clear, device) -> dict:
-    """The frames under torch.profiler, caches cleared first: the profiled
-    wall a frame, the card's busy time a frame (the self device time of
-    every device-side event: kernels and copies, one stream, so none
-    overlap) and the share of the wall the card idles."""
+def device_busy(rep, frames, device) -> dict:
+    """rep() once under torch.profiler, rep running the given number of
+    frames: the profiled wall a frame, the card's busy time a frame (the
+    self device time of every device-side event: kernels and copies, one
+    stream, so none overlap) and the share of the wall the card idles."""
     from torch.profiler import ProfilerActivity, profile
 
     def self_device_us(e):   # the attribute's name before torch 2.4
         return getattr(e, "self_device_time_total", None) or getattr(e, "self_cuda_time_total", 0)
 
-    clear()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        for i in frames:
-            frame(i)
+        rep()
         _sync(device)
-        wall = (time.perf_counter() - t0) * 1e3 / len(frames)
+        wall = (time.perf_counter() - t0) * 1e3 / frames
     events = [e for e in prof.key_averages() if str(e.device_type).endswith("CUDA")]
-    busy = sum(self_device_us(e) for e in events) / 1e3 / len(frames)
+    busy = sum(self_device_us(e) for e in events) / 1e3 / frames
     return {"profiled_frame_ms": wall, "device_busy_ms": busy,
-            "device_events_per_frame": sum(e.count for e in events) / len(frames),
+            "device_events_per_frame": sum(e.count for e in events) / frames,
             "device_idle_share": 1.0 - busy / wall}
 
 

@@ -53,6 +53,8 @@ REWRITES = {
     "bench.py": "bench.py",
     "experiments/prod_path_probe.py": "experiments/prod_path_probe.py",
     "experiments/renderer_loop_bench.py": "experiments/renderer_loop_bench.py",
+    "experiments/host_pipeline_bench.py": "experiments/host_pipeline_bench.py",
+    "experiments/window_dispatch_probe.py": "experiments/window_dispatch_probe.py",
 }
 
 
