@@ -2104,7 +2104,7 @@ def main() -> int:
           f"(host clock; {smi})")
     with driven("render", expect(coords=2 * WINDOW, sampler=2 * WINDOW), frames=WINDOW):
         render_stats = render(mgr, str(clip), str(rendered),
-                              RenderOptions(interpolation=8, frame_window=WINDOW))
+                              RenderOptions(interpolation=8, frame_window=WINDOW, trace=True))
     print(f"render stats: {json.dumps(render_stats)} ({smi})")
     check(render_stats["frames"] == WINDOW and render_stats["backend"] == "cuda-window"
           and render_stats["frame_window"] == WINDOW, "render: stats")
@@ -2351,7 +2351,7 @@ def main() -> int:
           f"window, per-frame): 8 process_pixels calls {wms[0]:.3f}, process_pixels_window "
           f"(F = {WINDOW}) {wms[1]:.3f}, {wms[2]:.3f}, 8 process_pixels calls {wms[3]:.3f} ms; "
           f"render (4f, decode + stabilize + encode of a .y4m) {render_stats['fps']} fps, "
-          f"ms per frame {render_stats.get('stage_ms_per_frame')}; {smi}")
+          f"ms per frame {render_stats['trace']['ms_per_frame']}; {smi}")
 
     # where a render's stabilize stage goes: the host stack and upload of a
     # window's decoded planes, the window on the card, each frame's download

@@ -49,7 +49,8 @@ def build_parser() -> argparse.ArgumentParser:
                    help="watch folder for automated processing")
     p.add_argument("--autosync", action="store_true", help="run gyro autosync")
     p.add_argument("--trace", action="store_true",
-                   help="log per-stage timing (decode/stabilize/encode) and fps")
+                   help="log per-stage timing (decode/stabilize/encode), fps, each span's "
+                        "ms a frame and the host syncs a frame")
     p.add_argument("--device", type=str, default="cuda:0",
                    help="torch device to stabilize on: a CUDA card (cuda:0, the "
                         "default) or cpu; a missing card is an error")

@@ -19,6 +19,7 @@ from typing import Dict, Optional, Tuple
 import numpy as np
 import torch
 
+from .. import trace
 from .gyro_source import GyroSource
 from .keyframes import KeyframeManager, KeyframeType
 from .lens_profile import LensProfile
@@ -95,9 +96,6 @@ class StabilizationManager:
         self._undistortion_invalidated = False
         self._smoothing_checksum = None
         self._zooming_checksum = None
-        # the JAX manager's window-ladder counters, kept so info dicts have
-        # the same keys; they stay 0 here (there is no ladder to fall off)
-        self.stats = {"xla_fallbacks": 0, "window_reprobes": 0}
 
     # ---- loading (lib.rs:155-354, 1909-1976) -------------------------------
 
@@ -1283,31 +1281,37 @@ class StabilizationManager:
             self.recompute_undistortion()
         return self._compute_params
 
-    def frame_transform_at(self, timestamp_ms: float, frame: Optional[int] = None):
+    def frame_transform_at(self, timestamp_ms: float, frame: Optional[int] = None,
+                           rid: Optional[int] = None):
+        """rid: the request id of the lookup's gf.ft span, the frame's video
+        timestamp in us (None: the adjusted timestamp in us, its cache key)."""
         from ..ops.frame_transform import frame_transform_at
         from .params import frame_at_timestamp
-        gen = self.current_compute_id   # BEFORE the params snapshot
-        cp = self.get_compute_params()
-        if frame is None:
-            frame = frame_at_timestamp(timestamp_ms, cp.scaled_fps)
         key = int(round(timestamp_ms * 1000.0))
-        with self._stab_lock:
-            hit = self._stab_cache.get(key)
-        if hit is not None:
-            return hit
-        ft = frame_transform_at(cp, timestamp_ms, frame)
-        with self._stab_lock:
-            # skip the insert if params were invalidated while computing —
-            # a decode-ahead prefetch running with the old ComputeParams
-            # must not repopulate the just-cleared cache with stale geometry
-            if gen == self.current_compute_id:
-                # bounded: a long render walks monotonically increasing ts,
-                # so insertion order IS recency; unbounded growth would leak
-                # ~120 KB of matrices per 4K frame (4+ GB over a 10-min clip)
-                while len(self._stab_cache) >= 256:
-                    self._stab_cache.pop(next(iter(self._stab_cache)), None)
-                self._stab_cache[key] = ft
-        return ft
+        with trace.span("gf.ft", key if rid is None else rid) as sp:
+            gen = self.current_compute_id   # BEFORE the params snapshot
+            cp = self.get_compute_params()
+            if frame is None:
+                frame = frame_at_timestamp(timestamp_ms, cp.scaled_fps)
+            with self._stab_lock:
+                hit = self._stab_cache.get(key)
+            if hit is not None:
+                sp.note("hit")
+                return hit
+            sp.note("miss")
+            ft = frame_transform_at(cp, timestamp_ms, frame)
+            with self._stab_lock:
+                # skip the insert if params were invalidated while computing —
+                # a decode-ahead prefetch running with the old ComputeParams
+                # must not repopulate the just-cleared cache with stale geometry
+                if gen == self.current_compute_id:
+                    # bounded: a long render walks monotonically increasing ts,
+                    # so insertion order IS recency; unbounded growth would leak
+                    # ~120 KB of matrices per 4K frame (4+ GB over a 10-min clip)
+                    while len(self._stab_cache) >= 256:
+                        self._stab_cache.pop(next(iter(self._stab_cache)), None)
+                    self._stab_cache[key] = ft
+            return ft
 
     def _mats_on_device(self, timestamp_ms: float, ft):
         """Device copies of ft.matrices / ft.mesh_data, cached per timestamp:
@@ -1323,9 +1327,12 @@ class StabilizationManager:
         if hit is None:
             while len(self._mats_dev) >= 64:
                 self._mats_dev.pop(next(iter(self._mats_dev)))
-            mesh = torch.from_numpy(pack_mesh(ft.mesh_data, ft.kernel_cfg)).to(self.device) \
-                if ft.mesh_data is not None else None
+            mesh = None
+            if ft.mesh_data is not None:
+                trace.sync()
+                mesh = torch.from_numpy(pack_mesh(ft.mesh_data, ft.kernel_cfg)).to(self.device)
             mats = torch.from_numpy(np.ascontiguousarray(ft.matrices, np.float32))
+            trace.sync()
             hit = (mats.to(self.device), mesh)
             self._mats_dev[key] = hit
         return hit
@@ -1412,46 +1419,49 @@ class StabilizationManager:
         from ..parallel.pipeline import (make_frame_mesh, stabilize_window_production,
                                          stack_dynamics, stack_meshes)
 
-        mesh = device_mesh if device_mesh is not None else make_frame_mesh(device=self.device)
-        if mesh.device != self.device:
-            raise ValueError(f"frame mesh on {mesh.device}, manager on {self.device}")
-        imgs = torch.as_tensor(frames)
-        if not self.params.stab_enabled:
-            return imgs.to(self.device), {"fov": 1.0, "backend": "none"}
+        with trace.span("gf.process_pixels_window", timestamps_us[0]):
+            mesh = device_mesh if device_mesh is not None else make_frame_mesh(device=self.device)
+            if mesh.device != self.device:
+                raise ValueError(f"frame mesh on {mesh.device}, manager on {self.device}")
+            imgs = torch.as_tensor(frames)
+            if not self.params.stab_enabled:
+                with trace.span("gf.upload"):
+                    if trace.from_host(frames, self.device):
+                        trace.sync()
+                    return imgs.to(self.device), {"fov": 1.0, "backend": "none"}
 
-        self._lazy_recompute_if_invalidated()
-        fts = [self.frame_transform_at(self._adjusted_ts_ms(ts)) for ts in timestamps_us]
-        plane_shape = tuple(imgs.shape[1:])
-        cfgs, dyns = zip(*(self._plane_cfg_dyn(ft, plane_shape, interpolation, plane_index,
-                                               max_pixel_value, plane_rects,
-                                               background_override, None) for ft in fts))
-        if any(c != cfgs[0] for c in cfgs):
-            # one step needs one config for the whole window: process the
-            # frames one by one instead of aborting the render
-            log.info("frame window not batchable (kernel configs differ); per-frame fallback")
-            outs, info = [], {}
-            for ts, img in zip(timestamps_us, imgs):
-                o, info = self.process_pixels(
-                    ts, img, interpolation=interpolation, plane_index=plane_index,
-                    max_pixel_value=max_pixel_value, plane_rects=plane_rects,
-                    background_override=background_override)
-                outs.append(o)
-            info = dict(info)
-            info["backend"] = str(info.get("backend", "")) + "+per-frame"
-            return torch.stack(outs), info
+            self._lazy_recompute_if_invalidated()
+            fts = [self.frame_transform_at(self._adjusted_ts_ms(ts), rid=ts)
+                   for ts in timestamps_us]
+            plane_shape = tuple(imgs.shape[1:])
+            cfgs, dyns = zip(*(self._plane_cfg_dyn(ft, plane_shape, interpolation, plane_index,
+                                                   max_pixel_value, plane_rects,
+                                                   background_override, None) for ft in fts))
+            if any(c != cfgs[0] for c in cfgs):
+                # one step needs one config for the whole window: process the
+                # frames one by one instead of aborting the render
+                log.info("frame window not batchable (kernel configs differ); per-frame fallback")
+                outs, info = [], {}
+                for ts, img in zip(timestamps_us, imgs):
+                    o, info = self.process_pixels(
+                        ts, img, interpolation=interpolation, plane_index=plane_index,
+                        max_pixel_value=max_pixel_value, plane_rects=plane_rects,
+                        background_override=background_override)
+                    outs.append(o)
+                info = dict(info)
+                info["backend"] = str(info.get("backend", "")) + "+per-frame"
+                return torch.stack(outs), info
 
-        out_dtype, in_dtype = _plane_dtypes(imgs.dtype, max_pixel_value)
-        mats = np.stack([ft.matrices for ft in fts]).astype(np.float32)
-        out, backend = stabilize_window_production(
-            mesh, imgs, mats, cfgs[0], stack_dynamics(dyns), out_dtype=out_dtype,
-            meshes=stack_meshes([None if ft.mesh_data is None else
-                                 pack_mesh(ft.mesh_data, ft.kernel_cfg) for ft in fts]),
-            in_dtype=in_dtype)
-        info = {"fov": fts[0].fov, "minimal_fov": fts[0].minimal_fov,
-                "backend": backend,
-                "xla_fallbacks": self.stats["xla_fallbacks"],
-                "window_reprobes": self.stats["window_reprobes"]}
-        return out, info
+            out_dtype, in_dtype = _plane_dtypes(imgs.dtype, max_pixel_value)
+            mats = np.stack([ft.matrices for ft in fts]).astype(np.float32)
+            out, backend = stabilize_window_production(
+                mesh, imgs, mats, cfgs[0], stack_dynamics(dyns), out_dtype=out_dtype,
+                meshes=stack_meshes([None if ft.mesh_data is None else
+                                     pack_mesh(ft.mesh_data, ft.kernel_cfg) for ft in fts]),
+                in_dtype=in_dtype)
+            info = {"fov": fts[0].fov, "minimal_fov": fts[0].minimal_fov,
+                    "backend": backend}
+            return out, info
 
     def process_pixels(self, timestamp_us: int, frame_plane,
                        interpolation: int = 8, plane_index: int = 0,
@@ -1481,36 +1491,38 @@ class StabilizationManager:
         always False."""
         from ..ops import remap
 
-        ts_ms = self._adjusted_ts_ms(timestamp_us)
-        img = torch.as_tensor(frame_plane).to(self.device).contiguous()
+        with trace.span("gf.process_pixels", timestamp_us):
+            ts_ms = self._adjusted_ts_ms(timestamp_us)
+            with trace.span("gf.upload"):
+                if trace.from_host(frame_plane, self.device):
+                    trace.sync()
+                img = torch.as_tensor(frame_plane).to(self.device).contiguous()
 
-        if not self.params.stab_enabled:
-            return img, {"fov": 1.0, "backend": "none"}
+            if not self.params.stab_enabled:
+                return img, {"fov": 1.0, "backend": "none"}
 
-        self._lazy_recompute_if_invalidated()
-        ft = self.frame_transform_at(ts_ms)
-        cfg, dyn = self._plane_cfg_dyn(
-            ft, tuple(img.shape), interpolation, plane_index, max_pixel_value,
-            plane_rects, background_override, drawing)
+            self._lazy_recompute_if_invalidated()
+            ft = self.frame_transform_at(ts_ms, rid=timestamp_us)
+            cfg, dyn = self._plane_cfg_dyn(
+                ft, tuple(img.shape), interpolation, plane_index, max_pixel_value,
+                plane_rects, background_override, drawing)
 
-        out_dtype, in_dtype = _plane_dtypes(img.dtype, max_pixel_value)
-        img = img.to(in_dtype)
-        mats, mesh = self._mats_on_device(ts_ms, ft)
-        if self.device.type == "cuda":
-            out = remap.remap_plane_cuda(img, mats, cfg, dyn, mesh, drawing=drawing,
-                                         out_dtype=out_dtype)
-            backend = "cuda"
-        else:
-            out = remap.remap_plane(img, mats, cfg, dyn, mesh, drawing=drawing,
-                                    out_dtype=out_dtype)
-            backend = "torch-cpu"
-        info = {"fov": ft.fov, "minimal_fov": ft.minimal_fov,
-                "focal_length": ft.focal_length, "backend": backend,
-                "xla_fallbacks": self.stats["xla_fallbacks"],
-                "window_reprobes": self.stats["window_reprobes"]}
-        if defer_overflow:
-            info["overflow"] = False
-        return out, info
+            out_dtype, in_dtype = _plane_dtypes(img.dtype, max_pixel_value)
+            img = img.to(in_dtype)
+            mats, mesh = self._mats_on_device(ts_ms, ft)
+            if self.device.type == "cuda":
+                out = remap.remap_plane_cuda(img, mats, cfg, dyn, mesh, drawing=drawing,
+                                             out_dtype=out_dtype)
+                backend = "cuda"
+            else:
+                out = remap.remap_plane(img, mats, cfg, dyn, mesh, drawing=drawing,
+                                        out_dtype=out_dtype)
+                backend = "torch-cpu"
+            info = {"fov": ft.fov, "minimal_fov": ft.minimal_fov,
+                    "focal_length": ft.focal_length, "backend": backend}
+            if defer_overflow:
+                info["overflow"] = False
+            return out, info
 
     # ---- misc --------------------------------------------------------------
 

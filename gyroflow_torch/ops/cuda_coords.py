@@ -33,6 +33,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from .. import trace
 from . import distortion_models as dm
 from . import remap
 from .kernel_params import (HAS_DIGITAL_LENS, HAS_FPD_DATA, HAS_MESH_DATA, HORIZONTAL_RS,
@@ -122,6 +123,8 @@ def pack_mesh(mesh, cfg: KernelConfig) -> np.ndarray:
     ``packed_len(cfg)`` float32s; a buffer of that length is taken as packed
     already, and without the mesh and focal-plane flags (nothing reads the
     buffer) the buffer is returned as it is."""
+    if isinstance(mesh, torch.Tensor) and mesh.device.type != "cpu":
+        trace.sync()
     ref = np.asarray(mesh.cpu() if isinstance(mesh, torch.Tensor) else mesh,
                      np.float32).reshape(-1)
     if not remap.has_mesh(cfg):

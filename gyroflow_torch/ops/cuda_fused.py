@@ -20,6 +20,7 @@ import math
 import numpy as np
 import torch
 
+from .. import trace
 from . import cuda_coords, cuda_sampler, remap
 from .interpolation import INTERP_INFO
 from .kernel_params import KernelConfig, KernelDynamics, dyn_to_torch
@@ -36,6 +37,7 @@ def remap_fused_plain(img, x, y, idx, matrices, cfg: KernelConfig, dyn: KernelDy
     u, v, valid = remap.rotate_and_distort(x, y, idx, matrices, cfg, dyn_t)
     u, v = remap.coords_post_uv(u, v, cfg)
     offset = INTERP_INFO[cfg.interpolation]["offset"]
+    trace.sync()
     bg_t = torch.tensor(bg, dtype=torch.float32, device=img.device)
     out = remap.sample_taps(img.to(torch.float32), remap._guard_uv(u) - offset,
                             remap._guard_uv(v) - offset, bg_t, cfg.src_rect,

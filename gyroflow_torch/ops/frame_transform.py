@@ -13,6 +13,7 @@ from typing import List, Optional, Tuple
 
 import numpy as np
 
+from .. import trace
 from ..core import quaternion as quat
 from ..core.keyframes import KeyframeType
 from ..core.params import ComputeParams, frame_at_timestamp
@@ -224,8 +225,9 @@ def frame_transform_at(params: ComputeParams, timestamp_ms: float, frame: int) -
     az_cy = kv(KeyframeType.ZoomingCenterY, params.adaptive_zoom_center_offset[1])
     lrc = kv(KeyframeType.LightRefractionCoeff, params.light_refraction_coefficient)
 
-    (camera_matrix, distortion_coeffs, radial_limit, ihs, ivs,
-     focal_length) = get_lens_data_at_timestamp(params, timestamp_ms, False)
+    with trace.span("gf.ft.lens"):
+        (camera_matrix, distortion_coeffs, radial_limit, ihs, ivs,
+         focal_length) = get_lens_data_at_timestamp(params, timestamp_ms, False)
 
     fl_comp = focal_length_fov_compensation(params, frame)
     fov = get_fov(params, frame, True, timestamp_ms, False) * fl_comp
@@ -264,63 +266,66 @@ def frame_transform_at(params: ComputeParams, timestamp_ms: float, frame: int) -
 
     rows = row_count if abs(frame_readout_time) > 0.0 else 1
 
-    # ---- vectorized per-row matrices (reference: rayon par_iter :249-308) ---
-    ys = np.arange(rows, dtype=np.float64)
-    quat_times = start_ts + row_readout_time * ys if abs(frame_readout_time) > 0.0 \
-        else np.full(rows, start_ts)
-    row_quats = gyro.org_quat_at_timestamp(quat_times)          # (rows, 4)
-    q = quat.multiply(smoothed_quat1, quat.multiply(quat1, row_quats))
-    r = np.einsum("ij,njk->nik", image_rotation, quat.to_rotation_matrix(q))
-    r = _sign_fixup(r, params.framebuffer_inverted)
+    with trace.span("gf.ft.rows"):
+        # ---- vectorized per-row matrices (reference: rayon par_iter :249-308) ---
+        ys = np.arange(rows, dtype=np.float64)
+        quat_times = start_ts + row_readout_time * ys if abs(frame_readout_time) > 0.0 \
+            else np.full(rows, start_ts)
+        row_quats = gyro.org_quat_at_timestamp(quat_times)          # (rows, 4)
+        q = quat.multiply(smoothed_quat1, quat.multiply(quat1, row_quats))
+        r = np.einsum("ij,njk->nik", image_rotation, quat.to_rotation_matrix(q))
+        r = _sign_fixup(r, params.framebuffer_inverted)
 
-    ibis = np.zeros((rows, 5), dtype=np.float64)
-    stab = fm.camera_stab_data[frame] if frame < len(fm.camera_stab_data) else None
-    if stab is not None:
-        is_scale = (
-            params.width / stab.crop_area[2] / stab.pixel_pitch[0],
-            params.height / stab.crop_area[3] / stab.pixel_pitch[1] *
-            (-1.0 if params.framebuffer_inverted else 1.0),
-        )
-        y_sensor = stab.crop_area[1] + (ys / params.height) * stab.crop_area[3]
-        if params.framebuffer_inverted:
-            y_sensor = stab.sensor_size[1] - y_sensor
-        s = stab.ibis_spline.interpolate(y_sensor + stab.offset)
-        o = stab.ois_spline.interpolate(y_sensor + stab.offset)
-        ibis[:, 0] = s[:, 0] * is_scale[0]
-        ibis[:, 1] = s[:, 1] * is_scale[1]
-        ibis[:, 2] = np.radians(s[:, 2] / 1000.0 * (-1.0 if params.framebuffer_inverted else 1.0))
-        ibis[:, 3] = o[:, 0] * is_scale[0]
-        ibis[:, 4] = o[:, 1] * is_scale[1]
+    with trace.span("gf.ft.lens"):
+        ibis = np.zeros((rows, 5), dtype=np.float64)
+        stab = fm.camera_stab_data[frame] if frame < len(fm.camera_stab_data) else None
+        if stab is not None:
+            is_scale = (
+                params.width / stab.crop_area[2] / stab.pixel_pitch[0],
+                params.height / stab.crop_area[3] / stab.pixel_pitch[1] *
+                (-1.0 if params.framebuffer_inverted else 1.0),
+            )
+            y_sensor = stab.crop_area[1] + (ys / params.height) * stab.crop_area[3]
+            if params.framebuffer_inverted:
+                y_sensor = stab.sensor_size[1] - y_sensor
+            s = stab.ibis_spline.interpolate(y_sensor + stab.offset)
+            o = stab.ois_spline.interpolate(y_sensor + stab.offset)
+            ibis[:, 0] = s[:, 0] * is_scale[0]
+            ibis[:, 1] = s[:, 1] * is_scale[1]
+            ibis[:, 2] = np.radians(s[:, 2] / 1000.0 * (-1.0 if params.framebuffer_inverted else 1.0))
+            ibis[:, 3] = o[:, 0] * is_scale[0]
+            ibis[:, 4] = o[:, 1] * is_scale[1]
 
-    if params.suppress_rotation:
-        r = np.broadcast_to(np.eye(3), r.shape).copy()
-        if params.frame_readout_time == 0.0:
-            ibis[:] = 0.0
+    with trace.span("gf.ft.rows"):
+        if params.suppress_rotation:
+            r = np.broadcast_to(np.eye(3), r.shape).copy()
+            if params.frame_readout_time == 0.0:
+                ibis[:] = 0.0
 
-    # (new_k @ r)^-1 == r.T @ new_k^-1 (rotation x intrinsics, always
-    # invertible): ONE tiny 3x3 inverse + a batched matmul instead of a
-    # per-row SVD — np.linalg.pinv on (2160, 3, 3) costs 5.4 ms/frame of
-    # host time (73% of the per-frame FrameTransform build), the analytic
-    # form 0.7 ms, max |diff| 7e-16 (f64; both cast to f32 below)
-    # near-singular new_k (degenerate fov/focal keyframe): the reference
-    # uses (new_k*r).pseudo_inverse(1e-6) (frame_transform.rs:296), which
-    # truncates singular values <= 1e-6 instead of blowing up; mirror that
-    # with an SVD-based absolute-epsilon pseudo-inverse whenever the plain
-    # inverse is non-finite or new_k is ill-conditioned
-    inv_k = None
-    try:
-        inv_k = np.linalg.inv(new_k)
-        if not np.isfinite(inv_k).all() or np.linalg.cond(new_k) > 1e12:
-            inv_k = None
-    except np.linalg.LinAlgError:
+        # (new_k @ r)^-1 == r.T @ new_k^-1 (rotation x intrinsics, always
+        # invertible): ONE tiny 3x3 inverse + a batched matmul instead of a
+        # per-row SVD — np.linalg.pinv on (2160, 3, 3) costs 5.4 ms/frame of
+        # host time (73% of the per-frame FrameTransform build), the analytic
+        # form 0.7 ms, max |diff| 7e-16 (f64; both cast to f32 below)
+        # near-singular new_k (degenerate fov/focal keyframe): the reference
+        # uses (new_k*r).pseudo_inverse(1e-6) (frame_transform.rs:296), which
+        # truncates singular values <= 1e-6 instead of blowing up; mirror that
+        # with an SVD-based absolute-epsilon pseudo-inverse whenever the plain
+        # inverse is non-finite or new_k is ill-conditioned
         inv_k = None
-    if inv_k is None:
-        u, s, vt = np.linalg.svd(new_k)
-        s_inv = np.where(s > 1e-6, 1.0 / np.where(s > 1e-6, s, 1.0), 0.0)
-        inv_k = (vt.T * s_inv) @ u.T                 # pinv(new_k), eps=1e-6
-    # (new_k @ r)^+ == r.T @ new_k^+ (r orthonormal)
-    i_r = np.einsum("nij,jk->nik", r.transpose(0, 2, 1), inv_k)  # (rows,3,3)
-    matrices = np.concatenate([i_r.reshape(rows, 9), ibis], axis=1).astype(np.float32)
+        try:
+            inv_k = np.linalg.inv(new_k)
+            if not np.isfinite(inv_k).all() or np.linalg.cond(new_k) > 1e12:
+                inv_k = None
+        except np.linalg.LinAlgError:
+            inv_k = None
+        if inv_k is None:
+            u, s, vt = np.linalg.svd(new_k)
+            s_inv = np.where(s > 1e-6, 1.0 / np.where(s > 1e-6, s, 1.0), 0.0)
+            inv_k = (vt.T * s_inv) @ u.T                 # pinv(new_k), eps=1e-6
+        # (new_k @ r)^+ == r.T @ new_k^+ (r orthonormal)
+        i_r = np.einsum("nij,jk->nik", r.transpose(0, 2, 1), inv_k)  # (rows,3,3)
+        matrices = np.concatenate([i_r.reshape(rows, 9), ibis], axis=1).astype(np.float32)
 
     az_cy_eff = -az_cy if params.framebuffer_inverted else az_cy
 

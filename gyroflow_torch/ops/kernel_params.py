@@ -161,8 +161,11 @@ def dyn_to_torch(dyn: KernelDynamics, device) -> KernelDynamics:
     views of their original shapes."""
     import torch
 
+    from .. import trace
+
     leaves = [np.asarray(v, np.float32) for v in dyn]
     flat = np.concatenate([v.reshape(-1) for v in leaves])
+    trace.sync()
     buf = torch.from_numpy(flat).to(device)
     out, o = [], 0
     for v in leaves:

@@ -51,6 +51,7 @@ import torch
 from ..core.splines import MAX_GRID_SIZE
 from .interpolation import COEFFS, INTER_BITS, INTER_TAB_SIZE, INTERP_INFO
 
+from .. import trace
 from . import distortion_models as dm
 from .kernel_params import (
     ANY_UNDERWATER, DRAWING_ENABLED, FILL_WITH_BACKGROUND, FIX_COLOR_RANGE,
@@ -358,6 +359,8 @@ def sample_taps(img, u, v, bg, src_rect, interpolation: int, pixel_value_limit):
     sy = sy0 >> INTER_BITS
     base_x = ind + ((sx0 & (INTER_TAB_SIZE - 1)) << shift)
     base_y = ind + ((sy0 & (INTER_TAB_SIZE - 1)) << shift)
+    if img.device != _COEFFS_T.device:
+        trace.sync()
     lut = _COEFFS_T.to(img.device)
 
     total = torch.zeros(u.shape + (C,), dtype=torch.float32, device=img.device)
@@ -578,6 +581,7 @@ def _blend_overlay(pixel, data, active_extra, max_pixel_value):
     active = (data > 0) & (color < 9) & active_extra
     alphaf = (1.0 - 0.25 * alpha_i.to(torch.float32))[..., None]
     C = pixel.shape[-1]
+    trace.sync()
     colors = torch.from_numpy(np.ascontiguousarray(COLORS[:, :C])).to(pixel.device)
     colorf = torch.zeros_like(pixel)
     for ci in range(1, 9):
@@ -684,30 +688,32 @@ def _remap(img, matrices, cfg: KernelConfig, dyn_t: KernelDynamics, project, sam
         # the reference writes bg directly, skipping fix_range (remap.py:533-535)
         return bg.expand(rows, ow, C).clone()
 
-    oy, ox = torch.meshgrid(torch.arange(oy0, oy0 + rows, dtype=torch.float32, device=dev),
-                            torch.arange(ow, dtype=torch.float32, device=dev),
-                            indexing="ij")
-    factor = torch.clamp_min(1.0 - dyn_t.lens_correction_amount, 0.001)
-    out_c = (float(cfg.output_width) / 2.0, float(cfg.output_height) / 2.0)
-    out_f = (dyn_t.f[0] / dyn_t.fov / factor, dyn_t.f[1] / dyn_t.fov / factor)
-
     is_ewa = cfg.interpolation in EWA_BC
-    x, y, idx = (ewa_stack if is_ewa else coords_pre)(ox, oy, matrices, cfg, dyn_t, out_c, out_f,
-                                                      mesh=mesh, probe=probe)
+    with trace.span("gf.eager"):
+        oy, ox = torch.meshgrid(torch.arange(oy0, oy0 + rows, dtype=torch.float32, device=dev),
+                                torch.arange(ow, dtype=torch.float32, device=dev),
+                                indexing="ij")
+        factor = torch.clamp_min(1.0 - dyn_t.lens_correction_amount, 0.001)
+        out_c = (float(cfg.output_width) / 2.0, float(cfg.output_height) / 2.0)
+        out_f = (dyn_t.f[0] / dyn_t.fov / factor, dyn_t.f[1] / dyn_t.fov / factor)
+        x, y, idx = (ewa_stack if is_ewa else coords_pre)(ox, oy, matrices, cfg, dyn_t, out_c,
+                                                          out_f, mesh=mesh, probe=probe)
     if fused is not None:
         pixel = fused(x, y, idx)
     else:
         pixel, u, v = _project_and_sample(x, y, idx, cfg, dyn_t, bg, project, sample, is_ewa)
 
-    # pixels whose mapped out_pos is beyond the logical output get background
-    orx, ory, orw, orh = cfg.out_rect
-    lx = map_coord(ox, float(orx), float(orx + orw), 0.0, float(cfg.output_width))
-    ly = map_coord(oy, float(ory), float(ory + orh), 0.0, float(cfg.output_height))
-    in_bounds = (lx >= 0.0) & (ly >= 0.0) & (lx < cfg.output_width) & (ly < cfg.output_height)
-    pixel = torch.where(in_bounds[..., None], pixel, bg)
+    with trace.span("gf.eager"):
+        # pixels whose mapped out_pos is beyond the logical output get background
+        orx, ory, orw, orh = cfg.out_rect
+        lx = map_coord(ox, float(orx), float(orx + orw), 0.0, float(cfg.output_width))
+        ly = map_coord(oy, float(ory), float(ory + orh), 0.0, float(cfg.output_height))
+        in_bounds = (lx >= 0.0) & (ly >= 0.0) & (lx < cfg.output_width) & \
+            (ly < cfg.output_height)
+        pixel = torch.where(in_bounds[..., None], pixel, bg)
 
-    if cfg.has(FIX_COLOR_RANGE):
-        pixel = _remap_colorrange(pixel, cfg.plane_index == 0, dyn_t.max_pixel_value)
+        if cfg.has(FIX_COLOR_RANGE):
+            pixel = _remap_colorrange(pixel, cfg.plane_index == 0, dyn_t.max_pixel_value)
     if overlay is not None:
         pixel = overlay(pixel, u, v, ox, oy)
     return pixel
@@ -763,6 +769,8 @@ def _prepare(img, matrices, cfg, mesh):
     if has_mesh(cfg):
         if mesh is None:
             raise ValueError("mesh / focal-plane flags set but no mesh buffer given")
+        if not (isinstance(mesh, torch.Tensor) and mesh.device == img.device):
+            trace.sync()
         mesh = torch.as_tensor(mesh).to(device=img.device, dtype=torch.float32).reshape(-1)
         if mesh.numel() < mesh_len(cfg):
             raise ValueError(f"mesh buffer of {mesh.numel()} floats, grid {cfg.mesh_grid} "
@@ -770,6 +778,8 @@ def _prepare(img, matrices, cfg, mesh):
         mesh = mesh.contiguous()
     else:
         mesh = None
+    if matrices.device != img.device:
+        trace.sync()
     return matrices.to(device=img.device, dtype=torch.float32).contiguous(), mesh
 
 
@@ -778,6 +788,7 @@ def _canvas(cfg: KernelConfig, drawing, device):
     call, or None when the overlay is off (remap.py:1004)."""
     if drawing is None or not cfg.has(DRAWING_ENABLED):
         return None
+    trace.sync()
     return torch.from_numpy(np.ascontiguousarray(drawing.canvas, np.uint8)).to(device)
 
 
@@ -816,7 +827,8 @@ def remap_plane(img, matrices, cfg: KernelConfig, dyn: KernelDynamics, mesh=None
                                  cfg.src_rect, maxv)
 
     out = _remap(img, matrices, cfg, dyn_t, project, sample, mesh=mesh, overlay=overlay)
-    return _cast_out(out, out_dtype, _host_scalar(dyn.max_pixel_value))
+    with trace.span("gf.eager"):
+        return _cast_out(out, out_dtype, _host_scalar(dyn.max_pixel_value))
 
 
 def remap_plane_cuda(img, matrices, cfg: KernelConfig, dyn: KernelDynamics, mesh=None,
@@ -857,6 +869,7 @@ def remap_plane_cuda(img, matrices, cfg: KernelConfig, dyn: KernelDynamics, mesh
         if not on_card:
             mesh = cuda_coords.pack_mesh(mesh, cfg)   # a host buffer goes up packed
         elif mesh.numel() != cuda_coords.packed_len(cfg):
+            trace.sync()
             mesh = torch.from_numpy(cuda_coords.pack_mesh(mesh, cfg)).to(mesh.device)
     matrices, mesh = _prepare(img, matrices, cfg, mesh)
     C = img.shape[-1]
@@ -893,7 +906,8 @@ def remap_plane_cuda(img, matrices, cfg: KernelConfig, dyn: KernelDynamics, mesh
     out = _remap(img, matrices, cfg, dyn_t, project, sample, fuse, mesh=mesh,
                  probe=mesh_probe(matrices, cfg, dyn, mesh), overlay=overlay,
                  out_rows=rows, oy0=oy0)
-    return _cast_out(out, out_dtype, _host_scalar(dyn.max_pixel_value))
+    with trace.span("gf.eager"):
+        return _cast_out(out, out_dtype, _host_scalar(dyn.max_pixel_value))
 
 
 def mesh_probe(matrices, cfg: KernelConfig, dyn: KernelDynamics, mesh):

@@ -31,6 +31,7 @@ from typing import Callable, List, Optional
 import numpy as np
 import torch
 
+from .. import trace
 from ..ops.pixel_formats import rgb_to_yuv
 from .formats import RAW_FORMATS, RawFormat
 from .video_io import VideoReader, VideoWriter
@@ -76,7 +77,8 @@ class RenderOptions:
     interpolation: int = 8
     safe_area: Optional[list] = None   # [x0, y0, x1, y1] output px → dim outside
     overlay: object = None             # core.drawing.DrawCanvas debug overlay
-    trace: bool = False                # per-stage timing summary (SURVEY §5)
+    trace: bool = False                # the tracer on for the render: per-stage
+                                       # and per-span timing (SURVEY §5)
     pipeline_depth: int = 3            # frames in flight on the device queue
     # frame windows (render_queue.rs:677): 0 = auto (one frame a card over
     # several cards, 8-frame windows on one), 1 = off, N>1 = stabilize
@@ -522,7 +524,7 @@ def render(mgr, input_path: str, output_path: str,
     if options.decode_ahead > 0:
         def _warm_ft(ts_us):
             if mgr.params.stab_enabled:
-                mgr.frame_transform_at(mgr._adjusted_ts_ms(ts_us))
+                mgr.frame_transform_at(mgr._adjusted_ts_ms(ts_us), rid=ts_us)
 
         reader = _AsyncReader(reader, depth=options.decode_ahead,
                               prefetch=_warm_ft)
@@ -556,7 +558,13 @@ def render(mgr, input_path: str, output_path: str,
     video_speed = mgr.params.video_speed
     speed_acc = 0.0
     import time as _time
-    t_decode = t_stab = t_encode = 0.0
+    # an episode the caller already records in goes on: the render reads
+    # what it adds and leaves the tracer on
+    own_trace = options.trace and not trace.TRACER.enabled
+    if own_trace:
+        trace.enable()
+    if options.trace:
+        trace_before, syncs_before = trace.totals(), trace.syncs()
     t_start = _time.time()
     inflight = []   # queued device results not yet transferred/encoded
 
@@ -610,46 +618,52 @@ def render(mgr, input_path: str, output_path: str,
         ngroups = len(entries[0][1])
         ts_batch = [ts for ts, _, _ in entries]
         group_outs = []
-        for gi in range(ngroups):
-            data = np.stack([g[gi][0] for _, g, _ in entries])
-            plane_index = entries[0][1][gi][1]
-            out, _ = mgr.process_pixels_window(
-                ts_batch, data, device_mesh,
-                interpolation=options.interpolation,
-                plane_index=plane_index, max_pixel_value=fmt.max_value,
-                plane_rects=True,
-                background_override=bgs[gi] if gi < len(bgs) else None)
-            group_outs.append(out)
+        with trace.span("gf.render.stabilize"):
+            for gi in range(ngroups):
+                data = np.stack([g[gi][0] for _, g, _ in entries])
+                plane_index = entries[0][1][gi][1]
+                out, _ = mgr.process_pixels_window(
+                    ts_batch, data, device_mesh,
+                    interpolation=options.interpolation,
+                    plane_index=plane_index, max_pixel_value=fmt.max_value,
+                    plane_rects=True,
+                    background_override=bgs[gi] if gi < len(bgs) else None)
+                group_outs.append(out)
         for i, emit in enumerate(emits):
             inflight.append(([g[i] for g in group_outs], emit))
         win_buf.clear()
 
     def _host(a):
         """A device result (or a _bg_payload numpy array) on the host."""
-        return a.cpu().numpy() if isinstance(a, torch.Tensor) else np.asarray(a)
+        if not isinstance(a, torch.Tensor):
+            return np.asarray(a)
+        trace.sync()
+        return a.cpu().numpy()
 
     def _emit(payload, emit):
-        nonlocal t_stab, t_encode
-        _t2 = _time.time()
         if kind == "planar":
-            groups = [_host(g) for g in payload]
-            planes = _ungroup_planes(out_fmt or fmt, groups,
-                                     src_max=fmt.max_value if fmt else None)
-            _t3 = _time.time()
-            for _ in range(emit):
-                writer.write_planes(planes)
+            with trace.span("gf.render.stabilize"):
+                groups = [_host(g) for g in payload]
+                planes = _ungroup_planes(out_fmt or fmt, groups,
+                                         src_max=fmt.max_value if fmt else None)
+            with trace.span("gf.render.encode"):
+                for _ in range(emit):
+                    writer.write_planes(planes)
         else:
-            out_np = _host(payload)
-            _t3 = _time.time()
-            for _ in range(emit):
-                writer.write_rgb(out_np)
-        t_stab += _t3 - _t2
-        t_encode += _time.time() - _t3
+            with trace.span("gf.render.stabilize"):
+                out_np = _host(payload)
+            with trace.span("gf.render.encode"):
+                for _ in range(emit):
+                    writer.write_rgb(out_np)
 
     try:
-        _t0 = _time.time()
-        for ts_us, frame in reader:
-            t_decode += _time.time() - _t0
+        decoded = iter(reader)
+        while True:
+            with trace.span("gf.render.decode"):
+                item = next(decoded, None)
+            if item is None:
+                break
+            ts_us, frame = item
             idx = first + frames_done
             if idx > last:
                 break
@@ -665,7 +679,6 @@ def render(mgr, input_path: str, output_path: str,
                 frames_done += 1
                 if progress_cb:
                     progress_cb(min(frames_done / max(last - first + 1, 1), 1.0))
-                _t0 = _time.time()
                 continue
             # video-speed rate control (rendering/mod.rs:460-479): drop or
             # duplicate frames so output duration scales by 1/speed
@@ -699,30 +712,32 @@ def render(mgr, input_path: str, output_path: str,
                     rect = tuple(float(v) for v in options.safe_area) \
                         if options.safe_area else None
                     drawing = canvas.state(safe_area_rect=rect)
-                _t1 = _time.time()
                 if kind == "planar" and window > 1:
-                    win_buf.append((ts_us, _plane_groups(fmt, frame), emit))
+                    with trace.span("gf.render.stabilize"):
+                        groups = _plane_groups(fmt, frame)
+                    win_buf.append((ts_us, groups, emit))
                     if len(win_buf) == window:
                         _flush_window()
                 elif kind == "planar":
-                    groups = _plane_groups(fmt, frame)
-                    outs = []
-                    for gi, (data, plane_index) in enumerate(groups):
-                        out, _ = mgr.process_pixels(
-                            ts_us, data, interpolation=options.interpolation,
-                            plane_index=plane_index,
-                            max_pixel_value=fmt.max_value,
-                            plane_rects=True,
-                            background_override=bgs[gi] if gi < len(bgs) else None,
-                            drawing=drawing if plane_index == 0 else None)
-                        outs.append(out)
+                    with trace.span("gf.render.stabilize"):
+                        groups = _plane_groups(fmt, frame)
+                        outs = []
+                        for gi, (data, plane_index) in enumerate(groups):
+                            out, _ = mgr.process_pixels(
+                                ts_us, data, interpolation=options.interpolation,
+                                plane_index=plane_index,
+                                max_pixel_value=fmt.max_value,
+                                plane_rects=True,
+                                background_override=bgs[gi] if gi < len(bgs) else None,
+                                drawing=drawing if plane_index == 0 else None)
+                            outs.append(out)
                     inflight.append((outs, emit))
                 else:
-                    out, _ = mgr.process_pixels(
-                        ts_us, frame, interpolation=options.interpolation,
-                        drawing=drawing)
+                    with trace.span("gf.render.stabilize"):
+                        out, _ = mgr.process_pixels(
+                            ts_us, frame, interpolation=options.interpolation,
+                            drawing=drawing)
                     inflight.append((out, emit))
-                t_stab += _time.time() - _t1
                 # depth-k dispatch pipeline: the device queue keeps computing
                 # frame N+1..N+k while frame N transfers back and encodes
                 while len(inflight) > options.pipeline_depth:
@@ -730,11 +745,12 @@ def render(mgr, input_path: str, output_path: str,
             frames_done += 1
             if progress_cb:
                 progress_cb(min(frames_done / max(last - first + 1, 1), 1.0))
-            _t0 = _time.time()
         _flush_window()
         while inflight:
             _emit(*inflight.pop(0))
     finally:
+        if own_trace:
+            trace.disable()
         reader.close()
         writer.close()
 
@@ -773,26 +789,34 @@ def render(mgr, input_path: str, output_path: str,
              "backend": "cuda" if mgr.device.type == "cuda" else "torch-cpu",
              "pix_fmt": getattr(out_fmt, "name", "rgb24"),
              "fps": round(rendered / wall, 2) if wall > 0 else 0.0}
-    if rendered:
-        # per-stage wall shares (decode includes reader wait; stab includes
-        # device dispatch + result transfer; encode includes writer marshal)
-        stats["stage_ms_per_frame"] = {
-            "decode": round(t_decode / rendered * 1000.0, 2),
-            "stab": round(t_stab / rendered * 1000.0, 2),
-            "encode": round(t_encode / rendered * 1000.0, 2)}
     if device_mesh is not None:
         stats["backend"] += "-window"
         stats["frame_window"] = window
         stats["mesh"] = dict(device_mesh.shape)
     if options.trace:
         # per-stage timing summary (SURVEY §5: structured per-stage timing +
-        # the frames/sec north-star counter)
+        # the frames/sec north-star counter) from the tracer's spans: decode
+        # includes the reader wait, stabilize the dispatch and the result's
+        # transfer, encode the writer's marshal; then every span's ms a
+        # frame and the host syncs a frame, each less what the episode held
+        # before the render
+        secs = {k: t.seconds - (trace_before[k].seconds if k in trace_before else 0.0)
+                for k, t in sorted(trace.totals().items())
+                if t.count > (trace_before[k].count if k in trace_before else 0)}
+        t_decode, t_stab, t_encode = (
+            secs.get(k, 0.0) for k in ("gf.render.decode", "gf.render.stabilize",
+                                       "gf.render.encode"))
         stats["trace"] = {"decode_s": round(t_decode, 3),
                           "stabilize_s": round(t_stab, 3),
                           "encode_s": round(t_encode, 3),
-                          "wall_s": round(wall, 3)}
+                          "wall_s": round(wall, 3),
+                          "ms_per_frame": {k: round(v * 1e3 / max(rendered, 1), 3)
+                                           for k, v in secs.items()},
+                          "host_syncs_per_frame": round((trace.syncs() - syncs_before) /
+                                                        max(rendered, 1), 2)}
         log.info("trace: %d frames in %.2fs (%.2f fps) | decode %.2fs, "
-                 "stabilize %.2fs (%.1f ms/frame), encode %.2fs",
+                 "stabilize %.2fs (%.1f ms/frame), encode %.2fs | ms/frame %s",
                  rendered, wall, stats["fps"], t_decode, t_stab,
-                 t_stab / max(rendered, 1) * 1000.0, t_encode)
+                 t_stab / max(rendered, 1) * 1000.0, t_encode,
+                 stats["trace"]["ms_per_frame"])
     return stats

@@ -7,8 +7,11 @@
   at the same path. Each copy must equal its original once the import lines
   are normalised (``gyroflow_tpu`` -> ``gyroflow_torch``) and the reference
   citations are read as ``gyroflow src/...`` (the originals cite a local
-  checkout of the reference). Files that are meant to differ are listed in
-  ``MEANT_TO_DIFFER`` with the reason. The port's rewrites of scripts that
+  checkout of the reference), and once the port's tracer is taken out: the
+  line ``from .. import trace`` and each ``with trace.span(...):`` line go,
+  and the body of each such block is dedented to the block's own level.
+  Files that are meant to differ are listed in ``MEANT_TO_DIFFER`` with the
+  reason. The port's rewrites of scripts that
   lie outside the JAX package are listed in ``REWRITES`` with their
   originals.
 
@@ -85,9 +88,26 @@ def test_no_jax_or_reference_imports():
 _REF_CITE = re.compile(r"/\w+/reference/")
 
 
+_SPAN = re.compile(r"( *)with trace\.span\(.*\):$")
+
+
 def _normalise(text: str) -> str:
     out = []
+    spans = []    # the indents of the open ``with trace.span(...):`` blocks
     for line in _REF_CITE.sub("gyroflow ", text).splitlines():
+        if line.strip():
+            indent = len(line) - len(line.lstrip(" "))
+            while spans and indent <= spans[-1]:
+                spans.pop()
+            span = _SPAN.fullmatch(line)
+            if span:
+                spans.append(len(span.group(1)))
+                continue
+            if line == "from .. import trace":
+                continue
+            cut = 4 * len(spans)
+            if line[:cut].strip() == "":
+                line = line[cut:]
         if line.lstrip().startswith(("import ", "from ")):
             line = line.replace("gyroflow_tpu", "gyroflow_torch")
         out.append(line)
