@@ -22,8 +22,9 @@ exits non-zero without the final line):
    seeded synthetic .gcsv, a fisheye lens, 8 ms rolling shutter; 3 frames of
    Y and UV through process_pixels (lanczos4, uint16 in and out), held within
    1 code of the plain torch path; the kernels' launch counters must show the
-   path went through them, and no plain version may run while a path is
-   driven (4-4d);
+   path went through them (a fisheye lanczos4 plane: one self-contained
+   coords launch, cuda_coords.project_gen, and one sampler launch), and no
+   plain version may run while a path is driven (4-4d);
 4b. the EWA path: the same 3 frames with interpolation 11, held within 1
    code of the plain torch path, one coords and one EWA launch per plane;
 4c. the fused path: the 3 frames' planes through remap_plane_cuda(fused=True),
@@ -33,13 +34,13 @@ exits non-zero without the final line):
    cuda_coords.project_gen, held within 0.05 px (valid identical) of
    coords_pre + the coords kernel, one launch per plane;
 4e. the frame window: process_pixels_window over 8 timestamps of the 4K Y
-   and UV planes (lanczos4; 16 coords and 16 sampler launches), each frame 0
+   and UV planes (lanczos4; 16 coords_gen and 16 sampler launches), each frame 0
    codes from process_pixels of the same frame and frame 0 within 1 code of
    the plain torch path; then an EWA window of 2 (4 coords and 4 EWA
    launches), checked the same way;
 4f. decode -> stabilize -> encode: a seeded 8-frame 3840x2160 10-bit YUV420
    .y4m written to a temporary directory, rendered by render.renderer.render
-   on the manager (8-frame windows; 16 coords and 16 sampler launches), each
+   on the manager (8-frame windows; 16 coords_gen and 16 sampler launches), each
    output frame within 1 code of process_pixels on the same decoded planes;
    then the same clip through gyroflow_torch.cli (-g gyro log, lens profile,
    --device cuda:0), which must return 0, write 8 frames and launch the
@@ -107,7 +108,7 @@ exits non-zero without the final line):
 10. the sharded window (parallel.pipeline: frames over "dp", output-row
    bands over "sp", each band through remap_plane_cuda(out_rows, oy0)) on a
    2 x 2 mesh of logical shards of cuda:0: (a) phase 4e's 8 timestamps of
-   the 4K Y and UV planes (16 coords and 16 sampler launches a plane), (b)
+   the 4K Y and UV planes (16 coords_gen and 16 sampler launches a plane), (b)
    its EWA window of 2 (4 coords and 4 EWA launches a plane), (c) 4 frames
    of phase 9's Sony clip (the probe and the projection: 2 coords launches
    a band), each frame 0 codes from the one-device window of its phase, no
@@ -1037,9 +1038,15 @@ def lens_phase(dev, smi, workdir, mgr, planes, dev_planes, kernel_ms, pre_coords
         lm = lens_mgrs[key]
         sampler = "ewa" if interpolation in remap.EWA_BC else "sampler"
         n_win = EWA_WINDOW if sampler == "ewa" else WINDOW
-        counts = drive(interpolation, expect(coords=2 * FRAMES, **{sampler: 2 * FRAMES}), m=lm)
+        # the slice's coords launch: the self-contained kernel for a plane
+        # that remap_plane_cuda routes to it
+        cfg0 = plane_setup(lm, planes, win_ts[0], "Y", interpolation)[0]
+        coords = ("coords_gen" if sampler == "sampler" and cuda_coords.gen_admits(cfg0)
+                  else "coords")
+        counts = drive(interpolation, expect(**{coords: 2 * FRAMES, sampler: 2 * FRAMES}),
+                       m=lm)
         wcounts = drive_window(interpolation, n_win,
-                               expect(coords=2 * n_win, **{sampler: 2 * n_win}), m=lm)
+                               expect(**{coords: 2 * n_win, sampler: 2 * n_win}), m=lm)
 
         def frame(i):
             for nm in ("Y", "UV"):
@@ -1091,8 +1098,9 @@ def lens_phase(dev, smi, workdir, mgr, planes, dev_planes, kernel_ms, pre_coords
     # ---- the kernels line's entries: the instantiations besides fisheye ------
     launched = {}
     for sl in slices.values():
-        launched[sl["lens"]] = (launched.get(sl["lens"], 0) + sl["launches"]["coords"]
-                                + sl["window_launches"]["coords"])
+        for kind in ("coords", "coords_gen"):
+            launched[sl["lens"], kind] = (launched.get((sl["lens"], kind), 0)
+                                          + sl["launches"][kind] + sl["window_launches"][kind])
     sources = {"coords": ("gyroflow_torch/csrc/coords.cu", "gyroflow_tpu/ops/pallas_coords.py:68"),
                "coords_gen": ("gyroflow_torch/csrc/coords.cu",
                               "gyroflow_tpu/ops/pallas_coords.py:257"),
@@ -1107,7 +1115,7 @@ def lens_phase(dev, smi, workdir, mgr, planes, dev_planes, kernel_ms, pre_coords
             v = r[kind]
             entries.append({"name": f"{kind}<{name}>", "route": "cuda",
                             "source": sources[kind][0], "replaces": sources[kind][1],
-                            "launches": launched.get(name, 0) if kind == "coords" else 0,
+                            "launches": launched.get((name, kind), 0),
                             "max_abs_err": v["err"], "ms": v["ms"], "plain_ms": v["plain_ms"],
                             "bound_ms": v["bound"][0], "bound_by": v["bound"][1],
                             "library_ms": None})
@@ -1519,7 +1527,7 @@ def sharded_phase(dev, smi, mgr, planes, win_ts, windows, driven, expect, device
     phase(f"sharded window (a): process_pixels_window, {WINDOW} timestamps of 4K 10-bit YUV420, "
           f"lanczos4, on 2 x 2 logical shards of {dev} (dp 2, sp 2)")
     report["launches_a"] = sharded(mgr, WINDOW, 8, shards, "sharded window (a)",
-                                   expect(coords=bands * WINDOW, sampler=bands * WINDOW),
+                                   expect(coords_gen=bands * WINDOW, sampler=bands * WINDOW),
                                    windows["lanczos4"])
     phase(f"sharded window (b): the EWA window of {EWA_WINDOW}, interpolation {EWA_INTERP}, "
           f"on 2 x 2 shards")
@@ -1536,14 +1544,15 @@ def sharded_phase(dev, smi, mgr, planes, win_ts, windows, driven, expect, device
     phase("entry (d): gyroflow_torch.entry.entry() on cuda:0, the kernels against the plain "
           "versions")
     fn, args = entry()
-    with driven("entry()", expect(coords=1, sampler=1), frames=1) as report["launches_d"]:
+    with driven("entry()", expect(coords_gen=1, sampler=1), frames=1) as report["launches_d"]:
         out_k = fn(*args)
-    saved = (cuda_coords.project, cuda_sampler.sample)
-    cuda_coords.project, cuda_sampler.sample = cuda_coords.project_plain, cuda_sampler.sample_plain
+    saved = (cuda_coords.project_gen, cuda_sampler.sample)
+    cuda_coords.project_gen, cuda_sampler.sample = (cuda_coords.project_gen_plain,
+                                                    cuda_sampler.sample_plain)
     try:
         out_p = fn(*args)
     finally:
-        cuda_coords.project, cuda_sampler.sample = saved
+        cuda_coords.project_gen, cuda_sampler.sample = saved
     d = float((out_k - out_p).abs().max())
     print(f"entry(): {tuple(out_k.shape)} {out_k.dtype} on {out_k.device}; kernels vs plain "
           f"versions max|d| {d} codes (limit 0)")
@@ -1552,7 +1561,7 @@ def sharded_phase(dev, smi, mgr, planes, win_ts, windows, driven, expect, device
 
     phase("dryrun (e): gyroflow_torch.entry.dryrun_multichip(4) on 4 logical shards of "
           f"{dev} (dp 2, sp 2)")
-    with driven("dryrun_multichip(4)", expect(coords=32, sampler=32),
+    with driven("dryrun_multichip(4)", expect(coords_gen=32, sampler=32),
                 frames=16) as report["launches_e"]:
         dryrun_multichip(4, devices=[dev] * 4)
 
@@ -1562,7 +1571,8 @@ def sharded_phase(dev, smi, mgr, planes, win_ts, windows, driven, expect, device
         cards = make_frame_mesh(n, sp=2)
         phase(f"sharded window (f): (a) over {n} cards (dp {n // 2}, sp 2)")
         report["launches_f"] = sharded(mgr, WINDOW, 8, cards, "sharded window (f)",
-                                       expect(coords=bands * WINDOW, sampler=bands * WINDOW),
+                                       expect(coords_gen=bands * WINDOW,
+                                              sampler=bands * WINDOW),
                                        windows["lanczos4"])
     else:
         print(f"sharded window (f): one card present ({torch.cuda.get_device_name(0)}); the "
@@ -1668,7 +1678,7 @@ def bench_phase(dev, smi, driven, expect):
     phase(f"bench: gyroflow_torch.bench.main() (the five readings at full size) on {smi}")
     n = bench_launches(bench)
     t0 = time.perf_counter()
-    with driven("bench.main", expect(coords=n, sampler=n), frames="all"):
+    with driven("bench.main", expect(coords_gen=n, sampler=n), frames="all"):
         result = bench.main()
     secs = time.perf_counter() - t0
     for key in BENCH_NUMBERS:
@@ -1684,7 +1694,7 @@ def bench_phase(dev, smi, driven, expect):
 
     phase("bench: the production-path probe (experiments.prod_path_probe, 4K)")
     n_probe = 12
-    with driven("prod_path_probe", expect(coords=2 * (1 + 4 * n_probe),
+    with driven("prod_path_probe", expect(coords_gen=2 * (1 + 4 * n_probe),
                                           sampler=2 * (1 + 4 * n_probe)), frames=n_probe):
         probe = prod_path_probe.run(dev, (W, H), n_probe)
     print(probe.pop("profile"))
@@ -1702,7 +1712,7 @@ def bench_phase(dev, smi, driven, expect):
 
     phase("bench: per-frame against windowed dispatch (experiments.window_dispatch_probe, 4K)")
     n_disp = dispatch_launches(window_dispatch_probe)
-    with driven("window_dispatch_probe", expect(coords=n_disp, sampler=n_disp),
+    with driven("window_dispatch_probe", expect(coords_gen=n_disp, sampler=n_disp),
                 frames=n_disp // 2):
         disp = window_dispatch_probe.run(dev, (W, H))
     print(json.dumps(disp))
@@ -1996,7 +2006,7 @@ def main() -> int:
 
     # ---- 4. the main path through the manager -------------------------------
     phase("main path: process_pixels, 3 frames of 4K 10-bit YUV420, lanczos4")
-    launches = drive(8, expect(coords=2 * FRAMES, sampler=2 * FRAMES))
+    launches = drive(8, expect(coords_gen=2 * FRAMES, sampler=2 * FRAMES))
 
     # ---- 4b. the EWA path through the manager -------------------------------
     phase("EWA path: process_pixels, 3 frames of 4K 10-bit YUV420, interpolation 11")
@@ -2081,7 +2091,8 @@ def main() -> int:
     phase(f"frame window: process_pixels_window, {WINDOW} timestamps of 4K 10-bit YUV420, "
           f"lanczos4")
     windows = {"lanczos4": {}, "ewa": {}, "sony": {}}   # phase 10's references
-    launches_window = drive_window(8, WINDOW, expect(coords=2 * WINDOW, sampler=2 * WINDOW),
+    launches_window = drive_window(8, WINDOW, expect(coords_gen=2 * WINDOW,
+                                                     sampler=2 * WINDOW),
                                    keep=windows["lanczos4"])
     phase(f"EWA frame window: process_pixels_window, {EWA_WINDOW} timestamps, interpolation 11")
     launches_window_ewa = drive_window(EWA_INTERP, EWA_WINDOW,
@@ -2102,7 +2113,8 @@ def main() -> int:
     write_clip(clip, planes, WINDOW)
     print(f"wrote {clip.name}: {clip.stat().st_size} B in {time.perf_counter() - t0:.2f} s "
           f"(host clock; {smi})")
-    with driven("render", expect(coords=2 * WINDOW, sampler=2 * WINDOW), frames=WINDOW):
+    with driven("render", expect(coords_gen=2 * WINDOW, sampler=2 * WINDOW),
+                frames=WINDOW):
         render_stats = render(mgr, str(clip), str(rendered),
                               RenderOptions(interpolation=8, frame_window=WINDOW, trace=True))
     print(f"render stats: {json.dumps(render_stats)} ({smi})")
@@ -2130,7 +2142,7 @@ def main() -> int:
     check(n_out == WINDOW and d_render <= FRAME_TOL_CODES, "render: output frames")
     lens = work / "chip_smoke_lens.json"
     lens.write_text(lens_profile_json())
-    with driven("cli", expect(coords=2 * WINDOW, sampler=2 * WINDOW), frames=WINDOW):
+    with driven("cli", expect(coords_gen=2 * WINDOW, sampler=2 * WINDOW), frames=WINDOW):
         rc = cli.main([str(clip), "-g", str(work / "chip_smoke.gcsv"), str(lens), "-f",
                        "--device", "cuda:0"])
     r = Y4MReader(str(cli_out))
@@ -2453,7 +2465,7 @@ def main() -> int:
 
     kernels = [
         entry("coords", "gyroflow_torch/csrc/coords.cu", "gyroflow_tpu/ops/pallas_coords.py:68",
-              launches["coords"]),
+              launches_ewa["coords"]),
         entry("sampler", "gyroflow_torch/csrc/sampler.cu",
               "gyroflow_tpu/ops/pallas_sampler.py:471", launches["sampler"]),
         entry("ewa", "gyroflow_torch/csrc/ewa.cu", "gyroflow_tpu/ops/pallas_sampler.py:715",
@@ -2461,7 +2473,8 @@ def main() -> int:
         entry("fused", "gyroflow_torch/csrc/fused.cu", "gyroflow_tpu/ops/pallas_fused.py:57",
               launches_fused["fused"]),
         entry("coords_gen", "gyroflow_torch/csrc/coords.cu",
-              "gyroflow_tpu/ops/pallas_coords.py:257", launches_gen["coords_gen"]),
+              "gyroflow_tpu/ops/pallas_coords.py:257",
+              launches["coords_gen"] + launches_gen["coords_gen"]),
     ]
 
     # ---- 7. the experiments' kernels (TPU kernels 6-11) ----------------------

@@ -1,9 +1,10 @@
 """Benchmark of the port: 4K60 10-bit stabilized frames per second on one card.
 
 The counterpart of the repository's ``bench.py``, on the port's main path:
-the coords kernel (``csrc/coords.cu``, fisheye plain form) and the sampler
-(``csrc/sampler.cu``, lanczos4), through ``remap.remap_plane_cuda``, the
-manager's ``process_pixels`` and the frame window. The inputs are drawn
+the self-contained coords kernel (``gf_coords_gen`` in ``csrc/coords.cu``,
+fisheye) and the sampler (``csrc/sampler.cu``, lanczos4), through
+``remap.remap_plane_cuda``, the manager's ``process_pixels`` and the frame
+window. The inputs are drawn
 from ``np.random.default_rng(0)`` in ``bench.py``'s order, so both benches
 time the same pixels.
 

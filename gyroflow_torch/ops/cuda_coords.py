@@ -21,8 +21,10 @@ no x/y/idx input, the kernel builds each pixel's output position, runs
 coords_pre's out-rect map and translation2d, the rolling-shutter probe and
 row select, then the projection. ``project_gen_plain`` is ``remap.coords_pre``
 plus ``project_plain`` on the same grid. It takes every main model; as in
-the JAX package it refuses lens correction, mesh and digital lenses, and no
-render path calls it yet.
+the JAX package it refuses lens correction, mesh and digital lenses
+(``gen_admits``). ``remap.remap_plane_cuda`` calls it for every plane it
+admits that is neither EWA nor fused, in place of the output grid, the
+eager ``coords_pre`` and ``project``.
 
 Each wrapper checks its inputs, then runs its plain version for CPU tensors
 only; for CUDA tensors it launches its kernel or raises. ``project.launches``
@@ -275,9 +277,17 @@ def project_gen_plain(cfg: KernelConfig, dyn: KernelDynamics, matrices, out_rows
     return remap.rotate_and_distort(x, y, idx, matrices, cfg, dyn_t)
 
 
+def gen_admits(cfg: KernelConfig) -> bool:
+    """Whether ``project_gen`` computes cfg's planes: no lens-correction
+    blend, no mesh or focal-plane stage and no digital lens. The kernel
+    refuses every other configuration, and ``remap.remap_plane_cuda`` routes
+    a plane through it by this test."""
+    return not (cfg.lens_correction or cfg.digital_lens
+                or cfg.flags & (HAS_MESH_DATA | HAS_FPD_DATA | HAS_DIGITAL_LENS))
+
+
 def _check_gen(cfg: KernelConfig, matrices, out_rows: int, oy0: int):
-    if cfg.lens_correction or cfg.flags & (HAS_MESH_DATA | HAS_FPD_DATA | HAS_DIGITAL_LENS) \
-            or cfg.digital_lens:
+    if not gen_admits(cfg):
         raise ValueError(
             "coords gen kernel: no lens-correction blend, mesh or digital lens (the JAX "
             "package gates project_tiles_gen off for them, pallas_coords.py:234-236); "
@@ -320,8 +330,9 @@ def project_gen(cfg: KernelConfig, dyn: KernelDynamics, matrices, out_rows: int,
     """Self-contained projection of output rows oy0 .. oy0 + out_rows (the
     counterpart of pallas_coords.project_tiles_gen on the (out_rows, ow)
     layout). matrices (rows, 14) float32 on the target device; dyn with host
-    numpy leaves; out_c, out_f as remap builds them (read only by the plain
-    version's coords_pre). Returns u, v float32 and valid bool, before
+    numpy leaves; out_c, out_f as remap builds them, read only by the plain
+    version's lens-correction blend, which the kernel refuses (so None will
+    do). Returns u, v float32 and valid bool, before
     coords_post_uv. Raises ValueError for lens correction, mesh and digital
     lenses, which the kernel does not compute."""
     _check_gen(cfg, matrices, out_rows, oy0)

@@ -8,10 +8,15 @@ Two entry points share one body (``_remap``):
 - ``remap_plane``: every stage in plain torch (per-pixel matrix-row gather,
   64-tap gather sampling). It is the port's CPU path and the reference the
   kernels are held against.
-- ``remap_plane_cuda``: torch ``coords_pre``, then the coords kernel
-  (``cuda_coords.project``), torch ``coords_post_uv``, the sampler kernel
-  (``cuda_sampler.sample``, or ``cuda_ewa.sample`` for EWA, which forms the
-  Jacobian from the stacked evals itself), and the finish in torch. It is
+- ``remap_plane_cuda``: the projection on a kernel, torch
+  ``coords_post_uv``, the sampler kernel (``cuda_sampler.sample``, or
+  ``cuda_ewa.sample`` for EWA, which forms the Jacobian from the stacked
+  evals itself), and the finish in torch. A plane that the self-contained
+  coords kernel computes (``cuda_coords.gen_admits``: no lens-correction
+  blend, mesh or digital lens), and that is neither EWA nor fused, takes
+  one ``cuda_coords.project_gen`` launch, which builds its output positions
+  and runs ``coords_pre`` itself; every other plane takes torch
+  ``coords_pre``, then the coords kernel (``cuda_coords.project``). It is
   the counterpart of ``remap_plane_pallas`` without the TPU's window
   ladder: one thread per output pixel reads its matrix row and its taps
   directly, so there is no window to overflow. With ``fused=True``
@@ -665,19 +670,23 @@ def use_fused(cfg: KernelConfig, matrices, drawing=None) -> bool:
 
 
 def _remap(img, matrices, cfg: KernelConfig, dyn_t: KernelDynamics, project, sample,
-           fused=None, mesh=None, probe=None, overlay=None, out_rows=None, oy0: int = 0):
+           fused=None, gen=None, mesh=None, probe=None, overlay=None, out_rows=None,
+           oy0: int = 0):
     """Shared body of remap_plane / remap_plane_cuda (remap.py:511, :662).
 
     dyn_t: tensor leaves on img's device. project(x, y, idx) -> (u, v, valid);
     sample(u, v, valid, evals) -> (rows, ow, C), where evals is the stacked
     (3*rows, ow) (u3, v3, valid3) after coords_post_uv for EWA and None
     otherwise. fused(x, y, idx) -> (rows, ow, C), if given, replaces project,
-    coords_post_uv and sample (remap.py:720-730). mesh and probe go to
+    coords_post_uv and sample (remap.py:720-730). gen() -> (u, v, valid), if
+    given, replaces coords_pre and project: the band's output positions
+    projected in one call (cuda_coords.project_gen). mesh and probe go to
     coords_pre. overlay(pixel, u, v, ox, oy) -> pixel, if given, is the
     drawing epilogue after the colour-range step (remap.py:1004-1007).
     out_rows, oy0: only output rows oy0 .. oy0 + out_rows (the whole plane
     when out_rows is None); every coordinate stays in absolute output
-    space, so the bands of a plane assemble into the plane (remap.py:678)."""
+    space, so the bands of a plane assemble into the plane (remap.py:678).
+    The first gf.eager span's note names the route: "gen" or "pre"."""
     dev = img.device
     C = img.shape[-1]
     bg = (dyn_t.background * dyn_t.max_pixel_value)[:C]
@@ -689,19 +698,28 @@ def _remap(img, matrices, cfg: KernelConfig, dyn_t: KernelDynamics, project, sam
         return bg.expand(rows, ow, C).clone()
 
     is_ewa = cfg.interpolation in EWA_BC
-    with trace.span("gf.eager"):
+    with trace.span("gf.eager") as span:
+        # the finish's grid; coords_pre's input on the "pre" route
         oy, ox = torch.meshgrid(torch.arange(oy0, oy0 + rows, dtype=torch.float32, device=dev),
                                 torch.arange(ow, dtype=torch.float32, device=dev),
                                 indexing="ij")
-        factor = torch.clamp_min(1.0 - dyn_t.lens_correction_amount, 0.001)
-        out_c = (float(cfg.output_width) / 2.0, float(cfg.output_height) / 2.0)
-        out_f = (dyn_t.f[0] / dyn_t.fov / factor, dyn_t.f[1] / dyn_t.fov / factor)
-        x, y, idx = (ewa_stack if is_ewa else coords_pre)(ox, oy, matrices, cfg, dyn_t, out_c,
-                                                          out_f, mesh=mesh, probe=probe)
+        if gen is not None:
+            span.note("gen")
+            projected = [gen()]
+        else:
+            span.note("pre")
+            factor = torch.clamp_min(1.0 - dyn_t.lens_correction_amount, 0.001)
+            out_c = (float(cfg.output_width) / 2.0, float(cfg.output_height) / 2.0)
+            out_f = (dyn_t.f[0] / dyn_t.fov / factor, dyn_t.f[1] / dyn_t.fov / factor)
+            x, y, idx = (ewa_stack if is_ewa else coords_pre)(ox, oy, matrices, cfg, dyn_t,
+                                                              out_c, out_f, mesh=mesh,
+                                                              probe=probe)
     if fused is not None:
         pixel = fused(x, y, idx)
     else:
-        pixel, u, v = _project_and_sample(x, y, idx, cfg, dyn_t, bg, project, sample, is_ewa)
+        if gen is None:
+            projected = [project(x, y, idx)]
+        pixel, u, v = _sample_projected(projected, cfg, dyn_t, bg, sample, is_ewa)
 
     with trace.span("gf.eager"):
         # pixels whose mapped out_pos is beyond the logical output get background
@@ -719,14 +737,18 @@ def _remap(img, matrices, cfg: KernelConfig, dyn_t: KernelDynamics, project, sam
     return pixel
 
 
-def _project_and_sample(x, y, idx, cfg: KernelConfig, dyn_t: KernelDynamics, bg, project,
-                        sample, is_ewa: bool):
-    """The split path: projection, coords_post_uv, then one sample (two in
-    background mode 3) and the validity mask. For EWA the stacked evals go
-    to the sampler with the base eval's rows as u, v, valid. Returns the
-    pixels and the base eval's u, v after coords_post_uv (the overlay's
-    input-stage positions)."""
-    u, v, valid = project(x, y, idx)
+def _sample_projected(projected: list, cfg: KernelConfig, dyn_t: KernelDynamics, bg, sample,
+                      is_ewa: bool):
+    """The split path after the projection: coords_post_uv, then one sample
+    (two in background mode 3) and the validity mask. For EWA the stacked
+    evals go to the sampler with the base eval's rows as u, v, valid.
+    Returns the pixels and the base eval's u, v after coords_post_uv (the
+    overlay's input-stage positions).
+
+    projected: a list holding the projection's (u, v, valid), emptied here,
+    so that nothing holds the projected positions once coords_post_uv has
+    mapped them: the plane's peak memory is one full-size (u, v) pair less."""
+    u, v, valid = projected.pop()
     u, v = coords_post_uv(u, v, cfg)
     evals = None
     if is_ewa:
@@ -841,7 +863,11 @@ def remap_plane_cuda(img, matrices, cfg: KernelConfig, dyn: KernelDynamics, mesh
     pixel: one coords launch per plane (EWA stacks its three evals into it)
     and one sampling launch per sample (two in background mode 3); a mesh
     frame adds one coords launch for its rolling-shutter probe, and the
-    drawing overlay one overlay launch. With ``fused=True``, a plane that
+    drawing overlay one overlay launch. The coords launch of a plane that
+    ``cuda_coords.gen_admits``, other than EWA and fused, is
+    ``cuda_coords.project_gen``: the output grid's positions, ``coords_pre``
+    and the projection in one, with the bits of the eager ``coords_pre``
+    and ``cuda_coords.project``. With ``fused=True``, a plane that
     ``use_fused`` admits takes one fused launch instead of the coords and
     sampler launches; any other plane (mesh and drawing among them) takes
     the split path, as remap_plane_pallas does. The frame's mesh buffer may
@@ -888,10 +914,15 @@ def remap_plane_cuda(img, matrices, cfg: KernelConfig, dyn: KernelDynamics, mesh
         return cuda_sampler.sample(img, u, v, valid, bg, cfg.src_rect,
                                    cfg.interpolation, limit)
 
-    fuse = None
+    fuse = gen = None
     if fused and use_fused(cfg, matrices, drawing):
         def fuse(x, y, idx):
             return cuda_fused.remap_fused(img, x, y, idx, matrices, cfg, dyn, bg, limit)
+    elif cfg.interpolation not in EWA_BC and cuda_coords.gen_admits(cfg):
+        def gen():
+            # out_c, out_f: read only by the lens-correction blend, which
+            # gen_admits rules out
+            return cuda_coords.project_gen(cfg, dyn, matrices, rows, oy0, None, None)
 
     overlay = None
     canvas = _canvas(cfg, drawing, img.device)
@@ -903,7 +934,7 @@ def remap_plane_cuda(img, matrices, cfg: KernelConfig, dyn: KernelDynamics, mesh
                                         float(drawing.scale),
                                         drawing.safe_area_rect, cfg.src_rect, maxv, oy0)
 
-    out = _remap(img, matrices, cfg, dyn_t, project, sample, fuse, mesh=mesh,
+    out = _remap(img, matrices, cfg, dyn_t, project, sample, fuse, gen, mesh=mesh,
                  probe=mesh_probe(matrices, cfg, dyn, mesh), overlay=overlay,
                  out_rows=rows, oy0=oy0)
     with trace.span("gf.eager"):

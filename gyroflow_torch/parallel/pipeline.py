@@ -10,8 +10,9 @@ there are no collectives. The bands assemble into one (F, oh, ow, C)
 output on the mesh's first device.
 
 On a CUDA device each (frame, band) runs through ``remap.remap_plane_cuda``
-with ``out_rows``/``oy0`` (the coords kernel, then the sampler or EWA
-kernel, the coordinate math in absolute output space). On the CPU the
+with ``out_rows``/``oy0`` (the coords kernel, the self-contained one for a
+plane it admits, then the sampler or EWA kernel, the coordinate math in
+absolute output space). On the CPU the
 production step runs the plain ``remap.remap_plane`` and takes each band
 from the whole plane, as the JAX step does with ``use_pallas=False``;
 ``stabilize_window_sharded`` and ``use_kernels=True`` run the band route on

@@ -41,10 +41,11 @@ def dev():
     return torch.device("cuda", 0)
 
 
-def _mats(fov, ibis=False):
-    new_k = np.array([[F[0] / fov, 0, W / 2], [0, F[1] / fov, H / 2], [0, 0, 1.0]])
+def _mats(fov, ibis=False, w=W, h=H):
+    f = w * 0.62
+    new_k = np.array([[f / fov, 0, w / 2], [0, f / fov, h / 2], [0, 0, 1.0]])
     rows = []
-    for i in range(H):
+    for i in range(h):
         rx, ry, rz = 0.012 + 4e-4 * i, -0.018, 0.006
         cx, sx, cy, sy, cz, sz = (math.cos(rx), math.sin(rx), math.cos(ry),
                                   math.sin(ry), math.cos(rz), math.sin(rz))
@@ -58,18 +59,19 @@ def _mats(fov, ibis=False):
 
 
 def _case(plane="Y", flags=0, background_mode=0, fov=1.05, interpolation=8, lrc=1.0,
-          ewa_ref_jac=False):
-    cfg = KernelConfig(width=W, height=H, output_width=W, output_height=H,
+          ewa_ref_jac=False, w=W, h=H):
+    cfg = KernelConfig(width=w, height=h, output_width=w, output_height=h,
                        interpolation=interpolation, background_mode=background_mode,
                        flags=flags | (ANY_UNDERWATER if lrc != 1.0 else 0),
                        ewa_ref_jac=ewa_ref_jac)
     c = 1
     if plane == "UV":
-        cfg = cfg._replace(plane_index=1, source_rect=(0, 0, W // 2, H // 2),
-                           output_rect=(0, 0, W // 2, H // 2), out_size=(W // 2, H // 2),
+        cfg = cfg._replace(plane_index=1, source_rect=(0, 0, w // 2, h // 2),
+                           output_rect=(0, 0, w // 2, h // 2), out_size=(w // 2, h // 2),
                            flags=cfg.flags | HAS_SOURCE_RECT | HAS_OUTPUT_RECT)
         c = 2
-    dyn = KernelDynamics.make(f=F, c=(W / 2, H / 2), k=[0.25, -0.07, 0.02, -0.003], fov=fov,
+    dyn = KernelDynamics.make(f=(w * 0.62, w * 0.62), c=(w / 2, h / 2),
+                              k=[0.25, -0.07, 0.02, -0.003], fov=fov,
                               background=(0.1, 0.5, 0.2, 1.0), background_margin=0.1,
                               background_margin_feather=0.05, light_refraction_coefficient=lrc,
                               max_pixel_value=1023.0, pixel_value_limit=1023.0)
@@ -80,7 +82,7 @@ def _case(plane="Y", flags=0, background_mode=0, fov=1.05, interpolation=8, lrc=
     ow, oh = cfg.out_buffer
     rng = np.random.default_rng(0)
     img = rng.integers(0, 1024, (oh, ow, c)).astype(np.uint16)
-    return cfg, dyn, _mats(fov, ibis=bool(flags & HAS_IBIS_DATA)), img
+    return cfg, dyn, _mats(fov, ibis=bool(flags & HAS_IBIS_DATA), w=w, h=h), img
 
 
 def _coords_inputs(cfg, dyn, mats, dev):
@@ -1040,10 +1042,12 @@ def test_window_vs_per_frame_on_the_card(dev, tmp_path, plane, dtype, interpolat
     kw = dict(interpolation=interpolation, plane_index=0 if plane == "Y" else 1,
               max_pixel_value=maxv, plane_rects=True)
     sample = cuda_ewa.sample if interpolation > 8 else cuda_sampler.sample
-    n0 = (cuda_coords.project.launches, sample.launches)
+    # the fisheye plane's coords launch: the self-contained kernel, but for EWA
+    coords = cuda_coords.project if interpolation > 8 else cuda_coords.project_gen
+    n0 = (coords.launches, sample.launches)
     out, info = m.process_pixels_window(ts, frames, None, **kw)
     torch.cuda.synchronize()
-    assert (cuda_coords.project.launches - n0[0], sample.launches - n0[1]) == (2, 2)
+    assert (coords.launches - n0[0], sample.launches - n0[1]) == (2, 2)
     assert info["backend"] == "cuda-window"
     assert out.dtype == getattr(torch, dtype) and out.device == dev
     assert tuple(out.shape) == frames.shape
@@ -1399,33 +1403,38 @@ def test_sharded_window_on_the_card(dev, tmp_path, plane, dtype, interpolation):
     kw = dict(interpolation=interpolation, plane_index=0 if plane == "Y" else 1,
               max_pixel_value=maxv, plane_rects=True)
     sample = cuda_ewa.sample if interpolation > 8 else cuda_sampler.sample
+    coords = cuda_coords.project if interpolation > 8 else cuda_coords.project_gen
     one, _ = m.process_pixels_window(ts, frames, None, **kw)
-    n0 = (cuda_coords.project.launches, sample.launches)
+    n0 = (coords.launches, sample.launches)
     out, info = m.process_pixels_window(ts, frames, make_frame_mesh(devices=[dev] * 4, sp=2),
                                         **kw)
     torch.cuda.synchronize()
-    assert (cuda_coords.project.launches - n0[0], sample.launches - n0[1]) == (4, 4)
+    assert (coords.launches - n0[0], sample.launches - n0[1]) == (4, 4)
     assert info["backend"] == "cuda-sharded" and out.device == dev
     assert torch.equal(out, one)
 
 
 def test_entry_on_the_card(dev):
-    """gyroflow_torch.entry.entry(): one coords and one sampler launch, 0
-    codes from the same step with each wrapper's plain version."""
+    """gyroflow_torch.entry.entry(): one self-contained coords launch and
+    one sampler launch, 0 codes from the same step with each wrapper's
+    plain version."""
     from gyroflow_torch.entry import entry
 
     fn, args = entry()
     assert args[0].device == dev
-    n0 = (cuda_coords.project.launches, cuda_sampler.sample.launches)
+    n0 = (cuda_coords.project_gen.launches, cuda_sampler.sample.launches,
+          cuda_coords.project.launches)
     got = fn(*args)
     torch.cuda.synchronize()
-    assert (cuda_coords.project.launches - n0[0], cuda_sampler.sample.launches - n0[1]) == (1, 1)
-    saved = (cuda_coords.project, cuda_sampler.sample)
-    cuda_coords.project, cuda_sampler.sample = cuda_coords.project_plain, cuda_sampler.sample_plain
+    assert (cuda_coords.project_gen.launches - n0[0], cuda_sampler.sample.launches - n0[1],
+            cuda_coords.project.launches - n0[2]) == (1, 1, 0)
+    saved = (cuda_coords.project_gen, cuda_sampler.sample)
+    cuda_coords.project_gen, cuda_sampler.sample = (cuda_coords.project_gen_plain,
+                                                    cuda_sampler.sample_plain)
     try:
         want = fn(*args)
     finally:
-        cuda_coords.project, cuda_sampler.sample = saved
+        cuda_coords.project_gen, cuda_sampler.sample = saved
     assert torch.equal(got, want)
 
 
@@ -1614,6 +1623,49 @@ def test_coords_gen_kernel_centre_row_tables(dev, n_rows):
         assert centre == idx.numel()
     else:
         assert 0 < centre < idx.numel()
+
+
+@pytest.mark.parametrize("plane", ["Y", "UV"])
+def test_remap_plane_cuda_gen_route_4k_bits(dev, plane):
+    """A 4K 10-bit fisheye plane (UV with its source and output rects) at
+    lanczos4 through remap_plane_cuda: one project_gen launch, no project
+    launch, and the bits of the composition it replaces, called step by
+    step: the output grid, eager coords_pre, the coords kernel,
+    coords_post_uv, the sampler kernel and the finish (in-bounds mask,
+    colour range, uint16 cast)."""
+    cfg, dyn, mats, img = _case(plane, flags=FIX_COLOR_RANGE, w=3840, h=2160)
+    timg, m = torch.from_numpy(img).to(dev), torch.from_numpy(mats).to(dev)
+    n0 = (cuda_coords.project_gen.launches, cuda_coords.project.launches)
+    got = remap.remap_plane_cuda(timg, m, cfg, dyn, out_dtype="uint16")
+    torch.cuda.synchronize()
+    assert (cuda_coords.project_gen.launches, cuda_coords.project.launches) == (n0[0] + 1, n0[1])
+
+    dt = dyn_to_torch(dyn, dev)
+    ow, oh = cfg.out_buffer
+    oy, ox = torch.meshgrid(torch.arange(oh, dtype=torch.float32, device=dev),
+                            torch.arange(ow, dtype=torch.float32, device=dev), indexing="ij")
+    factor = torch.clamp_min(1.0 - dt.lens_correction_amount, 0.001)
+    out_c = (float(cfg.output_width) / 2.0, float(cfg.output_height) / 2.0)
+    out_f = (dt.f[0] / dt.fov / factor, dt.f[1] / dt.fov / factor)
+    x, y, idx = remap.coords_pre(ox, oy, m, cfg, dt, out_c, out_f)
+    projected = cuda_coords.project(x, y, idx, m, cfg, dyn)
+    _same_bits(cuda_coords.project_gen(cfg, dyn, m, oh, 0, out_c, out_f), projected)
+    u, v, valid = projected
+    u, v = remap.coords_post_uv(u, v, cfg)
+    c = img.shape[-1]
+    bg = (dt.background * dt.max_pixel_value)[:c]
+    px = cuda_sampler.sample(timg, u, v, valid, tuple(float(b) for b in bg.cpu()),
+                             cfg.src_rect, 8, 1023.0)
+    px = torch.where(valid[..., None], px, bg)
+    orx, ory, orw, orh = cfg.out_rect
+    lx = remap.map_coord(ox, float(orx), float(orx + orw), 0.0, float(cfg.output_width))
+    ly = remap.map_coord(oy, float(ory), float(ory + orh), 0.0, float(cfg.output_height))
+    inside = (lx >= 0.0) & (ly >= 0.0) & (lx < cfg.output_width) & (ly < cfg.output_height)
+    px = torch.where(inside[..., None], px, bg)
+    px = remap._remap_colorrange(px, cfg.plane_index == 0, dt.max_pixel_value)
+    want = remap._cast_out(px, "uint16", 1023.0)
+    assert got.dtype == torch.uint16 and got.shape == (oh, ow, c)
+    assert torch.equal(got, want)
 
 
 @pytest.mark.parametrize("plane", ["Y", "UV"])

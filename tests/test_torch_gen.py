@@ -11,6 +11,13 @@ JAX package's ``pallas_coords.project_tiles_gen``, on the CPU.
 - Every main model (one case: opencv_standard); the configurations the
   kernel does not compute (lens correction, mesh, digital lens, as JAX
   gates project_tiles_gen) raise ValueError instead of a different answer.
+- ``remap.remap_plane_cuda``'s route through ``project_gen``: on CPU tensors
+  bit-identical to ``remap_plane`` for a fisheye plane of the 4K shape (Y,
+  UV with its source and output rects, a band at ``oy0 > 0``, a table of
+  one matrix row), one ``project_gen`` call a plane and no ``project``
+  call; the first ``gf.eager`` span of each plane notes "gen" there and
+  "pre" for each form that keeps ``coords_pre`` (mesh and focal plane,
+  lens correction, a digital lens, EWA, ``fused=True``).
 
 Tolerances: u/v within 0.05 px (the ROADMAP's coordinate tolerance; the
 JAX kernel's in-kernel probe and XLA round the same chain a few ulp apart),
@@ -25,12 +32,17 @@ import torch
 
 from gyroflow_tpu.ops import pallas_coords, pallas_sampler
 from gyroflow_tpu.ops.kernel_params import HORIZONTAL_RS
+from gyroflow_torch import trace
 from gyroflow_torch.ops import cuda_coords
+from gyroflow_torch.ops import kernel_params as tkp
 from gyroflow_torch.ops import remap as tremap
-from gyroflow_torch.ops.kernel_params import HAS_DIGITAL_LENS, HAS_MESH_DATA, dyn_to_torch
+from gyroflow_torch.ops.kernel_params import (FIX_COLOR_RANGE, HAS_DIGITAL_LENS, HAS_MESH_DATA,
+                                              HAS_OUTPUT_RECT, HAS_SOURCE_RECT, dyn_to_torch)
 
+from test_remap_golden import make_image
 from test_torch_coords import _out_c_f
-from test_torch_remap import lens_kw, make_case
+from test_torch_mesh import _mesh_case
+from test_torch_remap import K, _rot, lens_kw, make_case
 from test_torch_threads import one_torch_thread  # noqa: F401 (autouse fixture)
 
 UV_TOL_PX = 0.05
@@ -131,3 +143,144 @@ def test_gen_args_translation_has_no_negative_zero():
             want = (a + f32(0.0)) + t
             got = a + (t + f32(0.0))
             assert np.array_equal(np.array(want).view(np.int32), np.array(got).view(np.int32))
+
+
+# ---- remap_plane_cuda's route through project_gen ---------------------------
+
+UHD_SHAPE = (192, 108)      # 3840 x 2160 at a twentieth: the 4K frame's shape
+
+
+def _uhd_case(plane):
+    """(port cfg, port dyn, matrices, uint16 image): a fisheye plane of the
+    4K shape, the UV plane with the manager's source and output rects,
+    per-row rolling-shutter matrices and limited range."""
+    w, h = UHD_SHAPE
+    f, fov = w * 0.62, 1.05
+    cfg = tkp.KernelConfig(width=w, height=h, output_width=w, output_height=h,
+                           interpolation=8, distortion_model="opencv_fisheye",
+                           flags=FIX_COLOR_RANGE)
+    c = 1
+    if plane == "UV":
+        cfg = cfg._replace(plane_index=1, source_rect=(0, 0, w // 2, h // 2),
+                           output_rect=(0, 0, w // 2, h // 2), out_size=(w // 2, h // 2),
+                           flags=cfg.flags | HAS_SOURCE_RECT | HAS_OUTPUT_RECT)
+        c = 2
+    dyn = tkp.KernelDynamics.make(f=(f, f), c=(w / 2, h / 2), k=K, fov=fov,
+                                  background=(0.1, 0.5, 0.2, 1.0), max_pixel_value=1023.0,
+                                  pixel_value_limit=1023.0)
+    new_k = np.array([[f / fov, 0, w / 2], [0, f / fov, h / 2], [0, 0, 1.0]])
+    rows = []
+    for i in range(h):
+        r = _rot(0.012 + 4e-4 * i, -0.018 + 2e-4 * i, 0.006)
+        r[0, 1] *= -1; r[0, 2] *= -1; r[1, 0] *= -1; r[2, 0] *= -1
+        rows.append(list(np.linalg.inv(new_k @ r).flatten()) + [0.0] * 5)
+    ow, oh = cfg.out_buffer
+    img = np.random.default_rng(3).integers(0, 1024, (oh, ow, c)).astype(np.uint16)
+    return cfg, dyn, np.asarray(rows, np.float32), img
+
+
+@pytest.fixture
+def routes(monkeypatch):
+    """Counts of the calls into project_gen and project, and the first
+    gf.eager span's note of each plane, with the tracer on."""
+    calls = {"project_gen": 0, "project": 0}
+    for name in calls:
+        fn = getattr(cuda_coords, name)
+
+        def counted(*a, _fn=fn, _name=name, **k):
+            calls[_name] += 1
+            return _fn(*a, **k)
+        monkeypatch.setattr(cuda_coords, name, counted)
+
+    def notes():
+        return [r.note for r in trace.records() if r.name == "gf.eager" and r.note is not None]
+    trace.enable()
+    yield calls, notes
+    trace.disable()
+
+
+@pytest.mark.parametrize("case", ["Y", "UV", "band", "one_row"])
+def test_remap_plane_cuda_gen_route_is_remap_plane(routes, case):
+    """A fisheye plane of the 4K shape takes one project_gen call and no
+    project call, and gives remap_plane's bits: the whole Y plane, the UV
+    plane (source-rect and output-rect maps), a band of rows at an odd
+    oy0, a table of one matrix row."""
+    calls, notes = routes
+    cfg, dyn, mats, img = _uhd_case("UV" if case == "UV" else "Y")
+    if case == "one_row":
+        mats = mats[:1]
+    timg, m = torch.from_numpy(img), torch.from_numpy(mats)
+    oh = cfg.out_buffer[1]
+    rows, oy0 = (37, 29) if case == "band" else (oh, 0)
+    got = tremap.remap_plane_cuda(timg, m, cfg, dyn, out_rows=rows, oy0=oy0)
+    assert calls == {"project_gen": 1, "project": 0}
+    assert notes() == ["gen"]
+    want = tremap.remap_plane(timg, m, cfg, dyn)[oy0:oy0 + rows]
+    assert got.shape == want.shape and got.dtype == torch.float32
+    assert torch.equal(got, want)
+
+
+def _bypass_case(form):
+    """(port cfg, port dyn, matrices, image, mesh, remap_plane_cuda keywords)
+    of one form that keeps coords_pre."""
+    if form == "mesh_fpd":
+        cfg, dyn, _, mats, mesh = _mesh_case(fpd=True)
+        pcfg, pdyn = tkp.from_reference(cfg, dyn)
+        return pcfg, pdyn, mats, make_image(1), np.asarray(mesh, np.float32), {}
+    kw = {"lens_correction": dict(lens_correction_amount=0.6),
+          "digital_lens": lens_kw("opencv_fisheye", "gopro_superview"),
+          "ewa": dict(interpolation=11)}.get(form, {})
+    _, _, pcfg, pdyn, mats, img = make_case("Y", **kw)
+    if form == "ewa":
+        p, q = tremap.ewa_coeffs(11)
+        pdyn = pdyn._replace(ewa_coeffs_p=np.asarray(p, np.float32),
+                             ewa_coeffs_q=np.asarray(q, np.float32))
+    return pcfg, pdyn, mats, img, None, dict(fused=True) if form == "fused" else {}
+
+
+@pytest.mark.parametrize("form", ["fisheye", "mesh_fpd", "lens_correction", "digital_lens",
+                                  "ewa", "fused"])
+def test_remap_plane_cuda_route_note(routes, form):
+    """The first gf.eager span of a plane notes its route, readable from
+    trace.records(): "gen" for the plain fisheye, "pre" for each form that
+    gen_admits refuses or that takes another kernel (EWA's stacked evals,
+    the fused launch), which makes no project_gen call. Either way the
+    output is remap_plane's."""
+    calls, notes = routes
+    cfg, dyn, mats, img, mesh, kw = _bypass_case(form)
+    if form == "fused":
+        assert tremap.use_fused(cfg, torch.from_numpy(mats))
+    timg, m = torch.from_numpy(img), torch.from_numpy(mats)
+    tmesh = None if mesh is None else torch.from_numpy(mesh)
+    got = tremap.remap_plane_cuda(timg, m, cfg, dyn, tmesh, **kw)
+    gen = form == "fisheye"
+    assert notes() == ["gen" if gen else "pre"]
+    assert calls["project_gen"] == int(gen)
+    assert cuda_coords.gen_admits(cfg) == (form in ("fisheye", "ewa", "fused"))
+    assert torch.equal(got, tremap.remap_plane(timg, m, cfg, dyn, tmesh))
+
+
+@pytest.mark.parametrize("form", ["fisheye", "lens_correction"])
+def test_projected_positions_freed_before_sampling(monkeypatch, form):
+    """On either route nothing holds the projection's raw u, v once
+    coords_post_uv has mapped them: the sampler runs with one full-size
+    (u, v) pair alive, not two, so a plane's peak memory stays the split
+    path's."""
+    import weakref
+    from gyroflow_torch.ops import cuda_sampler
+
+    raw, dead = [], []
+    post_uv, sample = tremap.coords_post_uv, cuda_sampler.sample
+
+    def spy_post_uv(u, v, cfg):
+        raw.extend(weakref.ref(t) for t in (u, v))
+        return post_uv(u, v, cfg)
+
+    def spy_sample(*a, **k):
+        dead.append(all(r() is None for r in raw))
+        return sample(*a, **k)
+    monkeypatch.setattr(tremap, "coords_post_uv", spy_post_uv)
+    monkeypatch.setattr(cuda_sampler, "sample", spy_sample)
+    cfg, dyn, mats, img, mesh, kw = _bypass_case(form)
+    tremap.remap_plane_cuda(torch.from_numpy(img), torch.from_numpy(mats), cfg, dyn)
+    assert len(raw) == 2 and dead == [True]
