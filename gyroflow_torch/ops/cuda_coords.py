@@ -28,7 +28,8 @@ eager ``coords_pre`` and ``project``.
 
 Each wrapper checks its inputs, then runs its plain version for CPU tensors
 only; for CUDA tensors it launches its kernel or raises. ``project.launches``
-and ``project_gen.launches`` count kernel launches.
+and ``project_gen.launches`` count kernel launches; both wrappers add the
+positions they project to the tracer's ``gf.coords.points``, on any device.
 """
 from __future__ import annotations
 
@@ -231,6 +232,7 @@ def project(x, y, idx, matrices, cfg: KernelConfig, dyn: KernelDynamics, mesh=No
     float32 tensor on x's device, packed (``pack_mesh``), read when cfg has
     the mesh or focal-plane flag. Returns u, v float32 and valid bool."""
     _check(x, y, idx, matrices, cfg, mesh)
+    trace.count("gf.coords.points", x.numel())
     if x.device.type == "cpu":
         return project_plain(x, y, idx, matrices, cfg, dyn, mesh)
     if x.device.type != "cuda":
@@ -336,6 +338,7 @@ def project_gen(cfg: KernelConfig, dyn: KernelDynamics, matrices, out_rows: int,
     coords_post_uv. Raises ValueError for lens correction, mesh and digital
     lenses, which the kernel does not compute."""
     _check_gen(cfg, matrices, out_rows, oy0)
+    trace.count("gf.coords.points", out_rows * cfg.out_buffer[0])
     if matrices.device.type == "cpu":
         return project_gen_plain(cfg, dyn, matrices, out_rows, oy0, out_c, out_f, pos_dx, pos_dy)
     if matrices.device.type != "cuda":

@@ -686,7 +686,9 @@ def _remap(img, matrices, cfg: KernelConfig, dyn_t: KernelDynamics, project, sam
     out_rows, oy0: only output rows oy0 .. oy0 + out_rows (the whole plane
     when out_rows is None); every coordinate stays in absolute output
     space, so the bands of a plane assemble into the plane (remap.py:678).
-    The first gf.eager span's note names the route: "gen" or "pre"."""
+    The first gf.eager span's note names the route: "gen" or "pre"; on an
+    EWA plane its span gf.ewa.stack holds ewa_stack (remap_plane_cuda's
+    gf.ewa.sample holds the EWA launch)."""
     dev = img.device
     C = img.shape[-1]
     bg = (dyn_t.background * dyn_t.max_pixel_value)[:C]
@@ -711,9 +713,14 @@ def _remap(img, matrices, cfg: KernelConfig, dyn_t: KernelDynamics, project, sam
             factor = torch.clamp_min(1.0 - dyn_t.lens_correction_amount, 0.001)
             out_c = (float(cfg.output_width) / 2.0, float(cfg.output_height) / 2.0)
             out_f = (dyn_t.f[0] / dyn_t.fov / factor, dyn_t.f[1] / dyn_t.fov / factor)
-            x, y, idx = (ewa_stack if is_ewa else coords_pre)(ox, oy, matrices, cfg, dyn_t,
-                                                              out_c, out_f, mesh=mesh,
-                                                              probe=probe)
+            if is_ewa:
+                # the enqueue of the three eager coords_pre passes
+                with trace.span("gf.ewa.stack"):
+                    x, y, idx = ewa_stack(ox, oy, matrices, cfg, dyn_t, out_c, out_f, mesh=mesh,
+                                          probe=probe)
+            else:
+                x, y, idx = coords_pre(ox, oy, matrices, cfg, dyn_t, out_c, out_f, mesh=mesh,
+                                       probe=probe)
     if fused is not None:
         pixel = fused(x, y, idx)
     else:
@@ -910,7 +917,8 @@ def remap_plane_cuda(img, matrices, cfg: KernelConfig, dyn: KernelDynamics, mesh
 
     def sample(u, v, valid, evals):
         if evals is not None:
-            return cuda_ewa.sample(img, u, v, *evals, bg, cfg.src_rect, coeffs, limit)
+            with trace.span("gf.ewa.sample"):
+                return cuda_ewa.sample(img, u, v, *evals, bg, cfg.src_rect, coeffs, limit)
         return cuda_sampler.sample(img, u, v, valid, bg, cfg.src_rect,
                                    cfg.interpolation, limit)
 

@@ -1,4 +1,4 @@
-"""The port's tracer: spans and a counter inside the program, kept in memory.
+"""The port's tracer: spans and counters inside the program, kept in memory.
 
 A span (``with trace.span(name, rid):``) records its name, its start and end
 (``time.perf_counter_ns``), the span open around it on the same thread (its
@@ -9,9 +9,13 @@ and each frame's FrameTransform lookup in a window has its own); a span given
 none takes its parent's. The counter ``gf.host_syncs`` (``trace.sync()``,
 read by ``syncs()``) counts the program's calls that block the host on the
 stream, at the call site and on any device, so a CPU run counts what a card
-would. A count is recorded on the innermost open span of its thread, in that
-span's record, so it sits at the boundary where the work happens; a count
-outside any span is kept in the total alone.
+would. Named counters (``trace.count(name, n)``, read by ``counts()``) add n
+to the counter ``name`` the same way: ``gf.coords.points`` counts the
+positions each coords-kernel launch projects (``ops/cuda_coords.py``), at the
+call, so the plain version on the CPU counts what the kernel would. A count
+of either kind is recorded on the innermost open span of its thread, in that
+span's record (``syncs``, ``counts``), so it sits at the boundary where the
+work happens; a count outside any span is kept in the total alone.
 
 Recording is on only while ``enable()`` holds (``render(..., trace=True)``,
 ``cli --trace``) or a ``torch.profiler`` session runs. While a profiler runs,
@@ -19,16 +23,17 @@ each span is also a profiler range of its name (``record_function``'s kind,
 opened by ``_RecordFunctionFast``), so the profiler's trace shows it on the
 same clock as the card's kernels and copies. Off, a span costs two boolean
 tests and returns one shared do-nothing context: no allocation, no
-formatting, nothing on the card.
+formatting, nothing on the card; ``sync()`` and ``count()`` cost the same
+two boolean tests.
 
 Records go into a bounded buffer (the newest ``MAX_RECORDS``) and belong to an
 episode: ``enable()`` starts one, and so does the first span that finds a
 profiler running after the tracer last saw none (it looks at every span and
 counter call and at every reading). ``records()`` gives the newest episode's
-records, ``totals()`` and ``syncs()`` its sums over the whole episode, kept
-even where the buffer dropped its oldest records. Nothing of an earlier
-episode is read in a later one: a span still open when a new episode starts
-is dropped at its end.
+records, ``totals()``, ``syncs()`` and ``counts()`` its sums over the whole
+episode, kept even where the buffer dropped its oldest records. Nothing of an
+earlier episode is read in a later one: a span still open when a new episode
+starts is dropped at its end.
 """
 from __future__ import annotations
 
@@ -54,6 +59,7 @@ class Record(NamedTuple):
     self_ns: int
     syncs: int               # host syncs counted while it was the innermost span
     note: object             # e.g. "hit" / "miss" of a FrameTransform lookup
+    counts: Optional[Dict[str, int]] = None   # named counts while it was the innermost span
 
 
 class Total(NamedTuple):
@@ -62,6 +68,7 @@ class Total(NamedTuple):
     seconds: float
     self_seconds: float
     syncs: int
+    counts: Optional[Dict[str, int]] = None   # named counts inside spans of this name
 
 
 class _Off:
@@ -82,8 +89,8 @@ _OFF = _Off()
 
 
 class _Span:
-    __slots__ = ("tr", "name", "rid", "episode", "id", "parent", "child_ns", "syncs", "value",
-                 "rf", "t0")
+    __slots__ = ("tr", "name", "rid", "episode", "id", "parent", "child_ns", "syncs", "counts",
+                 "value", "rf", "t0")
 
     def __init__(self, tr: "Tracer", name: str, rid):
         self.tr, self.name, self.rid = tr, name, rid
@@ -103,7 +110,7 @@ class _Span:
             if self.rid is None:
                 self.rid = stack[-1].rid
         self.child_ns = self.syncs = 0
-        self.value = None
+        self.counts = self.value = None
         self.rf = None
         stack.append(self)
         if profiling:
@@ -128,7 +135,7 @@ class _Span:
         if stack:
             stack[-1].child_ns += dur
         tr._add(self.episode, Record(self.name, self.t0, t1, self.id, self.parent, self.rid,
-                                     dur - self.child_ns, self.syncs, self.value))
+                                     dur - self.child_ns, self.syncs, self.value, self.counts))
         return False
 
 
@@ -143,6 +150,7 @@ class Tracer:
         self._records: deque = deque(maxlen=MAX_RECORDS)
         self._totals: Dict[str, list] = {}
         self._loose_syncs = 0
+        self._loose_counts: Dict[str, int] = {}
 
     # ---- the switch ---------------------------------------------------------
 
@@ -181,6 +189,22 @@ class Tracer:
             with self._lock:
                 self._loose_syncs += 1
 
+    def count(self, name: str, n: int):
+        """Add n to the named counter ``name`` (e.g. ``gf.coords.points``)."""
+        if not self.enabled and not _profiling():
+            self._prof_seen = False
+            return
+        self._see_profiler()
+        stack = self._stack()
+        if stack and stack[-1].episode == self._episode:
+            top = stack[-1]
+            if top.counts is None:
+                top.counts = {}
+            top.counts[name] = top.counts.get(name, 0) + n
+        else:
+            with self._lock:
+                self._loose_counts[name] = self._loose_counts.get(name, 0) + n
+
     # ---- reading ------------------------------------------------------------
 
     def records(self) -> List[Record]:
@@ -190,18 +214,28 @@ class Tracer:
         return list(self._records)
 
     def totals(self) -> Dict[str, Total]:
-        """Per span name, the newest episode's count, seconds, self seconds and
-        host syncs."""
+        """Per span name, the newest episode's count, seconds, self seconds,
+        host syncs and named counts (None where its spans counted none)."""
         self._look()
         with self._lock:
-            return {k: Total(n, ns * 1e-9, self_ns * 1e-9, s)
-                    for k, (n, ns, self_ns, s) in self._totals.items()}
+            return {k: Total(n, ns * 1e-9, self_ns * 1e-9, s, dict(c) or None)
+                    for k, (n, ns, self_ns, s, c) in self._totals.items()}
 
     def syncs(self) -> int:
         """The newest episode's host syncs, inside spans and outside."""
         self._look()
         with self._lock:
             return self._loose_syncs + sum(t[3] for t in self._totals.values())
+
+    def counts(self) -> Dict[str, int]:
+        """The newest episode's named counters, inside spans and outside."""
+        self._look()
+        with self._lock:
+            out = dict(self._loose_counts)
+            for t in self._totals.values():
+                for name, n in t[4].items():
+                    out[name] = out.get(name, 0) + n
+            return out
 
     # ---- internals ----------------------------------------------------------
 
@@ -225,6 +259,7 @@ class Tracer:
         self._records = deque(maxlen=MAX_RECORDS)
         self._totals = {}
         self._loose_syncs = 0
+        self._loose_counts = {}
 
     def _stack(self) -> list:
         stack = getattr(self._local, "stack", None)
@@ -239,11 +274,13 @@ class Tracer:
             self._records.append(rec)
             t = self._totals.get(rec.name)
             if t is None:
-                t = self._totals[rec.name] = [0, 0, 0, 0]
+                t = self._totals[rec.name] = [0, 0, 0, 0, {}]
             t[0] += 1
             t[1] += rec.end_ns - rec.start_ns
             t[2] += rec.self_ns
             t[3] += rec.syncs
+            for name, n in (rec.counts or {}).items():
+                t[4][name] = t[4].get(name, 0) + n
 
 
 def from_host(data, device) -> bool:
@@ -259,6 +296,8 @@ enable = TRACER.enable
 disable = TRACER.disable
 span = TRACER.span
 sync = TRACER.sync
+count = TRACER.count
 records = TRACER.records
 totals = TRACER.totals
 syncs = TRACER.syncs
+counts = TRACER.counts

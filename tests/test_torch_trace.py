@@ -12,6 +12,9 @@
   plane uploads, its matrices once and each plane's dynamics (5); a Sony
   mesh frame adds its mesh buffer (6); an F-frame window its frames,
   matrices (and meshes) in one copy each plus each frame's dynamics.
+- Named counters (``trace.count``) sit on the innermost open span, or in the
+  total alone outside any; ``counts()`` sums the newest episode; off, they
+  record nothing.
 - The buffer is bounded while the episode's totals keep every span; spans
   on another thread have their own parents.
 - ``render(trace=True)`` puts its stage timers on the tracer.
@@ -206,6 +209,52 @@ def test_buffer_is_bounded_and_totals_keep_every_span(monkeypatch):
     assert len(trace.records()) == 8
     assert [r.rid for r in trace.records()] == list(range(12, 20))
     assert trace.totals()["gf.a"].count == 20 and trace.syncs() == 20
+
+
+def test_named_counts_sit_on_the_innermost_span():
+    trace.enable()
+    trace.count("gf.n", 3)              # outside any span: in the total alone
+    with trace.span("gf.outer", 1):
+        trace.count("gf.n", 2)
+        with trace.span("gf.inner"):
+            trace.count("gf.n", 5)
+            trace.count("gf.m", 1)
+            trace.sync()
+    with trace.span("gf.inner"):
+        trace.count("gf.n", 7)
+    recs = trace.records()
+    assert [(r.name, r.counts) for r in recs] == [
+        ("gf.inner", {"gf.n": 5, "gf.m": 1}), ("gf.outer", {"gf.n": 2}),
+        ("gf.inner", {"gf.n": 7})]
+    assert [r.syncs for r in recs] == [1, 0, 0]
+    totals = trace.totals()
+    assert totals["gf.inner"].counts == {"gf.n": 12, "gf.m": 1}
+    assert totals["gf.outer"].counts == {"gf.n": 2}
+    assert trace.counts() == {"gf.n": 17, "gf.m": 1} and trace.syncs() == 1
+    # a new episode reads nothing of the last
+    trace.enable()
+    assert trace.counts() == {} and trace.totals() == {}
+    with trace.span("gf.a"):
+        pass
+    assert trace.totals()["gf.a"].counts is None and trace.records()[0].counts is None
+
+
+def test_counts_off_record_nothing():
+    trace.count("gf.n", 4)
+    with trace.span("gf.a"):
+        trace.count("gf.n", 1)
+    assert trace.counts() == {} and trace.totals() == {} and trace.records() == []
+
+
+def test_counts_of_a_profiled_stretch():
+    def counted():
+        with trace.span("gf.a"):
+            trace.count("gf.n", 2)
+        trace.count("gf.n", 1)
+    _profiled(counted)
+    assert trace.counts() == {"gf.n": 3}
+    _profiled(counted)
+    assert trace.counts() == {"gf.n": 3}
 
 
 def test_threads_keep_their_own_parents():
