@@ -12,9 +12,11 @@ exits non-zero without the final line):
    of a 4K 10-bit YUV420 render (Y 3840x2160x1, UV 1920x1080x2 uint16), with
    the frame transform of a real StabilizationManager;
 3b. EWA (interpolation 11): the stacked coords launch of the base and both
-   finite-difference evals (3*oh rows) and the EWA kernel, which forms the
-   Jacobian from those evals itself, each against its plain version at the
-   same shapes;
+   finite-difference evals (3*oh rows), the self-contained coords kernel's
+   EWA form (cuda_coords.project_gen on an EWA plane: the same three evals
+   in one launch, with no x/y/idx input, bit-identical to ewa_stack and the
+   plain projection) and the EWA kernel, which forms the Jacobian from those
+   evals itself, each against its plain version at the same shapes;
 3c. the fused projection + sampling kernel (remap_plane_cuda(fused=True))
    and the self-contained coords kernel (cuda_coords.project_gen), each
    against its plain version at the same shapes;
@@ -26,7 +28,9 @@ exits non-zero without the final line):
    coords launch, cuda_coords.project_gen, and one sampler launch), and no
    plain version may run while a path is driven (4-4d);
 4b. the EWA path: the same 3 frames with interpolation 11, held within 1
-   code of the plain torch path, one coords and one EWA launch per plane;
+   code of the plain torch path, one coords launch (the self-contained
+   kernel's EWA form, cuda_coords.project_gen) and one EWA launch
+   per plane;
 4c. the fused path: the 3 frames' planes through remap_plane_cuda(fused=True),
    held within 1 code of the split kernels, one fused launch per plane and
    no coords or sampler launch;
@@ -36,7 +40,7 @@ exits non-zero without the final line):
 4e. the frame window: process_pixels_window over 8 timestamps of the 4K Y
    and UV planes (lanczos4; 16 coords_gen and 16 sampler launches), each frame 0
    codes from process_pixels of the same frame and frame 0 within 1 code of
-   the plain torch path; then an EWA window of 2 (4 coords and 4 EWA
+   the plain torch path; then an EWA window of 2 (4 coords_gen and 4 EWA
    launches), checked the same way;
 4f. decode -> stabilize -> encode: a seeded 8-frame 3840x2160 10-bit YUV420
    .y4m written to a temporary directory, rendered by render.renderer.render
@@ -53,7 +57,8 @@ exits non-zero without the final line):
    covers the host's wrapper work) and its plain version (CUDA events around
    each call, median of 10), and ms per frame (Y+UV) through process_pixels,
    kernel path vs plain path;
-5b. the same for EWA (the plain EWA runs 100 eager taps per pixel: 3 reps);
+5b. the same for EWA (the plain EWA runs 100 eager taps per pixel: 3 reps),
+   the stacked coords launch beside the gen kernel's EWA form;
 5c. the fused kernel against the split coords + sampler kernels, and
    project_gen against the eager output grid + coords_pre + the coords
    kernel (the kernels' timer), then the eager stage's and project_gen's
@@ -109,7 +114,7 @@ exits non-zero without the final line):
    bands over "sp", each band through remap_plane_cuda(out_rows, oy0)) on a
    2 x 2 mesh of logical shards of cuda:0: (a) phase 4e's 8 timestamps of
    the 4K Y and UV planes (16 coords_gen and 16 sampler launches a plane), (b)
-   its EWA window of 2 (4 coords and 4 EWA launches a plane), (c) 4 frames
+   its EWA window of 2 (4 coords_gen and 4 EWA launches a plane), (c) 4 frames
    of phase 9's Sony clip (the probe and the projection: 2 coords launches
    a band), each frame 0 codes from the one-device window of its phase, no
    plain version run; (d) gyroflow_torch.entry.entry() on cuda:0, 0 codes
@@ -184,6 +189,9 @@ PEAK_FP32_S = 67e12
 PROJECT_OPS = 77
 POST_OPS = 16               # fused: source-rect map 8, guard 6, tap offset 2
 GEN_PRE_OPS = 16            # gen: position 3, out-rect map 6, t2d 2, rint index 4, select 1
+# gen's EWA form: GEN_PRE_OPS, the two +eps adds, the x1 and y2 maps (3 + 1
+# each); then one probe and three projections a pixel
+GEN_EWA_PRE_OPS = 26
 # FP32 operations of each model's distort_xy (csrc/lens.cuh), counted as
 # PROJECT_OPS is: (outside its loop, per loop step). A masked loop (gopro's
 # Newton, a digital lens's fixed point: its map + 10) is counted at the
@@ -458,6 +466,7 @@ MAIN_PATH_KERNELS = {"coords": "coords_kernelILi0ELb0ELb0EE",
                      "fused<u16,C1,8>": "fused_kernelItLi1ELi8ELb0EE",
                      "fused<u16,C2,8>": "fused_kernelItLi2ELi8ELb0EE",
                      "coords_gen": "coords_gen_kernelILi0EE",
+                     "coords_gen_ewa": "coords_gen_kernel_ewaILi0EE",
                      "fused_bbox<C1,8>": "fused_bbox_kernelILi1ELi8E",
                      "fused_bbox<C2,8>": "fused_bbox_kernelILi2ELi8E",
                      "window_colsum": "window_colsum_kernel",
@@ -916,6 +925,20 @@ def lens_ops(model, digital, n_proj, steps):
     return ops
 
 
+def same_bits(k, p):
+    """Kernel and plain outputs bit-identical: the valid masks, and u, v
+    with NaN exactly where the other has NaN."""
+    import torch
+    for a, b in zip(k, p):
+        if a.dtype.is_floating_point:
+            if not torch.equal(a.isnan(), b.isnan()):
+                return False
+            a, b = (torch.where(t.isnan(), 0.0, t).view(torch.int32) for t in (a, b))
+        if not torch.equal(a, b):
+            return False
+    return True
+
+
 def compare_lens_uv(label, k, p):
     """Phase 8's check of a projection against its plain version: valid
     masks identical, the same non-finite values (a fixed point that
@@ -1038,11 +1061,10 @@ def lens_phase(dev, smi, workdir, mgr, planes, dev_planes, kernel_ms, pre_coords
         lm = lens_mgrs[key]
         sampler = "ewa" if interpolation in remap.EWA_BC else "sampler"
         n_win = EWA_WINDOW if sampler == "ewa" else WINDOW
-        # the slice's coords launch: the self-contained kernel for a plane
-        # that remap_plane_cuda routes to it
+        # the slice's coords launch: the self-contained kernel (its EWA form
+        # for EWA) for a plane that remap_plane_cuda routes to it
         cfg0 = plane_setup(lm, planes, win_ts[0], "Y", interpolation)[0]
-        coords = ("coords_gen" if sampler == "sampler" and cuda_coords.gen_admits(cfg0)
-                  else "coords")
+        coords = "coords_gen" if cuda_coords.gen_admits(cfg0) else "coords"
         counts = drive(interpolation, expect(**{coords: 2 * FRAMES, sampler: 2 * FRAMES}),
                        m=lm)
         wcounts = drive_window(interpolation, n_win,
@@ -1532,7 +1554,8 @@ def sharded_phase(dev, smi, mgr, planes, win_ts, windows, driven, expect, device
     phase(f"sharded window (b): the EWA window of {EWA_WINDOW}, interpolation {EWA_INTERP}, "
           f"on 2 x 2 shards")
     report["launches_b"] = sharded(mgr, EWA_WINDOW, EWA_INTERP, shards, "sharded window (b)",
-                                   expect(coords=bands * EWA_WINDOW, ewa=bands * EWA_WINDOW),
+                                   expect(coords_gen=bands * EWA_WINDOW,
+                                          ewa=bands * EWA_WINDOW),
                                    windows["ewa"])
     phase("sharded window (c): 4 frames of the Sony clip on 2 x 2 shards (the probe and the "
           "projection on the coords kernel: 2 launches a band)")
@@ -1881,12 +1904,27 @@ def main() -> int:
 
     # ---- 3b. EWA: stacked coords launch and EWA kernel vs plain -------------
     phase("EWA (interpolation 11): stacked coords and EWA kernel vs plain torch on the card")
-    errs.update(coords_stacked=0.0, ewa=0.0)
+    errs.update(coords_stacked=0.0, coords_gen_ewa=0.0, ewa=0.0)
     for name in ("Y", "UV"):
         x, y, idx, mats, cfg, dyn = coords_inputs(name, EWA_INTERP)
         up, vp, valp, d = check_coords(f"coords  {name:2s} stacked 3 evals", x, y, idx, mats,
                                        cfg, dyn)
         errs["coords_stacked"] = max(errs["coords_stacked"], d)
+        cf = out_cf(cfg, dyn_to_torch(dyn, dev))
+        gk = cuda_coords.project_gen(cfg, dyn, mats, cfg.out_buffer[1], 0, *cf)
+        torch.cuda.synchronize()
+        # bit-identical by design: the +eps evals differ from the base eval
+        # by EWA_EPS * du/dx, about 0.01-0.03 px, so a tolerance in px could
+        # not tell a kernel that dropped eps from one that adds it
+        same = same_bits(gk, (up, vp, valp))
+        both = gk[2] & valp
+        d = max(float((a - b).abs()[both].max()) for a, b in zip(gk[:2], (up, vp)))
+        print(f"gen ewa {name:2s} 3 evals ({gk[0].shape[0]}x{gk[0].shape[1]}, "
+              f"{mats.shape[0]} RS rows) vs ewa_stack + plain projection: max|d| {d:.3g} px "
+              f"over valid pixels, bit-identical {same} (limit: identical)")
+        check(same, f"gen ewa {name}: the stacked evals differ from ewa_stack + project_plain")
+        errs["coords_gen_ewa"] = max(errs["coords_gen_ewa"], d)
+        shapes[f"gen ewa {name}"] = (cfg, dyn, mats, cf)
         u3, v3 = remap.coords_post_uv(up, vp, cfg)
         oh = u3.shape[0] // 3
         u, v = u3[:oh], v3[:oh]       # background mode 0: the base eval's rows
@@ -2010,7 +2048,7 @@ def main() -> int:
 
     # ---- 4b. the EWA path through the manager -------------------------------
     phase("EWA path: process_pixels, 3 frames of 4K 10-bit YUV420, interpolation 11")
-    launches_ewa = drive(EWA_INTERP, expect(coords=2 * FRAMES, ewa=2 * FRAMES))
+    launches_ewa = drive(EWA_INTERP, expect(coords_gen=2 * FRAMES, ewa=2 * FRAMES))
 
     # ---- 4c. the fused path ------------------------------------------------
     phase("fused path: remap_plane_cuda(fused=True), the 3 frames' Y and UV planes, lanczos4")
@@ -2096,7 +2134,7 @@ def main() -> int:
                                    keep=windows["lanczos4"])
     phase(f"EWA frame window: process_pixels_window, {EWA_WINDOW} timestamps, interpolation 11")
     launches_window_ewa = drive_window(EWA_INTERP, EWA_WINDOW,
-                                       expect(coords=2 * EWA_WINDOW, ewa=2 * EWA_WINDOW),
+                                       expect(coords_gen=2 * EWA_WINDOW, ewa=2 * EWA_WINDOW),
                                        keep=windows["ewa"])
 
     # ---- 4f. decode -> stabilize -> encode -----------------------------------
@@ -2159,7 +2197,7 @@ def main() -> int:
           "coords kernel")
     st_dir = work / "stmaps"
     t0 = time.perf_counter()
-    with driven("export_stmaps", expect(coords=1), frames=1):
+    with driven("export_stmaps", expect(coords=1), frames=1) as launches_stmap:
         stmap.export_stmaps(mgr, str(st_dir), single_frame=True, ext=".npy")
     files = sorted(f.name for f in st_dir.iterdir())
     und = np.load(st_dir / next(f for f in files if "undistort" in f))
@@ -2224,12 +2262,20 @@ def main() -> int:
 
     # ---- 5b. EWA times -------------------------------------------------------
     phase(f"EWA times on {smi}")
-    times.update(coords_stacked=[0.0, 0.0], ewa=[0.0, 0.0])
+    times.update(coords_stacked=[0.0, 0.0], coords_gen_ewa=[0.0, 0.0], ewa=[0.0, 0.0])
     for name in ("Y", "UV"):
         x, y, idx, mats, cfg, dyn, u3, v3, valp, img, bg, coeffs = shapes[f"ewa {name}"]
         u, v = u3[:u3.shape[0] // 3], v3[:v3.shape[0] // 3]
         ck = kernel_ms(lambda: cuda_coords.project(x, y, idx, mats, cfg, dyn))
         cp = cuda_ms(lambda: cuda_coords.project_plain(x, y, idx, mats, cfg, dyn))
+        _, _, _, cf = shapes[f"gen ewa {name}"]
+        oh = cfg.out_buffer[1]
+        gk = kernel_ms(lambda: cuda_coords.project_gen(cfg, dyn, mats, oh, 0, *cf))
+        gp = cuda_ms(lambda: cuda_coords.project_gen_plain(cfg, dyn, mats, oh, 0, *cf))
+        print(f"{name:2s} gen ewa (3 evals of {oh}x{x.shape[1]}) kernel {gk:.4f} ms  "
+              f"plain {gp:.4f} ms")
+        times["coords_gen_ewa"][0] += gk
+        times["coords_gen_ewa"][1] += gp
         ek = kernel_ms(lambda: cuda_ewa.sample(img, u, v, u3, v3, valp, bg, cfg.src_rect,
                                              coeffs, MAXV))
         ep = cuda_ms(lambda: cuda_ewa.sample_plain(img, u, v, u3, v3, valp, bg, cfg.src_rect,
@@ -2420,7 +2466,8 @@ def main() -> int:
                                       "device_ms_per_frame": dev_ms, "top": rows[:10]}
 
     # ---- bounds at this run's inputs (Y + UV launches of one frame) ----------
-    bounds = {k: [] for k in ("coords", "sampler", "ewa", "fused", "coords_gen")}
+    bounds = {k: [] for k in ("coords", "sampler", "ewa", "fused", "coords_gen",
+                              "coords_gen_ewa")}
     for name in ("Y", "UV"):
         x, y, idx, mats, cfg, dyn, u, v, valp, img, bg = shapes[name]
         n_px, n_valid, C = x.numel(), int(valp.sum()), img.shape[2]
@@ -2433,6 +2480,9 @@ def main() -> int:
         gcfg, gdyn, gmats, _, _ = shapes[f"gen {name}"]
         bounds["coords_gen"].append((gmats.numel() * 4 + n_px * 9,
                                      n_px * (GEN_PRE_OPS + 2 * PROJECT_OPS)))
+        # the EWA form: three evals' u, v, valid; one probe, three projections
+        bounds["coords_gen_ewa"].append((gmats.numel() * 4 + n_px * 3 * 9,
+                                         n_px * (GEN_EWA_PRE_OPS + 4 * PROJECT_OPS)))
         _, _, _, _, _, _, u3, v3, valp, img, _, _ = shapes[f"ewa {name}"]
         u, v, valid, jac = remap.ewa_jacobian(u3, v3, valp)
         taps, tap_rows, weighted = ewa_bbox_taps(u, v, jac, valid)
@@ -2465,7 +2515,7 @@ def main() -> int:
 
     kernels = [
         entry("coords", "gyroflow_torch/csrc/coords.cu", "gyroflow_tpu/ops/pallas_coords.py:68",
-              launches_ewa["coords"]),
+              launches_stmap["coords"]),
         entry("sampler", "gyroflow_torch/csrc/sampler.cu",
               "gyroflow_tpu/ops/pallas_sampler.py:471", launches["sampler"]),
         entry("ewa", "gyroflow_torch/csrc/ewa.cu", "gyroflow_tpu/ops/pallas_sampler.py:715",
@@ -2475,6 +2525,10 @@ def main() -> int:
         entry("coords_gen", "gyroflow_torch/csrc/coords.cu",
               "gyroflow_tpu/ops/pallas_coords.py:257",
               launches["coords_gen"] + launches_gen["coords_gen"]),
+        # the JAX EWA path projects its stacked evals with _coords_call
+        # (remap.py:773-796), not with the gen kernel
+        entry("coords_gen_ewa", "gyroflow_torch/csrc/coords.cu",
+              "gyroflow_tpu/ops/pallas_coords.py:68", launches_ewa["coords_gen"]),
     ]
 
     # ---- 7. the experiments' kernels (TPU kernels 6-11) ----------------------

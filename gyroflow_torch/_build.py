@@ -191,6 +191,9 @@ def lib() -> ctypes.CDLL:
             L.gf_coords_gen.argtypes = [vp, ci, CoordParams, ci, ci, GenArgs, ci, ci, vp, vp, vp,
                                         vp]
             L.gf_coords_gen.restype = ci
+            L.gf_coords_gen_ewa.argtypes = [vp, ci, CoordParams, ci, ci, GenArgs,
+                                            ctypes.c_float, ci, ci, ci, vp, vp, vp, vp]
+            L.gf_coords_gen_ewa.restype = ci
             L.gf_fused_bbox.argtypes = [vp, ci, ci, ci, vp, vp, vp, vp, ci, CoordParams, ci, ci,
                                         ci, ci, ci, ci, vp, FusedArgs, vp, vp, vp, vp]
             L.gf_fused_bbox.restype = ci

@@ -97,6 +97,20 @@
 // row keeping the probe's result (3% slower: the branch diverges, and the
 // probe must then keep both coordinates). One thread a pixel on 32x8
 // blocks, as before.
+//
+// gf_coords_gen_ewa (coords_gen_kernel_ewa) is its EWA form: the base eval
+// and the two +eps evals of remap.ewa_stack, stacked as one gf_coords launch
+// over ewa_stack's (3 * oh, ow) x, y, idx would write them. In place of
+// three eager coords_pre passes, their concatenation and the stacked
+// launch (63 B a pixel: x, y, idx in and u, v, valid out, for each eval),
+// it reads nothing per pixel and writes 27 B. Being issue-bound like its
+// one-eval form, it shares what the evals share: one out-rect position and
+// one probe (the +eps evals take the base eval's row by default,
+// ewa_stack's rs_idx), one load of the selected row, and the x (y) map of
+// the y (x) eval; the three projections are what is left. On 4K Y+UV it
+// takes 0.2815 ms, the stacked gf_coords launch alone 0.2951 (NVIDIA H100
+// 80GB HBM3, 700.00 W: PERF.md). The ewa_ref_jac mode (a probe per eval)
+// is a launch-uniform branch, not another instantiation.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -195,6 +209,40 @@ __device__ __forceinline__ int probe_row(float x, float y, const float* mc,
     return rint_index(pvalid ? (HORIZONTAL ? pu : pv) : (HORIZONTAL ? x : y), lim);
 }
 
+// The rolling-shutter row of the point (x, y) (remap.py:205-217): the probe
+// through the centre matrix row, then min(where(pvalid, clip(rint(probe)),
+// clip(rint(fallback))), rows - 1).
+template <int MODEL>
+__device__ __forceinline__ int gen_row(float x, float y, const float* __restrict__ mats, int rows,
+                                       bool aligned8, const gf::CoordParams& p, int flags,
+                                       float lim) {
+    const bool horizontal = flags & gf::HORIZONTAL_RS;
+    int sy;
+    if (rows > 1) {
+        float mc[14];
+        gf::load_matrix_row(mats + (long long)(rows / 2) * 14, aligned8, mc);
+        sy = horizontal ? probe_row<MODEL, true>(x, y, mc, p, flags, lim)
+                        : probe_row<MODEL, false>(x, y, mc, p, flags, lim);
+    } else {
+        sy = rint_index(horizontal ? x : y, lim);
+    }
+    return sy < rows - 1 ? sy : rows - 1;
+}
+
+// The projection of (x, y) through matrix row m, written at j.
+template <int MODEL>
+__device__ __forceinline__ void project_store(float x, float y, const float* m,
+                                              const gf::CoordParams& p, int flags, long long j,
+                                              float* __restrict__ us, float* __restrict__ vs,
+                                              uint8_t* __restrict__ valid_out) {
+    float u, v;
+    bool valid;
+    gf::project_point<MODEL, false>(x, y, m, p, flags, u, v, valid);
+    us[j] = u;
+    vs[j] = v;
+    valid_out[j] = valid ? 1 : 0;
+}
+
 template <int MODEL>
 __global__ void coords_gen_kernel(const float* __restrict__ mats, int rows, gf::CoordParams p,
                                   int flags, GenArgs g, int out_rows, int ow,
@@ -216,28 +264,57 @@ __global__ void coords_gen_kernel(const float* __restrict__ mats, int rows, gf::
     const float x = ((ox - g.map_x[0]) * g.map_x[1]) * g.map_x[2] + g.t2d[0];
     const float y = ((oy - g.map_y[0]) * g.map_y[1]) * g.map_y[2] + g.t2d[1];
 
-    // rolling-shutter row select (remap.py:205-217)
-    const bool horizontal = flags & gf::HORIZONTAL_RS;
     const bool aligned8 = (reinterpret_cast<uintptr_t>(mats) & 7) == 0;
-    int sy;
-    if (rows > 1) {
-        float mc[14];
-        gf::load_matrix_row(mats + (long long)(rows / 2) * 14, aligned8, mc);
-        sy = horizontal ? probe_row<MODEL, true>(x, y, mc, p, flags, g.lim)
-                        : probe_row<MODEL, false>(x, y, mc, p, flags, g.lim);
-    } else {
-        sy = rint_index(horizontal ? x : y, g.lim);
-    }
-    const int r = sy < rows - 1 ? sy : rows - 1;
-
+    const int r = gen_row<MODEL>(x, y, mats, rows, aligned8, p, flags, g.lim);
     float m[14];
     gf::load_matrix_row(mats + (long long)r * 14, aligned8, m);
-    float u, v;
-    bool valid;
-    gf::project_point<MODEL, false>(x, y, m, p, flags, u, v, valid);
-    us[i] = u;
-    vs[i] = v;
-    valid_out[i] = valid ? 1 : 0;
+    project_store<MODEL>(x, y, m, p, flags, i, us, vs, valid_out);
+}
+
+// The EWA form (remap.ewa_stack, remap.py:783-794): each thread computes its
+// pixel's base eval and the +eps evals in x and in y, written at i, n + i
+// and 2n + i (n = out_rows * ow), the stacked (3 * out_rows, ow) layout of
+// one gf_coords launch over ewa_stack's x, y, idx. ox + eps and oy + eps
+// are float32 adds, as torch adds a Python scalar. In the default same-row
+// mode the +eps evals take the base eval's row (coords_pre's rs_idx): one
+// probe and one row load serve three projections, and y (x) of the x (y)
+// eval is the base eval's. With ref_jac (KernelConfig.ewa_ref_jac, uniform
+// over the launch) each +eps eval probes its own row, as coords_pre does
+// without rs_idx.
+template <int MODEL>
+__global__ void coords_gen_kernel_ewa(const float* __restrict__ mats, int rows,
+                                      gf::CoordParams p, int flags, GenArgs g, float eps,
+                                      int ref_jac, int out_rows, int ow,
+                                      float* __restrict__ us, float* __restrict__ vs,
+                                      uint8_t* __restrict__ valid_out) {
+    const int col = blockIdx.x * blockDim.x + threadIdx.x;
+    const int row = blockIdx.y * blockDim.y + threadIdx.y;
+    if (col >= ow || row >= out_rows) return;
+    const long long n = (long long)out_rows * ow;
+    const long long i = (long long)row * ow + col;
+
+    const float ox = static_cast<float>(col) + g.pos_d[0];
+    const float oy = static_cast<float>(g.oy0 + row) + g.pos_d[1];
+    const float x0 = ((ox - g.map_x[0]) * g.map_x[1]) * g.map_x[2] + g.t2d[0];
+    const float y0 = ((oy - g.map_y[0]) * g.map_y[1]) * g.map_y[2] + g.t2d[1];
+    const float x1 = (((ox + eps) - g.map_x[0]) * g.map_x[1]) * g.map_x[2] + g.t2d[0];
+    const float y2 = (((oy + eps) - g.map_y[0]) * g.map_y[1]) * g.map_y[2] + g.t2d[1];
+
+    const bool aligned8 = (reinterpret_cast<uintptr_t>(mats) & 7) == 0;
+    float m[14];
+    int r = gen_row<MODEL>(x0, y0, mats, rows, aligned8, p, flags, g.lim);
+    gf::load_matrix_row(mats + (long long)r * 14, aligned8, m);
+    project_store<MODEL>(x0, y0, m, p, flags, i, us, vs, valid_out);
+    if (ref_jac) {
+        r = gen_row<MODEL>(x1, y0, mats, rows, aligned8, p, flags, g.lim);
+        gf::load_matrix_row(mats + (long long)r * 14, aligned8, m);
+    }
+    project_store<MODEL>(x1, y0, m, p, flags, n + i, us, vs, valid_out);
+    if (ref_jac) {
+        r = gen_row<MODEL>(x0, y2, mats, rows, aligned8, p, flags, g.lim);
+        gf::load_matrix_row(mats + (long long)r * 14, aligned8, m);
+    }
+    project_store<MODEL>(x0, y2, m, p, flags, 2 * n + i, us, vs, valid_out);
 }
 
 // The launches of each entry point, for gf::with_model: run<M>() launches
@@ -304,14 +381,25 @@ struct CoordsGenLaunch {
     int out_rows, ow;
     void *u, *v, *valid;
     cudaStream_t s;
+    bool ewa;           // coords_gen_kernel_ewa with eps and ref_jac
+    float eps;
+    int ref_jac;
 
     template <int M>
     void run() const {
         const dim3 block(32, 8);
         const dim3 grid((ow + block.x - 1) / block.x, (out_rows + block.y - 1) / block.y);
-        coords_gen_kernel<M><<<grid, block, 0, s>>>(
-            static_cast<const float*>(mats), rows, *p, flags, *g, out_rows, ow,
-            static_cast<float*>(u), static_cast<float*>(v), static_cast<uint8_t*>(valid));
+        const auto* mf = static_cast<const float*>(mats);
+        auto* uf = static_cast<float*>(u);
+        auto* vf = static_cast<float*>(v);
+        auto* vo = static_cast<uint8_t*>(valid);
+        if (ewa) {
+            coords_gen_kernel_ewa<M><<<grid, block, 0, s>>>(mf, rows, *p, flags, *g, eps, ref_jac,
+                                                            out_rows, ow, uf, vf, vo);
+        } else {
+            coords_gen_kernel<M><<<grid, block, 0, s>>>(mf, rows, *p, flags, *g, out_rows, ow, uf,
+                                                        vf, vo);
+        }
     }
 };
 
@@ -344,7 +432,20 @@ extern "C" int gf_coords_gen(const void* mats, int rows, gf::CoordParams params,
                              int model, GenArgs args, int out_rows, int ow, void* u, void* v,
                              void* valid, void* stream) {
     const CoordsGenLaunch l{mats, rows, &params, flags, &args, out_rows, ow, u, v, valid,
-                            static_cast<cudaStream_t>(stream)};
+                            static_cast<cudaStream_t>(stream), false, 0.0f, 0};
+    if (!gf::with_model(model, l)) return -1;
+    return static_cast<int>(cudaGetLastError());
+}
+
+// The EWA form: u, v: float32 (3 * out_rows, ow); valid: uint8/bool
+// (3 * out_rows, ow), the base eval's rows, then the +eps evals' in x, then
+// in y. eps: remap.EWA_EPS as float32; ref_jac: nonzero for a row probe
+// per eval. Otherwise as gf_coords_gen.
+extern "C" int gf_coords_gen_ewa(const void* mats, int rows, gf::CoordParams params, int flags,
+                                 int model, GenArgs args, float eps, int ref_jac, int out_rows,
+                                 int ow, void* u, void* v, void* valid, void* stream) {
+    const CoordsGenLaunch l{mats, rows, &params, flags, &args, out_rows, ow, u, v, valid,
+                            static_cast<cudaStream_t>(stream), true, eps, ref_jac};
     if (!gf::with_model(model, l)) return -1;
     return static_cast<int>(cudaGetLastError());
 }

@@ -19,17 +19,22 @@ the grid and the host-side spline constants.
 self-contained form behind ``project_tiles_gen``) with ``gf_coords_gen``:
 no x/y/idx input, the kernel builds each pixel's output position, runs
 coords_pre's out-rect map and translation2d, the rolling-shutter probe and
-row select, then the projection. ``project_gen_plain`` is ``remap.coords_pre``
-plus ``project_plain`` on the same grid. It takes every main model; as in
-the JAX package it refuses lens correction, mesh and digital lenses
-(``gen_admits``). ``remap.remap_plane_cuda`` calls it for every plane it
-admits that is neither EWA nor fused, in place of the output grid, the
-eager ``coords_pre`` and ``project``.
+row select, then the projection. For an EWA configuration (interpolation
+10-13) it computes EWA's stacked evals (``gf_coords_gen_ewa``): the base
+eval and both +eps evals of ``remap.ewa_stack`` in one launch, one probe and
+one row load serving the three projections. ``project_gen_plain`` is ``remap.coords_pre`` (or
+``remap.ewa_stack``) plus ``project_plain`` on the same grid. It takes
+every main model; as in the JAX package it refuses lens correction, mesh and
+digital lenses (``gen_admits``). ``remap.remap_plane_cuda`` calls it for
+every plane it admits that is not fused, EWA included, in place of the
+output grid, the eager ``coords_pre`` (or ``ewa_stack``) and ``project``.
 
 Each wrapper checks its inputs, then runs its plain version for CPU tensors
 only; for CUDA tensors it launches its kernel or raises. ``project.launches``
-and ``project_gen.launches`` count kernel launches; both wrappers add the
-positions they project to the tracer's ``gf.coords.points``, on any device.
+and ``project_gen.launches`` count kernel launches (either form of the gen
+kernel); both wrappers add the positions they project to the tracer's
+``gf.coords.points``, on any device, and ``project_gen`` adds each EWA
+plane to ``gf.coords.gen_ewa_planes``.
 """
 from __future__ import annotations
 
@@ -270,12 +275,14 @@ def _gen_grid(cfg: KernelConfig, out_rows: int, oy0: int, device):
 
 def project_gen_plain(cfg: KernelConfig, dyn: KernelDynamics, matrices, out_rows: int,
                       oy0: int, out_c, out_f, pos_dx: float = 0.0, pos_dy: float = 0.0):
-    """Plain torch: remap.coords_pre on the (out_rows, ow) band's output
-    positions (+ pos_dx, pos_dy), then the projection. Returns u, v float32
-    and valid bool, before coords_post_uv."""
+    """Plain torch: remap.coords_pre (for EWA, remap.ewa_stack) on the
+    (out_rows, ow) band's output positions (+ pos_dx, pos_dy), then the
+    projection. Returns u, v float32 and valid bool, before coords_post_uv:
+    (out_rows, ow), or (3 * out_rows, ow) for EWA."""
     dyn_t = dyn_to_torch(dyn, matrices.device)
     oy, ox = _gen_grid(cfg, out_rows, oy0, matrices.device)
-    x, y, idx = remap.coords_pre(ox + pos_dx, oy + pos_dy, matrices, cfg, dyn_t, out_c, out_f)
+    pre = remap.ewa_stack if cfg.interpolation in remap.EWA_BC else remap.coords_pre
+    x, y, idx = pre(ox + pos_dx, oy + pos_dy, matrices, cfg, dyn_t, out_c, out_f)
     return remap.rotate_and_distort(x, y, idx, matrices, cfg, dyn_t)
 
 
@@ -334,11 +341,21 @@ def project_gen(cfg: KernelConfig, dyn: KernelDynamics, matrices, out_rows: int,
     layout). matrices (rows, 14) float32 on the target device; dyn with host
     numpy leaves; out_c, out_f as remap builds them, read only by the plain
     version's lens-correction blend, which the kernel refuses (so None will
-    do). Returns u, v float32 and valid bool, before
-    coords_post_uv. Raises ValueError for lens correction, mesh and digital
-    lenses, which the kernel does not compute."""
+    do). Returns u, v float32 and valid bool, before coords_post_uv.
+
+    For EWA (interpolation 10-13), the stacked evals
+    (``gf_coords_gen_ewa``): the base eval and the +eps evals in x and in y
+    of ``remap.ewa_stack``, stacked along rows as (3 * out_rows, ow), with
+    the bits of ewa_stack and ``project``; each such call adds 1 to the
+    tracer's ``gf.coords.gen_ewa_planes``.
+
+    Raises ValueError for lens correction, mesh and digital lenses, which
+    the kernel does not compute."""
     _check_gen(cfg, matrices, out_rows, oy0)
-    trace.count("gf.coords.points", out_rows * cfg.out_buffer[0])
+    evals = 3 if cfg.interpolation in remap.EWA_BC else 1
+    trace.count("gf.coords.points", evals * out_rows * cfg.out_buffer[0])
+    if evals == 3:
+        trace.count("gf.coords.gen_ewa_planes", 1)
     if matrices.device.type == "cpu":
         return project_gen_plain(cfg, dyn, matrices, out_rows, oy0, out_c, out_f, pos_dx, pos_dy)
     if matrices.device.type != "cuda":
@@ -346,18 +363,22 @@ def project_gen(cfg: KernelConfig, dyn: KernelDynamics, matrices, out_rows: int,
     from .._build import lib
 
     ow = cfg.out_buffer[0]
-    u = torch.empty((out_rows, ow), dtype=torch.float32, device=matrices.device)
+    u = torch.empty((evals * out_rows, ow), dtype=torch.float32, device=matrices.device)
     v = torch.empty_like(u)
     valid = torch.empty(u.shape, dtype=torch.bool, device=u.device)
     if u.numel() == 0:
         return u, v, valid
     L = lib()
+    args = (matrices.data_ptr(), matrices.shape[0], coord_params(cfg, dyn), int(cfg.flags),
+            lens_ids(cfg)[0], gen_args(cfg, dyn, oy0, pos_dx, pos_dy))
+    outs = (out_rows, ow, u.data_ptr(), v.data_ptr(), valid.data_ptr())
     with torch.cuda.device(u.device):
-        err = L.gf_coords_gen(matrices.data_ptr(), matrices.shape[0], coord_params(cfg, dyn),
-                              int(cfg.flags), lens_ids(cfg)[0],
-                              gen_args(cfg, dyn, oy0, pos_dx, pos_dy),
-                              out_rows, ow, u.data_ptr(), v.data_ptr(), valid.data_ptr(),
-                              torch.cuda.current_stream(u.device).cuda_stream)
+        stream = torch.cuda.current_stream(u.device).cuda_stream
+        if evals == 3:
+            err = L.gf_coords_gen_ewa(*args, float(np.float32(remap.EWA_EPS)),
+                                      int(bool(cfg.ewa_ref_jac)), *outs, stream)
+        else:
+            err = L.gf_coords_gen(*args, *outs, stream)
     if err != 0:
         raise RuntimeError(f"coords gen kernel launch failed: cudaError {err}")
     project_gen.launches += 1

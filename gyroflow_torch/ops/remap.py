@@ -13,10 +13,11 @@ Two entry points share one body (``_remap``):
   ``cuda_ewa.sample`` for EWA, which forms the Jacobian from the stacked
   evals itself), and the finish in torch. A plane that the self-contained
   coords kernel computes (``cuda_coords.gen_admits``: no lens-correction
-  blend, mesh or digital lens), and that is neither EWA nor fused, takes
-  one ``cuda_coords.project_gen`` launch, which builds its output positions
-  and runs ``coords_pre`` itself; every other plane takes torch
-  ``coords_pre``, then the coords kernel (``cuda_coords.project``). It is
+  blend, mesh or digital lens), and that is not fused, takes one
+  ``cuda_coords.project_gen`` launch, which builds its output positions
+  and runs ``coords_pre`` itself (for EWA, ``ewa_stack``'s three evals);
+  every other plane takes torch ``coords_pre`` (or ``ewa_stack``), then the
+  coords kernel (``cuda_coords.project``). It is
   the counterpart of ``remap_plane_pallas`` without the TPU's window
   ladder: one thread per output pixel reads its matrix row and its taps
   directly, so there is no window to overflow. With ``fused=True``
@@ -37,7 +38,8 @@ torch, ``cuda_overlay.overlay`` on a card.
 EWA (interpolation 10-13) needs the finite-difference Jacobian of the
 source coordinates: both entry points stack the base eval and the two
 +eps evals into one (3*oh, ow) projection call (``ewa_stack``), as
-remap_plane_pallas does (remap.py:783-802), and sample with the EWA stencil
+remap_plane_pallas does (remap.py:783-802); on the "gen" route the coords
+kernel computes the stacked evals itself. Both sample with the EWA stencil
 at the JAX package's top cap, ``EWA_CAP = 4`` (a 10x10 stencil). The plain
 path forms the Jacobian with ``ewa_jacobian``, the spec; the EWA kernel
 forms it from the same stacked evals in the same order.
@@ -47,6 +49,7 @@ the functions move it to the image's device themselves.
 """
 from __future__ import annotations
 
+import contextlib
 import math
 from typing import Tuple
 
@@ -679,16 +682,17 @@ def _remap(img, matrices, cfg: KernelConfig, dyn_t: KernelDynamics, project, sam
     (3*rows, ow) (u3, v3, valid3) after coords_post_uv for EWA and None
     otherwise. fused(x, y, idx) -> (rows, ow, C), if given, replaces project,
     coords_post_uv and sample (remap.py:720-730). gen() -> (u, v, valid), if
-    given, replaces coords_pre and project: the band's output positions
-    projected in one call (cuda_coords.project_gen). mesh and probe go to
+    given, replaces coords_pre (ewa_stack for EWA) and project: the band's
+    output positions projected in one call (cuda_coords.project_gen; for
+    EWA the stacked (3*rows, ow) evals). mesh and probe go to
     coords_pre. overlay(pixel, u, v, ox, oy) -> pixel, if given, is the
     drawing epilogue after the colour-range step (remap.py:1004-1007).
     out_rows, oy0: only output rows oy0 .. oy0 + out_rows (the whole plane
     when out_rows is None); every coordinate stays in absolute output
     space, so the bands of a plane assemble into the plane (remap.py:678).
     The first gf.eager span's note names the route: "gen" or "pre"; on an
-    EWA plane its span gf.ewa.stack holds ewa_stack (remap_plane_cuda's
-    gf.ewa.sample holds the EWA launch)."""
+    EWA plane its span gf.ewa.stack holds ewa_stack, or on the "gen" route
+    the gen call (remap_plane_cuda's gf.ewa.sample holds the EWA launch)."""
     dev = img.device
     C = img.shape[-1]
     bg = (dyn_t.background * dyn_t.max_pixel_value)[:C]
@@ -707,7 +711,8 @@ def _remap(img, matrices, cfg: KernelConfig, dyn_t: KernelDynamics, project, sam
                                 indexing="ij")
         if gen is not None:
             span.note("gen")
-            projected = [gen()]
+            with trace.span("gf.ewa.stack") if is_ewa else contextlib.nullcontext():
+                projected = [gen()]
         else:
             span.note("pre")
             factor = torch.clamp_min(1.0 - dyn_t.lens_correction_amount, 0.001)
@@ -871,12 +876,13 @@ def remap_plane_cuda(img, matrices, cfg: KernelConfig, dyn: KernelDynamics, mesh
     and one sampling launch per sample (two in background mode 3); a mesh
     frame adds one coords launch for its rolling-shutter probe, and the
     drawing overlay one overlay launch. The coords launch of a plane that
-    ``cuda_coords.gen_admits``, other than EWA and fused, is
+    ``cuda_coords.gen_admits``, other than fused, is
     ``cuda_coords.project_gen``: the output grid's positions, ``coords_pre``
     and the projection in one, with the bits of the eager ``coords_pre``
-    and ``cuda_coords.project``. With ``fused=True``, a plane that
-    ``use_fused`` admits takes one fused launch instead of the coords and
-    sampler launches; any other plane (mesh and drawing among them) takes
+    and ``cuda_coords.project``; for EWA the three stacked evals with the
+    bits of ``ewa_stack`` and ``cuda_coords.project``. With ``fused=True``,
+    a plane that ``use_fused`` admits takes one fused launch instead of the
+    coords and sampler launches; any other plane (mesh and drawing among them) takes
     the split path, as remap_plane_pallas does. The frame's mesh buffer may
     be in the reference layout or packed (``cuda_coords.pack_mesh``), on the
     host or on the card: a buffer that is not packed is packed here and put
@@ -926,7 +932,7 @@ def remap_plane_cuda(img, matrices, cfg: KernelConfig, dyn: KernelDynamics, mesh
     if fused and use_fused(cfg, matrices, drawing):
         def fuse(x, y, idx):
             return cuda_fused.remap_fused(img, x, y, idx, matrices, cfg, dyn, bg, limit)
-    elif cfg.interpolation not in EWA_BC and cuda_coords.gen_admits(cfg):
+    elif cuda_coords.gen_admits(cfg):
         def gen():
             # out_c, out_f: read only by the lens-correction blend, which
             # gen_admits rules out

@@ -12,7 +12,9 @@ stream, at the call site and on any device, so a CPU run counts what a card
 would. Named counters (``trace.count(name, n)``, read by ``counts()``) add n
 to the counter ``name`` the same way: ``gf.coords.points`` counts the
 positions each coords-kernel launch projects (``ops/cuda_coords.py``), at the
-call, so the plain version on the CPU counts what the kernel would. A count
+call, so the plain version on the CPU counts what the kernel would, and
+``gf.coords.gen_ewa_planes`` the EWA planes whose stacked evals take the
+self-contained coords kernel. A count
 of either kind is recorded on the innermost open span of its thread, in that
 span's record (``syncs``, ``counts``), so it sits at the boundary where the
 work happens; a count outside any span is kept in the total alone.

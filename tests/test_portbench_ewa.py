@@ -195,7 +195,10 @@ def test_traced_route_spans_and_coords_points(monkeypatch, tmp_path, name):
     data = traced_preview(name, tmp_path)
     totals = program_trace.totals()
     frame_points = W * H + (W // 2) * (H // 2)
-    assert program_trace.counts() == {"gf.coords.points": POINTS[name] * frame_points * data.frames}
+    counts = {"gf.coords.points": POINTS[name] * frame_points * data.frames}
+    if name == CELL:    # each plane's stacked evals on the gen kernel's EWA form
+        counts["gf.coords.gen_ewa_planes"] = 2 * data.frames
+    assert program_trace.counts() == counts
     values = {m: harness.load_reader(m)(data) for m in NEW_READERS}
     assert values["coords_points_per_frame.preview"] == pytest.approx(
         POINTS[name] * frame_points / 1e6)
@@ -208,12 +211,11 @@ def test_traced_route_spans_and_coords_points(monkeypatch, tmp_path, name):
         recs = {r.id: r for r in program_trace.records()}
         for r in recs.values():
             if r.name == "gf.ewa.stack":
-                assert recs[r.parent].name == "gf.eager" and recs[r.parent].note == "pre"
+                assert recs[r.parent].name == "gf.eager" and recs[r.parent].note == "gen"
             if r.name == "gf.ewa.sample":
                 assert recs[r.parent].name == "gf.process_pixels"
-        # the stacked launch's count sits on the span open around it
-        assert totals["gf.process_pixels"].counts == {
-            "gf.coords.points": 3 * frame_points * data.frames}
+        # the stacked launch's counts sit on the span open around it
+        assert totals["gf.ewa.stack"].counts == counts
     else:
         assert not {"gf.ewa.stack", "gf.ewa.sample"} & set(totals)
         assert values["ewa_stack_ms.preview"] is None and values["ewa_sample_ms.preview"] is None

@@ -481,10 +481,13 @@ def test_remap_plane_cuda_ewa_vs_plain(dev, plane, bg_mode, ref_jac):
                                 ewa_ref_jac=ref_jac)
     timg = torch.from_numpy(img).to(dev)
     m = torch.from_numpy(mats).to(dev)
-    n_coords, n_ewa = cuda_coords.project.launches, cuda_ewa.sample.launches
+    n_coords = (cuda_coords.project_gen.launches, cuda_coords.project.launches)
+    n_ewa = cuda_ewa.sample.launches
     got = remap.remap_plane_cuda(timg, m, cfg, dyn, out_dtype="uint16")
-    # one stacked coords launch per plane; one EWA launch per sample
-    assert cuda_coords.project.launches == n_coords + 1
+    # one launch of the stacked evals per plane (the fisheye: the gen
+    # kernel's EWA form); one EWA launch per sample
+    assert (cuda_coords.project_gen.launches, cuda_coords.project.launches) == \
+        (n_coords[0] + 1, n_coords[1])
     assert cuda_ewa.sample.launches == n_ewa + (2 if bg_mode == 3 else 1)
     want = remap.remap_plane(timg, m, cfg, dyn, out_dtype="uint16")
     assert got.dtype == torch.uint16 and got.device.type == "cuda"
@@ -1042,12 +1045,13 @@ def test_window_vs_per_frame_on_the_card(dev, tmp_path, plane, dtype, interpolat
     kw = dict(interpolation=interpolation, plane_index=0 if plane == "Y" else 1,
               max_pixel_value=maxv, plane_rects=True)
     sample = cuda_ewa.sample if interpolation > 8 else cuda_sampler.sample
-    # the fisheye plane's coords launch: the self-contained kernel, but for EWA
-    coords = cuda_coords.project if interpolation > 8 else cuda_coords.project_gen
-    n0 = (coords.launches, sample.launches)
+    # the fisheye plane's coords launch: the self-contained kernel (its EWA
+    # form for EWA), never the coords kernel
+    n0 = (cuda_coords.project_gen.launches, sample.launches, cuda_coords.project.launches)
     out, info = m.process_pixels_window(ts, frames, None, **kw)
     torch.cuda.synchronize()
-    assert (coords.launches - n0[0], sample.launches - n0[1]) == (2, 2)
+    assert (cuda_coords.project_gen.launches - n0[0], sample.launches - n0[1],
+            cuda_coords.project.launches - n0[2]) == (2, 2, 0)
     assert info["backend"] == "cuda-window"
     assert out.dtype == getattr(torch, dtype) and out.device == dev
     assert tuple(out.shape) == frames.shape
@@ -1403,13 +1407,13 @@ def test_sharded_window_on_the_card(dev, tmp_path, plane, dtype, interpolation):
     kw = dict(interpolation=interpolation, plane_index=0 if plane == "Y" else 1,
               max_pixel_value=maxv, plane_rects=True)
     sample = cuda_ewa.sample if interpolation > 8 else cuda_sampler.sample
-    coords = cuda_coords.project if interpolation > 8 else cuda_coords.project_gen
     one, _ = m.process_pixels_window(ts, frames, None, **kw)
-    n0 = (coords.launches, sample.launches)
+    n0 = (cuda_coords.project_gen.launches, sample.launches, cuda_coords.project.launches)
     out, info = m.process_pixels_window(ts, frames, make_frame_mesh(devices=[dev] * 4, sp=2),
                                         **kw)
     torch.cuda.synchronize()
-    assert (coords.launches - n0[0], sample.launches - n0[1]) == (4, 4)
+    assert (cuda_coords.project_gen.launches - n0[0], sample.launches - n0[1],
+            cuda_coords.project.launches - n0[2]) == (4, 4, 0)
     assert info["backend"] == "cuda-sharded" and out.device == dev
     assert torch.equal(out, one)
 
@@ -1565,12 +1569,13 @@ GEN_OUT_CF = ((W / 2.0, H / 2.0), (F[0] / 1.05, F[1] / 1.05))
 
 def _gen_bits(cfg, dyn, m, rows, oy0, pos_dx=0.0):
     out_c, out_f = GEN_OUT_CF
+    evals = 3 if cfg.interpolation in remap.EWA_BC else 1
     n0 = cuda_coords.project_gen.launches
     k = cuda_coords.project_gen(cfg, dyn, m, rows, oy0, out_c, out_f, pos_dx=pos_dx)
     p = cuda_coords.project_gen_plain(cfg, dyn, m, rows, oy0, out_c, out_f, pos_dx=pos_dx)
     torch.cuda.synchronize()
     assert cuda_coords.project_gen.launches == n0 + 1
-    assert k[0].shape == (rows, cfg.out_buffer[0])
+    assert k[0].shape == (evals * rows, cfg.out_buffer[0])
     _same_bits(k, p)
 
 
@@ -1602,6 +1607,49 @@ def test_coords_gen_kernel_every_model_bits(dev, model):
     """Every main model on a band at an odd row, with IBIS: u, v, valid
     bit-identical to project_gen_plain."""
     cfg, dyn, mats, _ = _lens_case("Y", model, None, flags=HAS_IBIS_DATA)
+    _gen_bits(cfg, dyn, torch.from_numpy(mats).to(dev), 45, 7, pos_dx=0.01)
+
+
+@pytest.mark.parametrize("case", ["whole", "odd_band", "last_rows", "horizontal", "one_row",
+                                  "ibis", "uv_band", "offset_table", "ref_jac",
+                                  "ref_jac_horizontal"])
+def test_coords_gen_ewa_kernel_bits(dev, case):
+    """The gen kernel's EWA form (an EWA configuration): the whole plane, bands at odd
+    rows, horizontal RS, a table of one matrix row, IBIS, the UV plane, a
+    table 8 bytes into its buffer, and ewa_ref_jac (a row probe per eval,
+    vertical and horizontal RS): the stacked u, v, valid bit-identical to
+    ewa_stack + project_plain. The ref_jac cases hold planes where some
+    +eps evals do take another row than the base eval's."""
+    plane = "UV" if case == "uv_band" else "Y"
+    flags = HORIZONTAL_RS if "horizontal" in case else HAS_IBIS_DATA if case == "ibis" else 0
+    cfg, dyn, mats, _ = _case(plane, flags=flags, interpolation=11,
+                              ewa_ref_jac=case.startswith("ref_jac"))
+    m = torch.from_numpy(mats).to(dev)
+    oh = cfg.out_buffer[1]
+    rows, oy0 = {"odd_band": (37, 13), "last_rows": (11, oh - 11),
+                 "uv_band": (19, 5)}.get(case, (oh, 0))
+    if case == "one_row":
+        m = m[:1].contiguous()
+    elif case == "offset_table":
+        buf = torch.zeros(m.numel() + 2, dtype=torch.float32, device=dev)
+        buf[2:] = m.reshape(-1)
+        m = buf[2:].view(m.shape)
+        assert m.is_contiguous() and m.data_ptr() % 16 == 8
+    _gen_bits(cfg, dyn, m, rows, oy0, pos_dx=0.01 if case == "odd_band" else 0.0)
+    if case.startswith("ref_jac"):
+        oy, ox = torch.meshgrid(torch.arange(oh, dtype=torch.float32, device=dev),
+                                torch.arange(cfg.out_buffer[0], dtype=torch.float32,
+                                             device=dev), indexing="ij")
+        idx = remap.ewa_stack(ox, oy, m, cfg, dyn_to_torch(dyn, dev), *GEN_OUT_CF)[2]
+        idx0, idx1, idx2 = idx.chunk(3)
+        assert bool((idx1 != idx0).any() | (idx2 != idx0).any())
+
+
+@pytest.mark.parametrize("model", list(tdm.MODEL_IDS))
+def test_coords_gen_ewa_kernel_every_model_bits(dev, model):
+    """The EWA form for every main model on a band at an odd row, with IBIS:
+    bit-identical to ewa_stack + project_plain."""
+    cfg, dyn, mats, _ = _lens_case("Y", model, None, flags=HAS_IBIS_DATA, interpolation=11)
     _gen_bits(cfg, dyn, torch.from_numpy(mats).to(dev), 45, 7, pos_dx=0.01)
 
 
@@ -1656,6 +1704,50 @@ def test_remap_plane_cuda_gen_route_4k_bits(dev, plane):
     bg = (dt.background * dt.max_pixel_value)[:c]
     px = cuda_sampler.sample(timg, u, v, valid, tuple(float(b) for b in bg.cpu()),
                              cfg.src_rect, 8, 1023.0)
+    px = torch.where(valid[..., None], px, bg)
+    orx, ory, orw, orh = cfg.out_rect
+    lx = remap.map_coord(ox, float(orx), float(orx + orw), 0.0, float(cfg.output_width))
+    ly = remap.map_coord(oy, float(ory), float(ory + orh), 0.0, float(cfg.output_height))
+    inside = (lx >= 0.0) & (ly >= 0.0) & (lx < cfg.output_width) & (ly < cfg.output_height)
+    px = torch.where(inside[..., None], px, bg)
+    px = remap._remap_colorrange(px, cfg.plane_index == 0, dt.max_pixel_value)
+    want = remap._cast_out(px, "uint16", 1023.0)
+    assert got.dtype == torch.uint16 and got.shape == (oh, ow, c)
+    assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("plane", ["Y", "UV"])
+def test_remap_plane_cuda_gen_ewa_route_4k_bits(dev, plane):
+    """A 4K 10-bit fisheye plane (UV with its source and output rects) at
+    EWA 11 through remap_plane_cuda: one project_gen launch (the EWA form),
+    no project launch, and the bits of the composition it replaces, called
+    step by step: the output grid, ewa_stack's three eager coords_pre, the
+    stacked coords kernel launch, coords_post_uv, the EWA kernel and the
+    finish (in-bounds mask, colour range, uint16 cast)."""
+    cfg, dyn, mats, img = _case(plane, flags=FIX_COLOR_RANGE, interpolation=11, w=3840, h=2160)
+    timg, m = torch.from_numpy(img).to(dev), torch.from_numpy(mats).to(dev)
+    n0 = (cuda_coords.project_gen.launches, cuda_coords.project.launches)
+    got = remap.remap_plane_cuda(timg, m, cfg, dyn, out_dtype="uint16")
+    torch.cuda.synchronize()
+    assert (cuda_coords.project_gen.launches, cuda_coords.project.launches) == (n0[0] + 1, n0[1])
+
+    dt = dyn_to_torch(dyn, dev)
+    ow, oh = cfg.out_buffer
+    oy, ox = torch.meshgrid(torch.arange(oh, dtype=torch.float32, device=dev),
+                            torch.arange(ow, dtype=torch.float32, device=dev), indexing="ij")
+    factor = torch.clamp_min(1.0 - dt.lens_correction_amount, 0.001)
+    out_c = (float(cfg.output_width) / 2.0, float(cfg.output_height) / 2.0)
+    out_f = (dt.f[0] / dt.fov / factor, dt.f[1] / dt.fov / factor)
+    x, y, idx = remap.ewa_stack(ox, oy, m, cfg, dt, out_c, out_f)
+    projected = cuda_coords.project(x, y, idx, m, cfg, dyn)
+    _same_bits(cuda_coords.project_gen(cfg, dyn, m, oh, 0, out_c, out_f), projected)
+    u3, v3, valid3 = projected
+    u3, v3 = remap.coords_post_uv(u3, v3, cfg)
+    u, v, valid = u3[:oh], v3[:oh], valid3[:oh]
+    c = img.shape[-1]
+    bg = (dt.background * dt.max_pixel_value)[:c]
+    px = cuda_ewa.sample(timg, u, v, u3, v3, valid3, tuple(float(b) for b in bg.cpu()),
+                         cfg.src_rect, remap._ewa_coeffs_of(dyn), 1023.0)
     px = torch.where(valid[..., None], px, bg)
     orx, ory, orw, orh = cfg.out_rect
     lx = remap.map_coord(ox, float(orx), float(orx + orw), 0.0, float(cfg.output_width))

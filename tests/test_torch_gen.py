@@ -11,13 +11,18 @@ JAX package's ``pallas_coords.project_tiles_gen``, on the CPU.
 - Every main model (one case: opencv_standard); the configurations the
   kernel does not compute (lens correction, mesh, digital lens, as JAX
   gates project_tiles_gen) raise ValueError instead of a different answer.
+- ``project_gen`` on an EWA configuration, EWA's stacked evals: on the CPU
+  bit-identical to ``remap.ewa_stack`` + ``project_plain`` (whole planes and
+  bands at an odd ``oy0``, the same-row Jacobian and ``ewa_ref_jac``); the
+  number of evals follows the interpolation.
 - ``remap.remap_plane_cuda``'s route through ``project_gen``: on CPU tensors
   bit-identical to ``remap_plane`` for a fisheye plane of the 4K shape (Y,
   UV with its source and output rects, a band at ``oy0 > 0``, a table of
-  one matrix row), one ``project_gen`` call a plane and no ``project``
-  call; the first ``gf.eager`` span of each plane notes "gen" there and
-  "pre" for each form that keeps ``coords_pre`` (mesh and focal plane,
-  lens correction, a digital lens, EWA, ``fused=True``).
+  one matrix row), at lanczos4 and at EWA 11 (``ewa_ref_jac`` too), one
+  ``project_gen`` call a plane and no ``project`` call; the first
+  ``gf.eager`` span of each plane notes "gen" there and "pre" for each form
+  that keeps ``coords_pre`` (mesh and focal plane, lens correction, a
+  digital lens, each also at EWA, ``fused=True``).
 
 Tolerances: u/v within 0.05 px (the ROADMAP's coordinate tolerance; the
 JAX kernel's in-kernel probe and XLA round the same chain a few ulp apart),
@@ -117,6 +122,50 @@ def test_gated_configurations_raise(change):
     with pytest.raises(ValueError, match="project_tiles_gen"):
         cuda_coords.project_gen(pcfg._replace(**change), pdyn, torch.from_numpy(mats), 8, 0,
                                 out_c, out_f)
+
+
+@pytest.mark.parametrize("plane,kw,out_rows,oy0,ref_jac", [
+    ("Y", {}, None, 0, False), ("UV", dict(translation2d=(1.5, -2.0)), None, 0, False),
+    ("Y", dict(flags=HORIZONTAL_RS, fov=1.2), 23, 17, False), ("Y", {}, 31, 9, True),
+    ("UV", {}, None, 0, True)])
+def test_project_gen_ewa_is_ewa_stack_plus_project(plane, kw, out_rows, oy0, ref_jac):
+    """project_gen at EWA 11 on the CPU: the (3 * rows, ow) stacked evals
+    with the bits of ewa_stack on the band's grid and project_plain, in
+    the same-row mode and with ewa_ref_jac (a row probe per eval)."""
+    _, dyn, pcfg, pdyn, mats, _ = make_case(plane, interpolation=11, **kw)
+    pcfg = pcfg._replace(ewa_ref_jac=ref_jac)
+    ow, oh = pcfg.out_buffer
+    rows = out_rows or oh
+    out_c, out_f = _out_c_f(pcfg, dyn)
+    m = torch.from_numpy(mats)
+    dt = dyn_to_torch(pdyn, torch.device("cpu"))
+    oy, ox = torch.meshgrid(torch.arange(oy0, oy0 + rows, dtype=torch.float32),
+                            torch.arange(ow, dtype=torch.float32), indexing="ij")
+    want = cuda_coords.project_plain(*tremap.ewa_stack(ox, oy, m, pcfg, dt, out_c, out_f), m,
+                                     pcfg, pdyn)
+    got = cuda_coords.project_gen(pcfg, pdyn, m, rows, oy0, out_c, out_f)
+    assert tuple(got[0].shape) == (3 * rows, ow) and got[2].dtype == torch.bool
+    for a, b in zip(got, want):
+        np.testing.assert_array_equal(a.numpy(), b.numpy())
+
+
+@pytest.mark.parametrize("interpolation,evals", [(8, 1), (11, 3)])
+def test_project_gen_evals_follow_interpolation(interpolation, evals):
+    """project_gen reads the number of evals from the configuration: one
+    at lanczos4, EWA's three stacked evals at interpolation 11, counted in
+    gf.coords.points and (EWA only) gf.coords.gen_ewa_planes."""
+    _, dyn, pcfg, pdyn, mats, _ = make_case("Y", interpolation=interpolation)
+    out_c, out_f = _out_c_f(pcfg, dyn)
+    trace.enable()
+    try:
+        got = cuda_coords.project_gen(pcfg, pdyn, torch.from_numpy(mats), 8, 3, out_c, out_f)
+        counts = trace.counts()
+    finally:
+        trace.disable()
+    ow = pcfg.out_buffer[0]
+    assert all(tuple(t.shape) == (evals * 8, ow) for t in got)
+    assert counts["gf.coords.points"] == evals * 8 * ow
+    assert counts.get("gf.coords.gen_ewa_planes", 0) == (evals == 3)
 
 
 def test_gen_args_layout():
@@ -220,6 +269,40 @@ def test_remap_plane_cuda_gen_route_is_remap_plane(routes, case):
     assert torch.equal(got, want)
 
 
+def _uhd_ewa_case(plane, ref_jac=False):
+    """_uhd_case at interpolation 11 (EWA Robidoux) with its coefficients."""
+    cfg, dyn, mats, img = _uhd_case(plane)
+    p, q = tremap.ewa_coeffs(11)
+    return (cfg._replace(interpolation=11, ewa_ref_jac=ref_jac),
+            dyn._replace(ewa_coeffs_p=np.asarray(p, np.float32),
+                         ewa_coeffs_q=np.asarray(q, np.float32)), mats, img)
+
+
+@pytest.mark.parametrize("case", ["Y", "UV", "band", "one_row", "ref_jac"])
+def test_remap_plane_cuda_gen_route_is_remap_plane_ewa(routes, case):
+    """A fisheye plane of the 4K shape at EWA 11 takes one project_gen call
+    (its three stacked evals) and no project call, inside gf.ewa.stack,
+    counts one plane in gf.coords.gen_ewa_planes, and gives remap_plane's
+    bits: the whole Y plane, the UV plane, a band of rows at an odd oy0, a
+    table of one matrix row, and ewa_ref_jac."""
+    calls, notes = routes
+    cfg, dyn, mats, img = _uhd_ewa_case("UV" if case == "UV" else "Y", case == "ref_jac")
+    if case == "one_row":
+        mats = mats[:1]
+    timg, m = torch.from_numpy(img), torch.from_numpy(mats)
+    oh = cfg.out_buffer[1]
+    rows, oy0 = (37, 29) if case == "band" else (oh, 0)
+    got = tremap.remap_plane_cuda(timg, m, cfg, dyn, out_rows=rows, oy0=oy0)
+    assert calls == {"project_gen": 1, "project": 0}
+    assert notes() == ["gen"]
+    assert trace.counts()["gf.coords.gen_ewa_planes"] == 1
+    assert trace.counts()["gf.coords.points"] == 3 * rows * cfg.out_buffer[0]
+    assert [r.name for r in trace.records()].count("gf.ewa.stack") == 1
+    want = tremap.remap_plane(timg, m, cfg, dyn)[oy0:oy0 + rows]
+    assert got.shape == want.shape and got.dtype == torch.float32
+    assert torch.equal(got, want)
+
+
 def _bypass_case(form):
     """(port cfg, port dyn, matrices, image, mesh, remap_plane_cuda keywords)
     of one form that keeps coords_pre."""
@@ -228,10 +311,12 @@ def _bypass_case(form):
         pcfg, pdyn = tkp.from_reference(cfg, dyn)
         return pcfg, pdyn, mats, make_image(1), np.asarray(mesh, np.float32), {}
     kw = {"lens_correction": dict(lens_correction_amount=0.6),
-          "digital_lens": lens_kw("opencv_fisheye", "gopro_superview"),
-          "ewa": dict(interpolation=11)}.get(form, {})
+          "digital_lens": lens_kw("opencv_fisheye", "gopro_superview")}.get(
+        form.replace("ewa_", ""), {})
+    if form.startswith("ewa"):
+        kw["interpolation"] = 11
     _, _, pcfg, pdyn, mats, img = make_case("Y", **kw)
-    if form == "ewa":
+    if form.startswith("ewa"):
         p, q = tremap.ewa_coeffs(11)
         pdyn = pdyn._replace(ewa_coeffs_p=np.asarray(p, np.float32),
                              ewa_coeffs_q=np.asarray(q, np.float32))
@@ -239,13 +324,14 @@ def _bypass_case(form):
 
 
 @pytest.mark.parametrize("form", ["fisheye", "mesh_fpd", "lens_correction", "digital_lens",
-                                  "ewa", "fused"])
+                                  "ewa", "fused", "ewa_lens_correction", "ewa_digital_lens"])
 def test_remap_plane_cuda_route_note(routes, form):
     """The first gf.eager span of a plane notes its route, readable from
-    trace.records(): "gen" for the plain fisheye, "pre" for each form that
-    gen_admits refuses or that takes another kernel (EWA's stacked evals,
-    the fused launch), which makes no project_gen call. Either way the
-    output is remap_plane's."""
+    trace.records(): "gen" for the plain fisheye, at lanczos4 and at EWA
+    (one project_gen call); "pre" for each form that gen_admits refuses,
+    at either interpolation, or that takes another kernel (the fused
+    launch), which makes no project_gen call. Either way the output is
+    remap_plane's."""
     calls, notes = routes
     cfg, dyn, mats, img, mesh, kw = _bypass_case(form)
     if form == "fused":
@@ -253,9 +339,10 @@ def test_remap_plane_cuda_route_note(routes, form):
     timg, m = torch.from_numpy(img), torch.from_numpy(mats)
     tmesh = None if mesh is None else torch.from_numpy(mesh)
     got = tremap.remap_plane_cuda(timg, m, cfg, dyn, tmesh, **kw)
-    gen = form == "fisheye"
+    gen = form in ("fisheye", "ewa")
     assert notes() == ["gen" if gen else "pre"]
     assert calls["project_gen"] == int(gen)
+    assert (calls["project"] > 0) == (not gen and form != "fused")
     assert cuda_coords.gen_admits(cfg) == (form in ("fisheye", "ewa", "fused"))
     assert torch.equal(got, tremap.remap_plane(timg, m, cfg, dyn, tmesh))
 
