@@ -1319,21 +1319,19 @@ class StabilizationManager:
         stack (geometry lives in luma coordinates — HAS_SOURCE_RECT maps the
         chroma buffer), so uploading it once per frame instead of once per
         plane halves the per-frame host->device matrix traffic. The mesh
-        buffer goes up packed (cuda_coords.pack_mesh: the coords kernel's
+        buffer goes up packed (cuda_coords.kernel_mesh: the coords kernel's
         block appended to the reference buffer)."""
-        from ..ops.cuda_coords import pack_mesh
+        from ..ops.cuda_coords import kernel_mesh
         key = int(round(timestamp_ms * 1000.0))
         hit = self._mats_dev.get(key)
         if hit is None:
             while len(self._mats_dev) >= 64:
                 self._mats_dev.pop(next(iter(self._mats_dev)))
-            mesh = None
-            if ft.mesh_data is not None:
-                trace.sync()
-                mesh = torch.from_numpy(pack_mesh(ft.mesh_data, ft.kernel_cfg)).to(self.device)
+            mesh = kernel_mesh(ft.mesh_data, ft.kernel_cfg)
+            if mesh is not None:
+                mesh = trace.to_device(torch.from_numpy(mesh), self.device)
             mats = torch.from_numpy(np.ascontiguousarray(ft.matrices, np.float32))
-            trace.sync()
-            hit = (mats.to(self.device), mesh)
+            hit = (trace.to_device(mats, self.device), mesh)
             self._mats_dev[key] = hit
         return hit
 
@@ -1413,9 +1411,9 @@ class StabilizationManager:
         through the plain torch remap. A window whose kernel configs differ
         goes through process_pixels frame by frame. Each frame's Sony mesh /
         focal-plane buffer (a Sony clip's frames share one kernel config)
-        goes up packed (cuda_coords.pack_mesh) with the window's matrices,
+        goes up packed (cuda_coords.kernel_mesh) with the window's matrices,
         and frame i's remap reads frame i's buffer."""
-        from ..ops.cuda_coords import pack_mesh
+        from ..ops.cuda_coords import kernel_mesh
         from ..parallel.pipeline import (make_frame_mesh, stabilize_window_production,
                                          stack_dynamics, stack_meshes)
 
@@ -1426,9 +1424,7 @@ class StabilizationManager:
             imgs = torch.as_tensor(frames)
             if not self.params.stab_enabled:
                 with trace.span("gf.upload"):
-                    if trace.from_host(frames, self.device):
-                        trace.sync()
-                    return imgs.to(self.device), {"fov": 1.0, "backend": "none"}
+                    return trace.to_device(imgs, self.device), {"fov": 1.0, "backend": "none"}
 
             self._lazy_recompute_if_invalidated()
             fts = [self.frame_transform_at(self._adjusted_ts_ms(ts), rid=ts)
@@ -1456,8 +1452,7 @@ class StabilizationManager:
             mats = np.stack([ft.matrices for ft in fts]).astype(np.float32)
             out, backend = stabilize_window_production(
                 mesh, imgs, mats, cfgs[0], stack_dynamics(dyns), out_dtype=out_dtype,
-                meshes=stack_meshes([None if ft.mesh_data is None else
-                                     pack_mesh(ft.mesh_data, ft.kernel_cfg) for ft in fts]),
+                meshes=stack_meshes([kernel_mesh(ft.mesh_data, ft.kernel_cfg) for ft in fts]),
                 in_dtype=in_dtype)
             info = {"fov": fts[0].fov, "minimal_fov": fts[0].minimal_fov,
                     "backend": backend}
@@ -1494,9 +1489,7 @@ class StabilizationManager:
         with trace.span("gf.process_pixels", timestamp_us):
             ts_ms = self._adjusted_ts_ms(timestamp_us)
             with trace.span("gf.upload"):
-                if trace.from_host(frame_plane, self.device):
-                    trace.sync()
-                img = torch.as_tensor(frame_plane).to(self.device).contiguous()
+                img = trace.to_device(torch.as_tensor(frame_plane), self.device).contiguous()
 
             if not self.params.stab_enabled:
                 return img, {"fov": 1.0, "backend": "none"}

@@ -9,8 +9,8 @@ with Sony mesh correction and focal-plane distortion in the kernel's mesh
 form, which also carries the digital lens. The mesh form reads the frame's
 packed mesh buffer (``pack_mesh``: the reference buffer, then a 16-byte
 aligned block of the launch-uniform constants, the focal-plane shears and
-each x segment's grid rows as (a, b, c, d)), built on the host where the
-buffer goes up to the card; ``mesh_args`` passes it by device pointer with
+each x segment's grid rows as (a, b, c, d)), which ``kernel_mesh`` packs on
+the host before it goes up; ``mesh_args`` passes it by device pointer with
 the grid and the host-side spline constants.
 ``project_plain`` is the same function in plain torch
 (``remap.rotate_and_distort`` with ``ops/mesh.py``).
@@ -22,12 +22,11 @@ coords_pre's out-rect map and translation2d, the rolling-shutter probe and
 row select, then the projection. For an EWA configuration (interpolation
 10-13) it computes EWA's stacked evals (``gf_coords_gen_ewa``): the base
 eval and both +eps evals of ``remap.ewa_stack`` in one launch, one probe and
-one row load serving the three projections. ``project_gen_plain`` is ``remap.coords_pre`` (or
-``remap.ewa_stack``) plus ``project_plain`` on the same grid. It takes
-every main model; as in the JAX package it refuses lens correction, mesh and
-digital lenses (``gen_admits``). ``remap.remap_plane_cuda`` calls it for
-every plane it admits that is not fused, EWA included, in place of the
-output grid, the eager ``coords_pre`` (or ``ewa_stack``) and ``project``.
+one row load serving the three projections. ``project_gen_plain`` is
+``remap.coords_pre`` (or ``remap.ewa_stack``) plus ``project_plain`` on the
+same grid. It takes every main model; as in the JAX package it refuses lens
+correction, mesh and digital lenses (``gen_admits``, which
+``remap.plane_route`` reads for the "gen" route).
 
 Each wrapper checks its inputs, then runs its plain version for CPU tensors
 only; for CUDA tensors it launches its kernel or raises. ``project.launches``
@@ -121,6 +120,24 @@ def mesh_consts(mesh, cfg: KernelConfig):
                          inv_h, f32(3.0) * inv_h, h * f32(1.0 / 3.0), f32(3.0) * h], np.float32)
 
 
+def kernel_mesh(mesh, cfg: KernelConfig):
+    """The frame's mesh buffer as the coords kernel reads it, packed here
+    alone: None without a buffer or without the mesh and focal-plane flags;
+    a host buffer (numpy or a CPU tensor, in either layout) packed on the
+    host (``pack_mesh``); a card buffer as it is, if packed: none is
+    downloaded to be packed."""
+    if mesh is None or not remap.has_mesh(cfg):
+        return None
+    remap._check_supported(cfg)
+    if isinstance(mesh, torch.Tensor) and mesh.device.type != "cpu":
+        if mesh.numel() != packed_len(cfg):
+            raise ValueError(f"mesh buffer of {mesh.numel()} floats on {mesh.device}, grid "
+                             f"{cfg.mesh_grid} packed needs {packed_len(cfg)}: pack it on the host "
+                             f"(cuda_coords.pack_mesh)")
+        return mesh
+    return pack_mesh(mesh, cfg)
+
+
 def pack_mesh(mesh, cfg: KernelConfig) -> np.ndarray:
     """The mesh buffer the coords kernel's mesh form reads: the reference
     buffer (numpy or a CPU tensor; the plain stage reads only this part)
@@ -129,14 +146,11 @@ def pack_mesh(mesh, cfg: KernelConfig) -> np.ndarray:
     focal-plane shears and, with the mesh flag, channel c's grid row j on x
     segment fi as (a, b, c, d) at float4 7 + (c * (gw - 1) + fi) * gh + j.
     ``packed_len(cfg)`` float32s; a buffer of that length is taken as packed
-    already, and without the mesh and focal-plane flags (nothing reads the
-    buffer) the buffer is returned as it is."""
+    already. cfg has the mesh or the focal-plane flag. A host buffer only:
+    a tensor on a card raises."""
     if isinstance(mesh, torch.Tensor) and mesh.device.type != "cpu":
-        trace.sync()
-    ref = np.asarray(mesh.cpu() if isinstance(mesh, torch.Tensor) else mesh,
-                     np.float32).reshape(-1)
-    if not remap.has_mesh(cfg):
-        return ref
+        raise ValueError(f"pack_mesh packs a host buffer, got one on {mesh.device}")
+    ref = np.asarray(mesh, np.float32).reshape(-1)
     n = packed_len(cfg)
     if ref.size == n:
         return ref
@@ -266,13 +280,6 @@ def project(x, y, idx, matrices, cfg: KernelConfig, dyn: KernelDynamics, mesh=No
 project.launches = 0
 
 
-def _gen_grid(cfg: KernelConfig, out_rows: int, oy0: int, device):
-    """(oy, ox) float32 (out_rows, ow): output rows oy0 .. oy0 + out_rows."""
-    ow = cfg.out_buffer[0]
-    return torch.meshgrid(torch.arange(oy0, oy0 + out_rows, dtype=torch.float32, device=device),
-                          torch.arange(ow, dtype=torch.float32, device=device), indexing="ij")
-
-
 def project_gen_plain(cfg: KernelConfig, dyn: KernelDynamics, matrices, out_rows: int,
                       oy0: int, out_c, out_f, pos_dx: float = 0.0, pos_dy: float = 0.0):
     """Plain torch: remap.coords_pre (for EWA, remap.ewa_stack) on the
@@ -280,7 +287,7 @@ def project_gen_plain(cfg: KernelConfig, dyn: KernelDynamics, matrices, out_rows
     projection. Returns u, v float32 and valid bool, before coords_post_uv:
     (out_rows, ow), or (3 * out_rows, ow) for EWA."""
     dyn_t = dyn_to_torch(dyn, matrices.device)
-    oy, ox = _gen_grid(cfg, out_rows, oy0, matrices.device)
+    oy, ox = remap.out_grid(cfg.out_buffer[0], out_rows, oy0, matrices.device)
     pre = remap.ewa_stack if cfg.interpolation in remap.EWA_BC else remap.coords_pre
     x, y, idx = pre(ox + pos_dx, oy + pos_dy, matrices, cfg, dyn_t, out_c, out_f)
     return remap.rotate_and_distort(x, y, idx, matrices, cfg, dyn_t)

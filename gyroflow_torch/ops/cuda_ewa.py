@@ -31,8 +31,7 @@ def sample_plain(img, u, v, u3, v3, valid3, bg, src_rect, coeffs, limit: float):
     evals (``remap.ewa_jacobian``), then the (H, W, C) plane sampled at the
     (oh, ow) positions u, v -> (oh, ow, C) float32; pixels whose base eval
     is not valid get bg."""
-    trace.sync()
-    bg_t = torch.tensor(bg, dtype=torch.float32, device=img.device)
+    bg_t = trace.to_device(torch.tensor(bg, dtype=torch.float32), img.device)
     _, _, valid, jac = remap.ewa_jacobian(u3, v3, valid3)
     out = remap.sample_ewa(img.to(torch.float32), u, v, jac, bg_t, src_rect,
                            coeffs[0], coeffs[1], limit)

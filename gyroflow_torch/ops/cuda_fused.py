@@ -37,8 +37,7 @@ def remap_fused_plain(img, x, y, idx, matrices, cfg: KernelConfig, dyn: KernelDy
     u, v, valid = remap.rotate_and_distort(x, y, idx, matrices, cfg, dyn_t)
     u, v = remap.coords_post_uv(u, v, cfg)
     offset = INTERP_INFO[cfg.interpolation]["offset"]
-    trace.sync()
-    bg_t = torch.tensor(bg, dtype=torch.float32, device=img.device)
+    bg_t = trace.to_device(torch.tensor(bg, dtype=torch.float32), img.device)
     out = remap.sample_taps(img.to(torch.float32), remap._guard_uv(u) - offset,
                             remap._guard_uv(v) - offset, bg_t, cfg.src_rect,
                             cfg.interpolation, limit)

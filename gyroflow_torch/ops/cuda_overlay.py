@@ -28,10 +28,8 @@ def overlay_plain(pixel, u, v, canvas, scale: float, safe_area_rect, src_rect,
     """remap._draw_overlay on the output grid of pixel's (oh, ow), whose
     first row is absolute output row oy0."""
     oh, ow = pixel.shape[:2]
-    dev = pixel.device
-    oy, ox = torch.meshgrid(torch.arange(oy0, oy0 + oh, dtype=torch.float32, device=dev),
-                            torch.arange(ow, dtype=torch.float32, device=dev), indexing="ij")
-    scale_t = torch.full((), float(scale), dtype=torch.float32, device=dev)
+    oy, ox = remap.out_grid(ow, oh, oy0, pixel.device)
+    scale_t = torch.full((), float(scale), dtype=torch.float32, device=pixel.device)
     return remap._draw_overlay(pixel, u, v, ox, oy, canvas, scale_t, safe_area_rect, src_rect,
                                max_pixel_value)
 

@@ -27,8 +27,7 @@ _lut_slices = {}
 def sample_plain(img, u, v, valid, bg, src_rect, interpolation: int, limit: float):
     """Plain torch sampling: (H, W, C) plane at (oh, ow) u/v -> (oh, ow, C)
     float32; pixels with valid False get bg."""
-    trace.sync()
-    bg_t = torch.tensor(bg, dtype=torch.float32, device=img.device)
+    bg_t = trace.to_device(torch.tensor(bg, dtype=torch.float32), img.device)
     out = remap.sample_input(img.to(torch.float32), u, v, bg_t, src_rect, interpolation, limit)
     return torch.where(valid[..., None], out, bg_t)
 
@@ -66,8 +65,7 @@ def lut_slice(interpolation: int, device):
         info = INTERP_INFO[interpolation]
         n = INTER_TAB_SIZE * info["taps"]
         part = np.ascontiguousarray(COEFFS[info["ind"]:info["ind"] + n], np.float32)
-        trace.sync()
-        _lut_slices[key] = torch.from_numpy(part).to(device)
+        _lut_slices[key] = trace.to_device(torch.from_numpy(part), device)
     return _lut_slices[key]
 
 

@@ -165,8 +165,7 @@ def dyn_to_torch(dyn: KernelDynamics, device) -> KernelDynamics:
 
     leaves = [np.asarray(v, np.float32) for v in dyn]
     flat = np.concatenate([v.reshape(-1) for v in leaves])
-    trace.sync()
-    buf = torch.from_numpy(flat).to(device)
+    buf = trace.to_device(torch.from_numpy(flat), device)
     out, o = [], 0
     for v in leaves:
         out.append(buf[o:o + v.size].reshape(v.shape))

@@ -3,35 +3,24 @@
 Twin of ``gyroflow_tpu.ops.remap``: the same steps in the same float32 order
 (each function cites the JAX line it mirrors), on (oh, ow) full-frame maps.
 
-Two entry points share one body (``_remap``):
+Two entry points share one body (``_remap``), which runs a plane along its
+route (``plane_route``: "fused", "gen" or "pre") through one of two tables
+of stages:
 
-- ``remap_plane``: every stage in plain torch (per-pixel matrix-row gather,
-  64-tap gather sampling). It is the port's CPU path and the reference the
-  kernels are held against.
-- ``remap_plane_cuda``: the projection on a kernel, torch
-  ``coords_post_uv``, the sampler kernel (``cuda_sampler.sample``, or
-  ``cuda_ewa.sample`` for EWA, which forms the Jacobian from the stacked
-  evals itself), and the finish in torch. A plane that the self-contained
-  coords kernel computes (``cuda_coords.gen_admits``: no lens-correction
-  blend, mesh or digital lens), and that is not fused, takes one
-  ``cuda_coords.project_gen`` launch, which builds its output positions
-  and runs ``coords_pre`` itself (for EWA, ``ewa_stack``'s three evals);
-  every other plane takes torch ``coords_pre`` (or ``ewa_stack``), then the
-  coords kernel (``cuda_coords.project``). It is
-  the counterpart of ``remap_plane_pallas`` without the TPU's window
-  ladder: one thread per output pixel reads its matrix row and its taps
-  directly, so there is no window to overflow. With ``fused=True``
-  (off by default, as in the JAX package) the configurations that
-  ``remap_plane_pallas`` fuses (``use_fused``) take one fused projection +
-  sampling launch (``cuda_fused.remap_fused``) after ``coords_pre``.
+- ``remap_plane``: every stage in plain torch (``PLAIN``: per-pixel
+  matrix-row gather, 64-tap gather sampling), always on the "pre" route.
+  It is the port's CPU path and the reference the kernels are held against.
+- ``remap_plane_cuda``: the stages on the kernels (``kernels()``), with
+  torch ``coords_post_uv`` and the finish in torch, along the route
+  ``plane_route`` decides. It is the counterpart of ``remap_plane_pallas``
+  without the TPU's window ladder: one thread per output pixel reads its
+  matrix row and its taps directly, so there is no window to overflow.
 
 Sony mesh correction and focal-plane distortion (``ops/mesh.py``) run inside
 the projection, after the lens centre and before the digital lens, as in
 remap.py:137-147: in the plain projection, in the coords kernel's mesh
-form, and so in the rolling-shutter probe of ``coords_pre``, which on a
-card takes the coords kernel for mesh frames (one launch at the centre row)
-instead of the hundreds of eager launches of the plain mesh stage. The
-drawing overlay (tracking points, calibration corners, the safe-area dim)
+form, and so in the rolling-shutter probe of ``coords_pre`` (on a card the
+coords kernel's: ``mesh_probe``). The drawing overlay (tracking points, calibration corners, the safe-area dim)
 is the epilogue after the colour-range step: ``_draw_overlay`` in plain
 torch, ``cuda_overlay.overlay`` on a card.
 
@@ -50,8 +39,9 @@ the functions move it to the image's device themselves.
 from __future__ import annotations
 
 import contextlib
+import functools
 import math
-from typing import Tuple
+from typing import Callable, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -73,6 +63,13 @@ _COEFFS_T = torch.from_numpy(np.asarray(COEFFS, np.float32))
 def map_coord(x, in_min, in_max, out_min, out_max):
     """Linear range remap (util.rs:144-147)."""
     return (x - in_min) * (out_max - out_min) / (in_max - in_min) + out_min
+
+
+def out_grid(ow: int, rows: int, oy0: int, device):
+    """(oy, ox) float32 (rows, ow): the positions of output rows oy0 .. oy0 +
+    rows."""
+    return torch.meshgrid(torch.arange(oy0, oy0 + rows, dtype=torch.float32, device=device),
+                          torch.arange(ow, dtype=torch.float32, device=device), indexing="ij")
 
 
 def _lens_params(cfg: KernelConfig, dyn: KernelDynamics) -> dm.LensParams:
@@ -367,9 +364,7 @@ def sample_taps(img, u, v, bg, src_rect, interpolation: int, pixel_value_limit):
     sy = sy0 >> INTER_BITS
     base_x = ind + ((sx0 & (INTER_TAB_SIZE - 1)) << shift)
     base_y = ind + ((sy0 & (INTER_TAB_SIZE - 1)) << shift)
-    if img.device != _COEFFS_T.device:
-        trace.sync()
-    lut = _COEFFS_T.to(img.device)
+    lut = _COEFFS_T if img.device == _COEFFS_T.device else trace.to_device(_COEFFS_T, img.device)
 
     total = torch.zeros(u.shape + (C,), dtype=torch.float32, device=img.device)
     for yp in range(taps):
@@ -589,8 +584,7 @@ def _blend_overlay(pixel, data, active_extra, max_pixel_value):
     active = (data > 0) & (color < 9) & active_extra
     alphaf = (1.0 - 0.25 * alpha_i.to(torch.float32))[..., None]
     C = pixel.shape[-1]
-    trace.sync()
-    colors = torch.from_numpy(np.ascontiguousarray(COLORS[:, :C])).to(pixel.device)
+    colors = trace.to_device(torch.from_numpy(np.ascontiguousarray(COLORS[:, :C])), pixel.device)
     colorf = torch.zeros_like(pixel)
     for ci in range(1, 9):
         colorf = torch.where((color == ci)[..., None], colors[ci], colorf)
@@ -666,72 +660,201 @@ def use_fused(cfg: KernelConfig, matrices, drawing=None) -> bool:
     plane (remap.py:716-719): more than one matrix row, no mesh/FPD, no EWA,
     background mode 0-2, no drawing, interpolation 2, 4 or 8. Everywhere
     else fused=True takes the split path, as in the JAX package."""
-    has_mesh = cfg.has(HAS_MESH_DATA) or cfg.has(HAS_FPD_DATA)
-    return (matrices.shape[0] > 1 and not has_mesh and cfg.interpolation in (2, 4, 8)
+    return (matrices.shape[0] > 1 and not has_mesh(cfg) and cfg.interpolation in (2, 4, 8)
             and cfg.background_mode != 3
             and not (drawing is not None and cfg.has(DRAWING_ENABLED)))
 
 
-def _remap(img, matrices, cfg: KernelConfig, dyn_t: KernelDynamics, project, sample,
-           fused=None, gen=None, mesh=None, probe=None, overlay=None, out_rows=None,
-           oy0: int = 0):
-    """Shared body of remap_plane / remap_plane_cuda (remap.py:511, :662).
+class Route(NamedTuple):
+    """How a plane is remapped (``plane_route``)."""
+    name: str       # "fused", "gen" or "pre"
+    probe: bool     # the "pre" route's rolling-shutter probe on the coords kernel
 
-    dyn_t: tensor leaves on img's device. project(x, y, idx) -> (u, v, valid);
-    sample(u, v, valid, evals) -> (rows, ow, C), where evals is the stacked
-    (3*rows, ow) (u3, v3, valid3) after coords_post_uv for EWA and None
-    otherwise. fused(x, y, idx) -> (rows, ow, C), if given, replaces project,
-    coords_post_uv and sample (remap.py:720-730). gen() -> (u, v, valid), if
-    given, replaces coords_pre (ewa_stack for EWA) and project: the band's
-    output positions projected in one call (cuda_coords.project_gen; for
-    EWA the stacked (3*rows, ow) evals). mesh and probe go to
-    coords_pre. overlay(pixel, u, v, ox, oy) -> pixel, if given, is the
-    drawing epilogue after the colour-range step (remap.py:1004-1007).
-    out_rows, oy0: only output rows oy0 .. oy0 + out_rows (the whole plane
-    when out_rows is None); every coordinate stays in absolute output
-    space, so the bands of a plane assemble into the plane (remap.py:678).
-    The first gf.eager span's note names the route: "gen" or "pre"; on an
-    EWA plane its span gf.ewa.stack holds ewa_stack, or on the "gen" route
-    the gen call (remap_plane_cuda's gf.ewa.sample holds the EWA launch)."""
-    dev = img.device
+
+def plane_route(cfg: KernelConfig, matrices, drawing=None, fused: bool = False) -> Route:
+    """The one place that decides a plane's route through the kernels
+    (remap_plane, the plain reference, takes "pre" without the probe):
+    "fused" with ``fused=True`` where the fused kernel takes the plane
+    (``use_fused``): coords_pre, then one fused launch; "gen" where the
+    self-contained coords kernel computes it (``cuda_coords.gen_admits``,
+    EWA included): one ``cuda_coords.project_gen`` launch in place of the
+    output grid's coords_pre (ewa_stack) and the projection; "pre" for
+    every other plane: coords_pre (ewa_stack), then the coords kernel, and
+    with ``probe`` (a mesh or focal-plane plane with more than one matrix
+    row) coords_pre's rolling-shutter probe on the coords kernel too
+    (``mesh_probe``)."""
+    from .cuda_coords import gen_admits
+    if fused and use_fused(cfg, matrices, drawing):
+        return Route("fused", False)
+    if gen_admits(cfg):
+        return Route("gen", False)
+    return Route("pre", has_mesh(cfg) and matrices.shape[0] > 1)
+
+
+class _Plane(NamedTuple):
+    """A plane's inputs as the stages read them (``_plane``)."""
+    img: torch.Tensor           # float32 for PLAIN; as given for KERNELS, which read its dtype
+    matrices: torch.Tensor      # (rows, 14) float32 on img's device
+    mesh: Optional[torch.Tensor]
+    cfg: KernelConfig
+    dyn: KernelDynamics         # host leaves
+    dyn_t: KernelDynamics       # tensor leaves on img's device
+    bg_t: torch.Tensor          # the background (C,) on img's device
+    bg: tuple                   # the same as one float a channel, for the kernels
+    limit: float
+    coeffs: tuple               # EWA's (p, q)
+    canvas: Optional[torch.Tensor]   # the drawing's canvas; None without the overlay
+    drawing: object
+    rows: int                   # the band: output rows oy0 .. oy0 + rows
+    oy0: int
+
+
+def _plane(img, matrices, cfg: KernelConfig, dyn: KernelDynamics, mesh, drawing,
+           rows=None, oy0: int = 0) -> _Plane:
+    """Checks, then the plane's inputs on img's device: the matrices and the
+    mesh buffer float32 and contiguous (the buffer None unless cfg has the
+    mesh or focal-plane flag: the JAX remap reads it only then), the
+    dynamics in one copy, the drawing's canvas where the overlay is on
+    (remap.py:1004)."""
+    _check_supported(cfg)
+    if img.dim() != 3:
+        raise ValueError(f"plane must be (H, W, C), got {tuple(img.shape)}")
+    oh = cfg.out_buffer[1]
+    rows = oh if rows is None else int(rows)
+    oy0 = int(oy0)
+    if rows < 0 or oy0 < 0 or oy0 + rows > oh:
+        raise ValueError(f"output band of {rows} rows at {oy0}: the plane has {oh} rows")
+    if not has_mesh(cfg):
+        mesh = None
+    elif mesh is None:
+        raise ValueError("mesh / focal-plane flags set but no mesh buffer given")
+    else:
+        mesh = _on(mesh, img.device).reshape(-1)
+        if mesh.numel() < mesh_len(cfg):
+            raise ValueError(f"mesh buffer of {mesh.numel()} floats, grid {cfg.mesh_grid} "
+                             f"needs {mesh_len(cfg)}")
+    matrices = _on(matrices, img.device)
     C = img.shape[-1]
-    bg = (dyn_t.background * dyn_t.max_pixel_value)[:C]
+    dyn_t = dyn_to_torch(dyn, img.device)
+    canvas = None
+    if drawing is not None and cfg.has(DRAWING_ENABLED):
+        canvas = trace.to_device(torch.from_numpy(np.ascontiguousarray(drawing.canvas, np.uint8)),
+                                 img.device)
+    bg = (np.asarray(dyn.background, np.float32) * np.float32(dyn.max_pixel_value))[:C]
+    return _Plane(img, matrices, mesh, cfg, dyn, dyn_t,
+                  (dyn_t.background * dyn_t.max_pixel_value)[:C], tuple(float(b) for b in bg),
+                  _host_scalar(dyn.pixel_value_limit), _ewa_coeffs_of(dyn), canvas, drawing,
+                  rows, oy0)
 
-    ow, oh = cfg.out_buffer
-    rows = oh if out_rows is None else out_rows
+
+def _plain_project(p: _Plane, x, y, idx):
+    return rotate_and_distort(x, y, idx, p.matrices, p.cfg, p.dyn_t, mesh=p.mesh)
+
+
+def _plain_sample(p: _Plane, u, v, valid, evals):
+    if evals is not None:
+        jac = ewa_jacobian(*evals)[3]
+        return sample_ewa(p.img, u, v, jac, p.bg_t, p.cfg.src_rect, *p.coeffs, p.limit)
+    return sample_input(p.img, u, v, p.bg_t, p.cfg.src_rect, p.cfg.interpolation, p.limit)
+
+
+def _plain_overlay(p: _Plane, pixel, u, v, ox, oy):
+    scale = torch.full((), float(p.drawing.scale), dtype=torch.float32, device=pixel.device)
+    return _draw_overlay(pixel, u, v, ox, oy, p.canvas, scale, p.drawing.safe_area_rect,
+                         p.cfg.src_rect, _host_scalar(p.dyn.max_pixel_value))
+
+
+class Stages(NamedTuple):
+    """One implementation of each stage of ``_remap``, each taking the
+    plane's inputs (``_Plane``) first: PLAIN in plain torch, KERNELS
+    (``kernels()``) through the kernel wrappers."""
+    project: Callable               # (p, x, y, idx) -> (u, v, valid)
+    gen: Optional[Callable]         # (p) -> (u, v, valid) of the whole band ("gen")
+    fused: Optional[Callable]       # (p, x, y, idx) -> pixels ("fused")
+    sample: Callable                # (p, u, v, valid, evals) -> pixels
+    overlay: Callable               # (p, pixel, u, v, ox, oy) -> pixels
+
+
+# the plain reference takes neither the "gen" nor the "fused" route
+PLAIN = Stages(_plain_project, None, None, _plain_sample, _plain_overlay)
+
+
+@functools.cache
+def kernels() -> Stages:
+    """The stages on the kernels, built at the first call, since the
+    wrappers' modules import this one. Each stage looks its wrapper up on
+    the wrapper's module when it runs, so a stand-in set there takes
+    effect."""
+    from . import cuda_coords, cuda_ewa, cuda_fused, cuda_overlay, cuda_sampler
+
+    def project(p, x, y, idx):
+        return cuda_coords.project(x, y, idx, p.matrices, p.cfg, p.dyn, p.mesh)
+
+    def gen(p):
+        # out_c, out_f: read only by the lens-correction blend, which
+        # gen_admits rules out
+        return cuda_coords.project_gen(p.cfg, p.dyn, p.matrices, p.rows, p.oy0, None, None)
+
+    def fused(p, x, y, idx):
+        return cuda_fused.remap_fused(p.img, x, y, idx, p.matrices, p.cfg, p.dyn, p.bg, p.limit)
+
+    def sample(p, u, v, valid, evals):
+        if evals is not None:
+            with trace.span("gf.ewa.sample"):
+                return cuda_ewa.sample(p.img, u, v, *evals, p.bg, p.cfg.src_rect, p.coeffs,
+                                       p.limit)
+        return cuda_sampler.sample(p.img, u, v, valid, p.bg, p.cfg.src_rect,
+                                   p.cfg.interpolation, p.limit)
+
+    def overlay(p, pixel, u, v, ox, oy):
+        return cuda_overlay.overlay(pixel, u.contiguous(), v.contiguous(), p.canvas,
+                                    float(p.drawing.scale), p.drawing.safe_area_rect,
+                                    p.cfg.src_rect, _host_scalar(p.dyn.max_pixel_value), p.oy0)
+
+    return Stages(project, gen, fused, sample, overlay)
+
+
+def _remap(route: Route, stages: Stages, p: _Plane):
+    """Shared body of remap_plane / remap_plane_cuda (remap.py:511, :662):
+    the plane p along route through stages, output rows p.oy0 .. p.oy0 +
+    p.rows in absolute output space, so the bands of a plane assemble into
+    the plane (remap.py:678). The first gf.eager span notes the route, "gen"
+    or "pre" (a fused plane's too); on an EWA plane its span gf.ewa.stack
+    holds ewa_stack, or on the "gen" route the gen call."""
+    cfg, dyn_t, bg = p.cfg, p.dyn_t, p.bg_t
+    ow = cfg.out_buffer[0]
     if cfg.has(FILL_WITH_BACKGROUND):
         # the reference writes bg directly, skipping fix_range (remap.py:533-535)
-        return bg.expand(rows, ow, C).clone()
+        return bg.expand(p.rows, ow, p.img.shape[-1]).clone()
 
     is_ewa = cfg.interpolation in EWA_BC
     with trace.span("gf.eager") as span:
-        # the finish's grid; coords_pre's input on the "pre" route
-        oy, ox = torch.meshgrid(torch.arange(oy0, oy0 + rows, dtype=torch.float32, device=dev),
-                                torch.arange(ow, dtype=torch.float32, device=dev),
-                                indexing="ij")
-        if gen is not None:
-            span.note("gen")
+        # the finish's grid; coords_pre's input off the "gen" route
+        oy, ox = out_grid(ow, p.rows, p.oy0, p.img.device)
+        span.note("gen" if route.name == "gen" else "pre")
+        if route.name == "gen":
             with trace.span("gf.ewa.stack") if is_ewa else contextlib.nullcontext():
-                projected = [gen()]
+                u, v, valid = stages.gen(p)
         else:
-            span.note("pre")
             factor = torch.clamp_min(1.0 - dyn_t.lens_correction_amount, 0.001)
             out_c = (float(cfg.output_width) / 2.0, float(cfg.output_height) / 2.0)
             out_f = (dyn_t.f[0] / dyn_t.fov / factor, dyn_t.f[1] / dyn_t.fov / factor)
-            if is_ewa:
-                # the enqueue of the three eager coords_pre passes
-                with trace.span("gf.ewa.stack"):
-                    x, y, idx = ewa_stack(ox, oy, matrices, cfg, dyn_t, out_c, out_f, mesh=mesh,
-                                          probe=probe)
-            else:
-                x, y, idx = coords_pre(ox, oy, matrices, cfg, dyn_t, out_c, out_f, mesh=mesh,
-                                       probe=probe)
-    if fused is not None:
-        pixel = fused(x, y, idx)
+            probe = mesh_probe(p.matrices, cfg, p.dyn, p.mesh) if route.probe else None
+            # for EWA, the enqueue of the three eager coords_pre passes
+            with trace.span("gf.ewa.stack") if is_ewa else contextlib.nullcontext():
+                x, y, idx = (ewa_stack if is_ewa else coords_pre)(
+                    ox, oy, p.matrices, cfg, dyn_t, out_c, out_f, mesh=p.mesh, probe=probe)
+    if route.name == "fused":
+        pixel = stages.fused(p, x, y, idx)
     else:
-        if gen is None:
-            projected = [project(x, y, idx)]
-        pixel, u, v = _sample_projected(projected, cfg, dyn_t, bg, sample, is_ewa)
+        if route.name == "pre":
+            u, v, valid = stages.project(p, x, y, idx)
+        # rebinding u, v frees the projection's raw positions before sampling,
+        # and nothing holds the mask past it: a plane's peak memory is one
+        # full-size (u, v) pair and one mask less
+        u, v = coords_post_uv(u, v, cfg)
+        pixel, u, v = _sample(stages, p, u, v, valid)
+        del valid
 
     with trace.span("gf.eager"):
         # pixels whose mapped out_pos is beyond the logical output get background
@@ -744,26 +867,19 @@ def _remap(img, matrices, cfg: KernelConfig, dyn_t: KernelDynamics, project, sam
 
         if cfg.has(FIX_COLOR_RANGE):
             pixel = _remap_colorrange(pixel, cfg.plane_index == 0, dyn_t.max_pixel_value)
-    if overlay is not None:
-        pixel = overlay(pixel, u, v, ox, oy)
+    if p.canvas is not None:
+        pixel = stages.overlay(p, pixel, u, v, ox, oy)
     return pixel
 
 
-def _sample_projected(projected: list, cfg: KernelConfig, dyn_t: KernelDynamics, bg, sample,
-                      is_ewa: bool):
-    """The split path after the projection: coords_post_uv, then one sample
-    (two in background mode 3) and the validity mask. For EWA the stacked
-    evals go to the sampler with the base eval's rows as u, v, valid.
-    Returns the pixels and the base eval's u, v after coords_post_uv (the
-    overlay's input-stage positions).
-
-    projected: a list holding the projection's (u, v, valid), emptied here,
-    so that nothing holds the projected positions once coords_post_uv has
-    mapped them: the plane's peak memory is one full-size (u, v) pair less."""
-    u, v, valid = projected.pop()
-    u, v = coords_post_uv(u, v, cfg)
+def _sample(stages: Stages, p: _Plane, u, v, valid):
+    """The split path after coords_post_uv: one sample (two in background
+    mode 3) and the validity mask. For EWA the stacked evals go to the
+    sampler with the base eval's rows as u, v, valid. Returns the pixels and
+    the base eval's u, v (the overlay's input-stage positions)."""
+    cfg, dyn_t = p.cfg, p.dyn_t
     evals = None
-    if is_ewa:
+    if cfg.interpolation in EWA_BC:
         evals = (u, v, valid)
         u, v, valid = u.chunk(3)[0], v.chunk(3)[0], valid.chunk(3)[0]
 
@@ -783,47 +899,23 @@ def _sample_projected(projected: list, cfg: KernelConfig, dyn_t: KernelDynamics,
         pt2v = torch.where(near_edge, ((v / fh - 0.5) * (1.0 - margin) + 0.5) * fh, v)
         frame_w, frame_h = (fw, fh) if cfg.input_rotation == 0.0 else _rotated_frame_size(cfg)
         srx, sry, srw, srh = cfg.src_rect
-        c1 = sample(map_coord(u, 0.0, frame_w, float(srx), float(srx + srw)),
-                    map_coord(v, 0.0, frame_h, float(sry), float(sry + srh)), valid, evals)
-        c2 = sample(map_coord(pt2u, 0.0, frame_w, float(srx), float(srx + srw)),
-                    map_coord(pt2v, 0.0, frame_h, float(sry), float(sry + srh)), valid, evals)
+        c1 = stages.sample(p, map_coord(u, 0.0, frame_w, float(srx), float(srx + srw)),
+                           map_coord(v, 0.0, frame_h, float(sry), float(sry + srh)), valid, evals)
+        c2 = stages.sample(p, map_coord(pt2u, 0.0, frame_w, float(srx), float(srx + srw)),
+                           map_coord(pt2v, 0.0, frame_h, float(sry), float(sry + srh)), valid,
+                           evals)
         pixel = c1 * alpha[..., None] + c2 * (1.0 - alpha[..., None])
     else:
-        pixel = sample(u, v, valid, evals)
-    return torch.where(valid[..., None], pixel, bg), u, v
+        pixel = stages.sample(p, u, v, valid, evals)
+    return torch.where(valid[..., None], pixel, p.bg_t), u, v
 
 
-def _prepare(img, matrices, cfg, mesh):
-    """Checks, then (matrices, mesh) float32 and contiguous on img's device;
-    mesh None unless cfg has the mesh or focal-plane flag (the JAX remap
-    reads it only then)."""
-    _check_supported(cfg)
-    if img.dim() != 3:
-        raise ValueError(f"plane must be (H, W, C), got {tuple(img.shape)}")
-    if has_mesh(cfg):
-        if mesh is None:
-            raise ValueError("mesh / focal-plane flags set but no mesh buffer given")
-        if not (isinstance(mesh, torch.Tensor) and mesh.device == img.device):
-            trace.sync()
-        mesh = torch.as_tensor(mesh).to(device=img.device, dtype=torch.float32).reshape(-1)
-        if mesh.numel() < mesh_len(cfg):
-            raise ValueError(f"mesh buffer of {mesh.numel()} floats, grid {cfg.mesh_grid} "
-                             f"needs {mesh_len(cfg)}")
-        mesh = mesh.contiguous()
-    else:
-        mesh = None
-    if matrices.device != img.device:
-        trace.sync()
-    return matrices.to(device=img.device, dtype=torch.float32).contiguous(), mesh
-
-
-def _canvas(cfg: KernelConfig, drawing, device):
-    """The drawing's canvas as a uint8 tensor on device, uploaded once per
-    call, or None when the overlay is off (remap.py:1004)."""
-    if drawing is None or not cfg.has(DRAWING_ENABLED):
-        return None
-    trace.sync()
-    return torch.from_numpy(np.ascontiguousarray(drawing.canvas, np.uint8)).to(device)
+def _on(t, device):
+    """t float32 and contiguous on device: a tensor there already as it is,
+    anything else through trace.to_device."""
+    if not (isinstance(t, torch.Tensor) and t.device == device):
+        t = trace.to_device(torch.as_tensor(t), device, dtype=torch.float32)
+    return t.to(torch.float32).contiguous()
 
 
 def remap_plane(img, matrices, cfg: KernelConfig, dyn: KernelDynamics, mesh=None,
@@ -834,33 +926,8 @@ def remap_plane(img, matrices, cfg: KernelConfig, dyn: KernelDynamics, mesh=None
     Runs on whatever device ``img`` lies on. ``mesh``: the frame's Sony mesh
     / focal-plane buffer (read when cfg has either flag); ``drawing``: a
     core.drawing.DrawingState, blended when cfg has DRAWING_ENABLED."""
-    matrices, mesh = _prepare(img, matrices, cfg, mesh)
-    imgf = img.to(torch.float32)
-    dyn_t = dyn_to_torch(dyn, img.device)
-    bg = (dyn_t.background * dyn_t.max_pixel_value)[:img.shape[-1]]
-    limit = _host_scalar(dyn.pixel_value_limit)
-    coeffs_p, coeffs_q = _ewa_coeffs_of(dyn)
-
-    def project(x, y, idx):
-        return rotate_and_distort(x, y, idx, matrices, cfg, dyn_t, mesh=mesh)
-
-    def sample(u, v, valid, evals):
-        if evals is not None:
-            jac = ewa_jacobian(*evals)[3]
-            return sample_ewa(imgf, u, v, jac, bg, cfg.src_rect, coeffs_p, coeffs_q, limit)
-        return sample_input(imgf, u, v, bg, cfg.src_rect, cfg.interpolation, limit)
-
-    overlay = None
-    canvas = _canvas(cfg, drawing, img.device)
-    if canvas is not None:
-        maxv = _host_scalar(dyn.max_pixel_value)
-        scale = torch.full((), float(drawing.scale), dtype=torch.float32, device=img.device)
-
-        def overlay(pixel, u, v, ox, oy):
-            return _draw_overlay(pixel, u, v, ox, oy, canvas, scale, drawing.safe_area_rect,
-                                 cfg.src_rect, maxv)
-
-    out = _remap(img, matrices, cfg, dyn_t, project, sample, mesh=mesh, overlay=overlay)
+    p = _plane(img.to(torch.float32), matrices, cfg, dyn, mesh, drawing)
+    out = _remap(Route("pre", False), PLAIN, p)
     with trace.span("gf.eager"):
         return _cast_out(out, out_dtype, _host_scalar(dyn.max_pixel_value))
 
@@ -868,102 +935,37 @@ def remap_plane(img, matrices, cfg: KernelConfig, dyn: KernelDynamics, mesh=None
 def remap_plane_cuda(img, matrices, cfg: KernelConfig, dyn: KernelDynamics, mesh=None,
                      drawing=None, out_dtype: str = "f32", fused: bool = False,
                      out_rows=None, oy0: int = 0):
-    """Remap one plane through the coords kernel and the sampler (or EWA)
-    kernel, or with ``fused=True`` through the fused kernel.
-
-    Counterpart of remap_plane_pallas (remap.py:662) on one thread per output
-    pixel: one coords launch per plane (EWA stacks its three evals into it)
-    and one sampling launch per sample (two in background mode 3); a mesh
-    frame adds one coords launch for its rolling-shutter probe, and the
-    drawing overlay one overlay launch. The coords launch of a plane that
-    ``cuda_coords.gen_admits``, other than fused, is
-    ``cuda_coords.project_gen``: the output grid's positions, ``coords_pre``
-    and the projection in one, with the bits of the eager ``coords_pre``
-    and ``cuda_coords.project``; for EWA the three stacked evals with the
-    bits of ``ewa_stack`` and ``cuda_coords.project``. With ``fused=True``,
-    a plane that ``use_fused`` admits takes one fused launch instead of the
-    coords and sampler launches; any other plane (mesh and drawing among them) takes
-    the split path, as remap_plane_pallas does. The frame's mesh buffer may
-    be in the reference layout or packed (``cuda_coords.pack_mesh``), on the
-    host or on the card: a buffer that is not packed is packed here and put
-    on its device. ``img`` keeps its native dtype (uint8, uint16 or
-    float32): the kernels read it directly. On CPU tensors the kernel
-    wrappers run their plain versions.
+    """Remap one plane through the kernels along ``plane_route`` (remap.py:662):
+    one coords launch per plane (EWA stacks its three evals into it), one
+    sampling launch per sample (two in background mode 3), one more coords
+    launch for a mesh plane's probe and one overlay launch for a drawing;
+    ``fused=True`` merges the coords and sampling launches where the fused
+    kernel takes the plane. ``mesh``: the frame's buffer packed on img's
+    device, or on the host in the reference or packed layout
+    (``cuda_coords.kernel_mesh`` packs it); a card buffer that is not packed
+    raises. ``img`` keeps its native dtype (uint8, uint16 or float32): the
+    kernels read it directly. On CPU tensors the kernel wrappers run their
+    plain versions.
 
     ``out_rows``, ``oy0``: compute only the band of output rows oy0 .. oy0 +
     out_rows (remap_plane_pallas's row band, remap.py:678-709), with every
     coordinate in absolute output space, so the bands give the bits of the
     same rows of the whole plane; the drawing overlay too, at the band's
     absolute rows (remap.py:709, 1005)."""
-    from . import cuda_coords, cuda_ewa, cuda_fused, cuda_overlay, cuda_sampler
-
-    ow, oh = cfg.out_buffer
-    rows = oh if out_rows is None else int(out_rows)
-    oy0 = int(oy0)
-    if rows < 0 or oy0 < 0 or oy0 + rows > oh:
-        raise ValueError(f"output band of {rows} rows at {oy0}: the plane has {oh} rows")
-    if has_mesh(cfg) and mesh is not None:
-        _check_supported(cfg)
-        on_card = isinstance(mesh, torch.Tensor) and mesh.device.type != "cpu"
-        if not on_card:
-            mesh = cuda_coords.pack_mesh(mesh, cfg)   # a host buffer goes up packed
-        elif mesh.numel() != cuda_coords.packed_len(cfg):
-            trace.sync()
-            mesh = torch.from_numpy(cuda_coords.pack_mesh(mesh, cfg)).to(mesh.device)
-    matrices, mesh = _prepare(img, matrices, cfg, mesh)
-    C = img.shape[-1]
-    bg = tuple(float(b) for b in
-               (np.asarray(dyn.background, np.float32) * np.float32(dyn.max_pixel_value))[:C])
-    limit = _host_scalar(dyn.pixel_value_limit)
-    coeffs = _ewa_coeffs_of(dyn)
-    dyn_t = dyn_to_torch(dyn, img.device)
-
-    def project(x, y, idx):
-        return cuda_coords.project(x, y, idx, matrices, cfg, dyn, mesh)
-
-    def sample(u, v, valid, evals):
-        if evals is not None:
-            with trace.span("gf.ewa.sample"):
-                return cuda_ewa.sample(img, u, v, *evals, bg, cfg.src_rect, coeffs, limit)
-        return cuda_sampler.sample(img, u, v, valid, bg, cfg.src_rect,
-                                   cfg.interpolation, limit)
-
-    fuse = gen = None
-    if fused and use_fused(cfg, matrices, drawing):
-        def fuse(x, y, idx):
-            return cuda_fused.remap_fused(img, x, y, idx, matrices, cfg, dyn, bg, limit)
-    elif cuda_coords.gen_admits(cfg):
-        def gen():
-            # out_c, out_f: read only by the lens-correction blend, which
-            # gen_admits rules out
-            return cuda_coords.project_gen(cfg, dyn, matrices, rows, oy0, None, None)
-
-    overlay = None
-    canvas = _canvas(cfg, drawing, img.device)
-    if canvas is not None:
-        maxv = _host_scalar(dyn.max_pixel_value)
-
-        def overlay(pixel, u, v, ox, oy):
-            return cuda_overlay.overlay(pixel, u.contiguous(), v.contiguous(), canvas,
-                                        float(drawing.scale),
-                                        drawing.safe_area_rect, cfg.src_rect, maxv, oy0)
-
-    out = _remap(img, matrices, cfg, dyn_t, project, sample, fuse, gen, mesh=mesh,
-                 probe=mesh_probe(matrices, cfg, dyn, mesh), overlay=overlay,
-                 out_rows=rows, oy0=oy0)
+    from .cuda_coords import kernel_mesh
+    p = _plane(img, matrices, cfg, dyn, kernel_mesh(mesh, cfg), drawing, out_rows, oy0)
+    out = _remap(plane_route(cfg, p.matrices, drawing, fused), kernels(), p)
     with trace.span("gf.eager"):
         return _cast_out(out, out_dtype, _host_scalar(dyn.max_pixel_value))
 
 
 def mesh_probe(matrices, cfg: KernelConfig, dyn: KernelDynamics, mesh):
-    """coords_pre's rolling-shutter probe through the coords kernel, for mesh
-    frames only (None otherwise, and for a single matrix row): one launch
-    with every point on the centre row, in place of the plain projection's
-    hundreds of eager launches. The kernel gives the plain version's bits,
-    so the selected rows are the same."""
+    """coords_pre's rolling-shutter probe through the coords kernel, for a
+    mesh plane with more than one matrix row (``plane_route``'s probe): one
+    launch with every point on the centre row, in place of the plain
+    projection's hundreds of eager launches. The kernel gives the plain
+    version's bits, so the selected rows are the same."""
     from . import cuda_coords
-    if mesh is None or matrices.shape[0] < 2:
-        return None
     c = matrices.shape[0] // 2
     center = matrices[c:c + 1]
 

@@ -222,19 +222,11 @@ def make_window_step(mesh: FrameMesh, cfg: KernelConfig, f_local: int, out_dtype
     return step
 
 
-def _to(t, given, dev):
-    """t on dev; where the caller gave it on the host, a host sync counted."""
-    if trace.from_host(given, dev):
-        trace.sync()
-    return t.to(dev)
-
-
 def place_window(mesh: FrameMesh, imgs, matrices, meshes=None, dtype=None):
     """Put each dp row's frames, matrices and mesh buffers on each device of
     the row, one copy each (a tensor already there is not copied); the
     frames in ``dtype`` where given, converted on the device. Returns one
     dict a dp row, {device: (imgs, matrices, meshes or None)}."""
-    given = (imgs, matrices, meshes)
     imgs = torch.as_tensor(imgs)
     matrices = torch.as_tensor(matrices, dtype=torch.float32)
     if meshes is not None:
@@ -254,9 +246,10 @@ def place_window(mesh: FrameMesh, imgs, matrices, meshes=None, dtype=None):
             if dev in on_dev:
                 continue
             with trace.span("gf.upload"):
-                x = _to(imgs[rows], given[0], dev)
-            on_dev[dev] = (x if dtype is None else x.to(dtype), _to(matrices[rows], given[1], dev),
-                           None if meshes is None else _to(meshes[rows], given[2], dev))
+                x = trace.to_device(imgs[rows], dev)
+            on_dev[dev] = (x if dtype is None else x.to(dtype),
+                           trace.to_device(matrices[rows], dev),
+                           None if meshes is None else trace.to_device(meshes[rows], dev))
         placed.append(on_dev)
     return placed
 

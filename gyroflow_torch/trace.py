@@ -8,9 +8,10 @@ frame's video timestamp in us, so the Y and UV calls of one frame share it,
 and each frame's FrameTransform lookup in a window has its own); a span given
 none takes its parent's. The counter ``gf.host_syncs`` (``trace.sync()``,
 read by ``syncs()``) counts the program's calls that block the host on the
-stream, at the call site and on any device, so a CPU run counts what a card
-would. Named counters (``trace.count(name, n)``, read by ``counts()``) add n
-to the counter ``name`` the same way: ``gf.coords.points`` counts the
+stream (every upload through ``to_device``), at the call site and on any
+device, so a CPU run counts what a card would. Named counters
+(``trace.count(name, n)``, read by ``counts()``) add n to the counter
+``name`` the same way: ``gf.coords.points`` counts the
 positions each coords-kernel launch projects (``ops/cuda_coords.py``), at the
 call, so the plain version on the CPU counts what the kernel would, and
 ``gf.coords.gen_ewa_planes`` the EWA planes whose stacked evals take the
@@ -291,6 +292,14 @@ def from_host(data, device) -> bool:
     Host data counts on the CPU too, so a CPU run counts what a card would."""
     return not (isinstance(data, torch.Tensor) and data.device.type != "cpu"
                 and data.device == torch.device(device))
+
+
+def to_device(t: torch.Tensor, device, **kw) -> torch.Tensor:
+    """``t.to(device, **kw)``, one ``gf.host_syncs`` counted first where t
+    comes from the host (``from_host``): every upload of the program."""
+    if from_host(t, device):
+        sync()
+    return t.to(device, **kw)
 
 
 TRACER = Tracer()

@@ -11,10 +11,9 @@ single-frame export. Files are named
 
 A copy of gyroflow_tpu.utils.stmap whose undistort map runs on the
 manager's torch device: the output grid is built there, and the projection
-goes through the coords kernel (``cuda_coords.project``) on a CUDA device,
-or the plain ``remap.undistort_coord`` on the CPU, for every lens model and
-digital lens, with the frame's Sony mesh / focal-plane buffer as the JAX
-map carries it (stmap.py:102-105).
+goes through the coords kernel (``cuda_coords.project``; its plain version
+on the CPU), for every lens model and digital lens, with the frame's Sony
+mesh / focal-plane buffer as the JAX map carries it (stmap.py:102-105).
 """
 from __future__ import annotations
 
@@ -90,6 +89,7 @@ def undistort_inputs(mgr, timestamp_ms: float, per_frame: bool = False,
     """
     import torch
     from ..ops import remap
+    from ..ops.cuda_coords import kernel_mesh
     from ..ops.frame_transform import frame_transform_at
 
     cp = _export_params(mgr, per_frame)
@@ -106,33 +106,30 @@ def undistort_inputs(mgr, timestamp_ms: float, per_frame: bool = False,
     dyn = ft.kernel_dyn
 
     dev = mgr.device
-    oy, ox = torch.meshgrid(torch.arange(new_h, dtype=torch.float32, device=dev),
-                            torch.arange(new_w, dtype=torch.float32, device=dev),
-                            indexing="ij")
+    oy, ox = remap.out_grid(new_w, new_h, 0, dev)
     mats = torch.from_numpy(np.ascontiguousarray(ft.matrices, np.float32)).to(dev)
     out_f = (dyn.f[0] / dyn.fov, dyn.f[1] / dyn.fov)
-    mesh = None
-    if ft.mesh_data is not None and remap.has_mesh(cfg):
-        from ..ops.cuda_coords import pack_mesh
-        mesh = torch.from_numpy(pack_mesh(ft.mesh_data, cfg)).to(dev)
+    mesh = kernel_mesh(ft.mesh_data, cfg)
+    if mesh is not None:
+        mesh = torch.from_numpy(mesh).to(dev)
     return ox, oy, mats, cfg, dyn, (new_w / 2.0, new_h / 2.0), out_f, mesh
 
 
 def undistort_uv(mgr, timestamp_ms: float, per_frame: bool = False, frame: int = 0):
     """Source (u, v, valid) per output pixel of the expanded canvas, tensors
     on ``mgr.device``: coords_pre (its rolling-shutter probe through the
-    coords kernel for a mesh frame), the coords kernel and coords_post_uv on
-    a CUDA device; the plain remap.undistort_coord on the CPU."""
+    coords kernel where ``remap.plane_route`` takes it: a mesh frame with
+    more than one matrix row), the coords kernel (on the CPU its plain
+    version, the plain ``remap.undistort_coord``'s bits) and
+    coords_post_uv."""
     from ..ops import cuda_coords, remap
     from ..ops.kernel_params import dyn_to_torch
 
     ox, oy, mats, cfg, dyn, out_c, out_f, mesh = undistort_inputs(mgr, timestamp_ms,
                                                                   per_frame, frame)
-    dyn_t = dyn_to_torch(dyn, ox.device)
-    if ox.device.type == "cpu":
-        return remap.undistort_coord(ox, oy, mats, cfg, dyn_t, out_c, out_f, mesh=mesh)
-    x, y, idx = remap.coords_pre(ox, oy, mats, cfg, dyn_t, out_c, out_f, mesh=mesh,
-                                 probe=remap.mesh_probe(mats, cfg, dyn, mesh))
+    probe = remap.mesh_probe(mats, cfg, dyn, mesh) if remap.plane_route(cfg, mats).probe else None
+    x, y, idx = remap.coords_pre(ox, oy, mats, cfg, dyn_to_torch(dyn, ox.device), out_c, out_f,
+                                 mesh=mesh, probe=probe)
     u, v, valid = cuda_coords.project(x, y, idx, mats, cfg, dyn, mesh)
     u, v = remap.coords_post_uv(u, v, cfg)
     return u, v, valid

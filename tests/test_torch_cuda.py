@@ -1349,16 +1349,19 @@ def test_overlay_kernel_vs_plain(dev, dtype, c):
 
 @pytest.mark.parametrize("plane", ["Y", "UV"])
 def test_reference_layout_mesh_buffer_on_the_card(dev, plane):
-    """A mesh buffer in the reference layout, on the card or on the host,
-    goes through remap_plane_cuda (packed on its device) with the plain
-    path's bits, as the packed buffer does."""
+    """A mesh buffer in the reference layout on the host goes through
+    remap_plane_cuda (packed on the host) with the plain path's bits, as
+    the packed buffer on the card does; one in the reference layout on the
+    card is refused (it is never downloaded to be packed)."""
     cfg, dyn, mats, img, packed = _mesh_case(plane, HAS_FPD_DATA | HAS_IBIS_DATA)
     ref = _mesh((9, 9), fpd=True)
     timg, m = torch.from_numpy(img).to(dev), torch.from_numpy(mats).to(dev)
     want = remap.remap_plane(timg, m, cfg, dyn, ref.to(dev), out_dtype="uint16")
-    for mesh in (ref.to(dev), ref, packed.to(dev)):
+    for mesh in (ref, packed.to(dev)):
         got = remap.remap_plane_cuda(timg, m, cfg, dyn, mesh, out_dtype="uint16")
         assert torch.equal(got, want)
+    with pytest.raises(ValueError, match="pack_mesh"):
+        remap.remap_plane_cuda(timg, m, cfg, dyn, ref.to(dev), out_dtype="uint16")
 
 
 def _band_cases():

@@ -23,6 +23,9 @@ JAX package's ``pallas_coords.project_tiles_gen``, on the CPU.
   ``gf.eager`` span of each plane notes "gen" there and "pre" for each form
   that keeps ``coords_pre`` (mesh and focal plane, lens correction, a
   digital lens, each also at EWA, ``fused=True``).
+- ``remap.plane_route`` over the same eight forms: the route each takes and
+  whether its rolling-shutter probe runs on the coords kernel (the mesh
+  plane's alone).
 
 Tolerances: u/v within 0.05 px (the ROADMAP's coordinate tolerance; the
 JAX kernel's in-kernel probe and XLA round the same chain a few ulp apart),
@@ -345,6 +348,23 @@ def test_remap_plane_cuda_route_note(routes, form):
     assert (calls["project"] > 0) == (not gen and form != "fused")
     assert cuda_coords.gen_admits(cfg) == (form in ("fisheye", "ewa", "fused"))
     assert torch.equal(got, tremap.remap_plane(timg, m, cfg, dyn, tmesh))
+
+
+@pytest.mark.parametrize("form", ["fisheye", "mesh_fpd", "lens_correction", "digital_lens",
+                                  "ewa", "fused", "ewa_lens_correction", "ewa_digital_lens"])
+def test_plane_route(form):
+    """plane_route decides each form's route and whether its rolling-shutter
+    probe runs on the coords kernel: "gen" for the plain fisheye at lanczos4
+    and at EWA, "fused" for fused=True on a plane the fused kernel takes
+    ("gen" without it), "pre" for each form gen_admits refuses, with the
+    probe for the mesh plane alone, and there only with more than one
+    matrix row."""
+    cfg, dyn, mats, img, mesh, kw = _bypass_case(form)
+    m = torch.from_numpy(mats).repeat(3, 1)      # a rolling-shutter table
+    want = {"fisheye": "gen", "ewa": "gen", "fused": "fused"}.get(form, "pre")
+    assert tremap.plane_route(cfg, m, None, **kw) == (want, form == "mesh_fpd")
+    assert tremap.plane_route(cfg, m).name == ("gen" if form == "fused" else want)
+    assert not tremap.plane_route(cfg, m[:1], None, **kw).probe
 
 
 @pytest.mark.parametrize("form", ["fisheye", "lens_correction"])

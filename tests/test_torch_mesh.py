@@ -308,8 +308,8 @@ def test_coords_wrapper_refuses_unpacked_or_misaligned_mesh():
 @pytest.mark.parametrize("interpolation", [8, 11])
 def test_remap_wrapper_takes_reference_or_packed_buffers(interpolation):
     """remap_plane_cuda takes the frame's mesh buffer as the JAX remap does,
-    in the reference layout (a tensor or numpy) or packed, and packs it on
-    its device itself: each gives the plain path's bits (on a card:
+    in the reference layout (a tensor or numpy) or packed, and packs a host
+    buffer itself: each gives the plain path's bits (on a card:
     test_torch_cuda.py)."""
     cfg, dyn, _, mats, mesh = _mesh_case(fpd=True, ibis=True)
     cfg = cfg._replace(interpolation=interpolation)
@@ -326,6 +326,20 @@ def test_remap_wrapper_takes_reference_or_packed_buffers(interpolation):
     for buf in (torch.from_numpy(ref), ref, torch.from_numpy(cuda_coords.pack_mesh(ref, pcfg))):
         got = tremap.remap_plane_cuda(img, m, pcfg, pdyn, buf, out_dtype="uint16")
         assert torch.equal(got, want)
+
+
+def test_buffer_off_the_host_not_packed_is_refused():
+    """A mesh buffer that is not on the host and not packed is refused, never
+    downloaded to be packed: pack_mesh takes host buffers only, and
+    remap_plane_cuda names pack_mesh (a meta tensor stands for the card's)."""
+    cfg, dyn, _, mats, mesh = _mesh_case(fpd=True)
+    pcfg, pdyn = tkp.from_reference(cfg, dyn)
+    off_host = torch.from_numpy(np.asarray(mesh, np.float32)).to("meta")
+    with pytest.raises(ValueError, match="host buffer"):
+        cuda_coords.pack_mesh(off_host, pcfg)
+    img = torch.from_numpy(np.rint(make_image() * 4.0).astype(np.uint16))
+    with pytest.raises(ValueError, match="pack_mesh"):
+        tremap.remap_plane_cuda(img, torch.from_numpy(mats), pcfg, pdyn, off_host)
 
 
 class TestMeshGolden:
