@@ -1,8 +1,10 @@
 """Native (C++) hot-loop acceleration with transparent Python fallback.
 
-Compiles gyroflow_native.cpp with g++ at first import (cached next to the
-source as a versioned .so) and exposes ctypes wrappers. Every entry point has
-a pure-Python equivalent; tests assert bit-level agreement.
+Compiles gyroflow_native.cpp and ft_rows.cpp with g++ at first use into one
+library, cached under gyroflow_torch/build/native and named by a digest of both
+sources, and exposes ctypes wrappers. Every entry point has a pure-Python
+equivalent; tests assert bit-level agreement. ft_rows.cpp builds with
+contraction off so that its float64 arithmetic rounds as numpy's does.
 """
 from __future__ import annotations
 
@@ -19,6 +21,45 @@ log = logging.getLogger(__name__)
 _LIB = None
 _TRIED = False
 
+_HERE = os.path.dirname(__file__)
+# each source with the flags it adds to the common ones
+SOURCES = {
+    os.path.join(_HERE, "gyroflow_native.cpp"): [],
+    os.path.join(_HERE, "ft_rows.cpp"): ["-ffp-contract=off", "-fno-fast-math"],
+}
+COMMON_FLAGS = ["-O3", "-march=native", "-fPIC", "-pthread"]
+
+
+def digest(sources=SOURCES) -> str:
+    """The library's name: a hash of every source and its flags."""
+    h = hashlib.sha256()
+    for src, flags in sources.items():
+        with open(src, "rb") as f:
+            h.update(f.read())
+        h.update(" ".join(COMMON_FLAGS + flags).encode() + b"\0")
+    return h.hexdigest()[:16]
+
+
+def _build(so_path: str) -> bool:
+    """Compile each source to an object with its flags, then link them."""
+    tmp = so_path + f".build{os.getpid()}"
+    objs = [f"{tmp}.{i}.o" for i in range(len(SOURCES))]
+    cmds = [["g++", *COMMON_FLAGS, *flags, "-c", "-o", obj, src]
+            for obj, (src, flags) in zip(objs, SOURCES.items())]
+    try:
+        for cmd in cmds + [["g++", "-shared", "-pthread", "-o", tmp, *objs]]:
+            res = subprocess.run(cmd, capture_output=True, text=True, timeout=120)
+            if res.returncode != 0:
+                log.warning("native build failed, using Python fallbacks:\n%s",
+                            res.stderr[:2000])
+                return False
+        os.replace(tmp, so_path)
+        return True
+    finally:
+        for obj in objs:
+            if os.path.exists(obj):
+                os.remove(obj)
+
 
 def _build_and_load():
     global _LIB, _TRIED
@@ -27,25 +68,13 @@ def _build_and_load():
     _TRIED = True
     if os.environ.get("GYROFLOW_TORCH_NO_NATIVE"):
         return None
-    src = os.path.join(os.path.dirname(__file__), "gyroflow_native.cpp")
     try:
-        with open(src, "rb") as f:
-            digest = hashlib.sha256(f.read()).hexdigest()[:16]
         cache_dir = os.environ.get("GYROFLOW_TORCH_NATIVE_CACHE",
-                                   os.path.join(os.path.dirname(os.path.dirname(__file__)),
-                                                "build", "native"))
+                                   os.path.join(os.path.dirname(_HERE), "build", "native"))
         os.makedirs(cache_dir, exist_ok=True)
-        so_path = os.path.join(cache_dir, f"gyroflow_native_{digest}.so")
-        if not os.path.exists(so_path):
-            tmp = so_path + f".build{os.getpid()}"
-            cmd = ["g++", "-O3", "-march=native", "-shared", "-fPIC",
-                   "-pthread", "-o", tmp, src]
-            res = subprocess.run(cmd, capture_output=True, text=True, timeout=120)
-            if res.returncode != 0:
-                log.warning("native build failed, using Python fallbacks:\n%s",
-                            res.stderr[:2000])
-                return None
-            os.replace(tmp, so_path)
+        so_path = os.path.join(cache_dir, f"gyroflow_native_{digest()}.so")
+        if not os.path.exists(so_path) and not _build(so_path):
+            return None
         lib = ctypes.CDLL(so_path)
         dptr = ctypes.POINTER(ctypes.c_double)
         lib.slerp_scan.argtypes = [dptr, ctypes.c_int64, dptr, ctypes.c_int]
@@ -62,6 +91,10 @@ def _build_and_load():
         lib.ref_cpu_remap_anchor.argtypes = [
             fptr, ctypes.c_int, ctypes.c_int, fptr, ctypes.c_int, fptr,
             fptr, ctypes.c_int, ctypes.c_int, ctypes.c_int]
+        i64, vp = ctypes.c_int64, ctypes.c_void_p     # vp: an array's .ctypes.data
+        lib.gf_ft_rows.argtypes = [i64, vp, vp, vp, vp, i64, vp, vp, i64, vp, vp, i64,
+                                   vp, vp, i64, i64, vp, vp, i64, i64, vp]
+        lib.gf_ft_rows.restype = None
         _LIB = lib
         log.debug("native library loaded: %s", so_path)
     except Exception as e:  # noqa: BLE001 — any failure -> Python fallback
@@ -159,4 +192,34 @@ def ref_cpu_remap_anchor(img: np.ndarray, mats: np.ndarray, params,
         im.ctypes.data_as(fptr), im.shape[0], im.shape[1],
         m.ctypes.data_as(fptr), m.shape[0], p.ctypes.data_as(fptr),
         out.ctypes.data_as(fptr), out.shape[0], out.shape[1], nthreads)
+    return out
+
+
+def ft_rows(rows: int, frame, consts, offsets, org, smoothed, ibis, ois) -> np.ndarray:
+    """The FrameTransform's (rows, 14) float32 table (ft_rows.cpp). frame
+    and consts are the float64 vectors ft_rows.cpp describes; offsets is a
+    pair (int64 us keys, float64 ms values), org and smoothed are pairs (int64
+    us, (n, 4) float64 quaternions); ibis and ois are (positions, (n, dim)
+    values) of the splines."""
+    lib = _build_and_load()
+    f64 = lambda a: np.ascontiguousarray(a, dtype=np.float64)    # noqa: E731
+    i64 = lambda a: np.ascontiguousarray(a, dtype=np.int64)      # noqa: E731
+    arrays = [f64(frame), f64(consts)]    # kept alive through the call
+    if arrays[0].shape != (16,) or arrays[1].shape != (18,):
+        raise ValueError("ft_rows: frame takes 16 values and consts 18")
+    args = [rows, arrays[0].ctypes.data, arrays[1].ctypes.data]
+    for (keys, vals), shape in ((offsets, ()), (org, (4,)), (smoothed, (4,))):
+        arrays += [i64(keys), f64(vals)]
+        if arrays[-2].ndim != 1 or arrays[-1].shape != arrays[-2].shape + shape:
+            raise ValueError("ft_rows: keys and values of different lengths")
+        args += [arrays[-2].ctypes.data, arrays[-1].ctypes.data, len(arrays[-2])]
+    for (pos, vals), cols in ((ibis, 3), (ois, 2)):
+        arrays += [f64(pos), f64(vals)]
+        if arrays[-1].size and (arrays[-1].ndim != 2 or arrays[-1].shape[1] < cols or
+                                arrays[-1].shape[0] != arrays[-2].shape[0]):
+            raise ValueError(f"ft_rows: a spline needs (n, >= {cols}) values at n positions")
+        args += [arrays[-2].ctypes.data, arrays[-1].ctypes.data, len(arrays[-2]),
+                 arrays[-1].shape[1] if arrays[-1].ndim == 2 else 0]
+    out = np.empty((rows, 14), np.float32)
+    lib.gf_ft_rows(*args, out.ctypes.data)
     return out

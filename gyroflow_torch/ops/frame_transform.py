@@ -1,9 +1,11 @@
 """Per-frame transform construction — the host-side f64 math feeding the kernel.
 
-Port of gyroflow src/core/stabilization/frame_transform.rs. The per-row
-rolling-shutter matrices (rayon par_iter in the reference, :249-308) are built
-as one vectorized numpy batch: H slerp lookups + batched 3x3 inverses, emitted
-as the (matrix_count, 14) f32 tensor the TPU kernels consume.
+Port of gyroflow src/core/stabilization/frame_transform.rs. The per-row table
+(rayon par_iter in the reference, :249-308: the rolling-shutter matrices and
+the IBIS / OIS shifts) is built in one pass of native/ft_rows.cpp whenever the
+native library loads, else as one vectorized numpy batch (_rows_numpy, its
+twin to the bit), and emitted as the (matrix_count, 14) f32 table the kernels
+consume.
 """
 from __future__ import annotations
 
@@ -13,6 +15,7 @@ from typing import List, Optional, Tuple
 
 import numpy as np
 
+from .. import native as _native
 from .. import trace
 from ..core import quaternion as quat
 from ..core.keyframes import KeyframeType
@@ -209,6 +212,109 @@ def _sign_fixup(r: np.ndarray, framebuffer_inverted: bool) -> np.ndarray:
     return out
 
 
+def _inverse_k(new_k: np.ndarray) -> np.ndarray:
+    """new_k's inverse, or its pseudo-inverse where new_k is near singular.
+
+    A row's matrix is (new_k @ r)^-1 == r.T @ new_k^-1 (r a rotation): one
+    3x3 inverse a frame instead of a per-row SVD (np.linalg.pinv on (2160,
+    3, 3) cost 5.4 ms a frame; the two differ by 7e-16 in float64). For a
+    near-singular new_k (a degenerate fov or focal keyframe) the reference
+    takes (new_k*r).pseudo_inverse(1e-6) (frame_transform.rs:296), which
+    drops singular values <= 1e-6: mirrored by an SVD pseudo-inverse
+    whenever the plain inverse is not finite or new_k is ill-conditioned."""
+    inv_k = None
+    try:
+        inv_k = np.linalg.inv(new_k)
+        if not np.isfinite(inv_k).all() or np.linalg.cond(new_k) > 1e12:
+            inv_k = None
+    except np.linalg.LinAlgError:
+        inv_k = None
+    if inv_k is None:
+        u, s, vt = np.linalg.svd(new_k)
+        s_inv = np.where(s > 1e-6, 1.0 / np.where(s > 1e-6, s, 1.0), 0.0)
+        inv_k = (vt.T * s_inv) @ u.T                 # pinv(new_k), eps=1e-6
+    return inv_k
+
+
+def _rows_numpy(params: ComputeParams, gyro, stab, rows: int, ts: float, start_ts: float,
+                row_readout_time: float, frame_readout_time: float, image_rotation: np.ndarray,
+                inv_k: np.ndarray) -> np.ndarray:
+    """The (rows, 14) float32 table: per row the RS matrix (new_k @ r)^-1
+    and the IBIS / OIS shifts. The twin of ft_rows.cpp (_rows_native)."""
+    quat1 = quat.inverse(gyro.org_quat_at_timestamp(ts))
+    smoothed_quat1 = gyro.smoothed_quat_at_timestamp(ts)
+
+    # ---- vectorized per-row matrices (reference: rayon par_iter :249-308) ---
+    ys = np.arange(rows, dtype=np.float64)
+    quat_times = start_ts + row_readout_time * ys if abs(frame_readout_time) > 0.0 \
+        else np.full(rows, start_ts)
+    row_quats = gyro.org_quat_at_timestamp(quat_times)          # (rows, 4)
+    q = quat.multiply(smoothed_quat1, quat.multiply(quat1, row_quats))
+    r = np.einsum("ij,njk->nik", image_rotation, quat.to_rotation_matrix(q))
+    r = _sign_fixup(r, params.framebuffer_inverted)
+
+    ibis = np.zeros((rows, 5), dtype=np.float64)
+    if stab is not None:
+        is_scale = (
+            params.width / stab.crop_area[2] / stab.pixel_pitch[0],
+            params.height / stab.crop_area[3] / stab.pixel_pitch[1] *
+            (-1.0 if params.framebuffer_inverted else 1.0),
+        )
+        y_sensor = stab.crop_area[1] + (ys / params.height) * stab.crop_area[3]
+        if params.framebuffer_inverted:
+            y_sensor = stab.sensor_size[1] - y_sensor
+        s = stab.ibis_spline.interpolate(y_sensor + stab.offset)
+        o = stab.ois_spline.interpolate(y_sensor + stab.offset)
+        ibis[:, 0] = s[:, 0] * is_scale[0]
+        ibis[:, 1] = s[:, 1] * is_scale[1]
+        ibis[:, 2] = np.radians(s[:, 2] / 1000.0 * (-1.0 if params.framebuffer_inverted else 1.0))
+        ibis[:, 3] = o[:, 0] * is_scale[0]
+        ibis[:, 4] = o[:, 1] * is_scale[1]
+
+    if params.suppress_rotation:
+        r = np.broadcast_to(np.eye(3), r.shape).copy()
+        if params.frame_readout_time == 0.0:
+            ibis[:] = 0.0
+
+    # (new_k @ r)^+ == r.T @ new_k^+ (r orthonormal)
+    i_r = np.einsum("nij,jk->nik", r.transpose(0, 2, 1), inv_k)  # (rows,3,3)
+    return np.concatenate([i_r.reshape(rows, 9), ibis], axis=1).astype(np.float32)
+
+
+# what _rows_native passes for no gyro (identity rows) and for no IBIS data
+_NO_QUATS = (np.zeros(0, np.int64), np.zeros((0, 4)))
+_NO_SPLINE = (np.zeros(0), np.zeros((0, 3)))
+
+
+def _rows_native(params: ComputeParams, gyro, stab, rows: int, ts: float, start_ts: float,
+                 row_readout_time: float, frame_readout_time: float, image_rotation: np.ndarray,
+                 inv_k: np.ndarray) -> np.ndarray:
+    """_rows_numpy in one pass of native code (native/ft_rows.cpp): the
+    same float32 table, the per-frame constants gathered here."""
+    inverted = params.framebuffer_inverted
+    frame = [ts, start_ts, row_readout_time, abs(frame_readout_time) > 0.0, inverted,
+             params.suppress_rotation, params.height]
+    if stab is None:
+        frame += [0.0] * 9
+        ibis = ois = _NO_SPLINE
+    else:
+        frame += [1.0, params.suppress_rotation and params.frame_readout_time == 0.0,
+                  stab.crop_area[1], stab.crop_area[3], stab.sensor_size[1], stab.offset,
+                  params.width / stab.crop_area[2] / stab.pixel_pitch[0],
+                  params.height / stab.crop_area[3] / stab.pixel_pitch[1] *
+                  (-1.0 if inverted else 1.0),
+                  -1.0 if inverted else 1.0]
+        ibis = (stab.ibis_spline.positions, stab.ibis_spline.values)
+        ois = (stab.ois_spline.positions, stab.ois_spline.values)
+    offsets = gyro.offsets_adjusted
+    keys = sorted(offsets)
+    # GyroSource._quat_at reads identity without two samples or a duration
+    org, smoothed = ((tq.timestamps_us, tq.quats) if len(tq) >= 2 and gyro.duration_ms > 0.0
+                     else _NO_QUATS for tq in (gyro.quaternions, gyro.smoothed_quaternions))
+    return _native.ft_rows(rows, frame, np.concatenate([image_rotation.ravel(), inv_k.ravel()]),
+                           (keys, [offsets[k] for k in keys]), org, smoothed, ibis, ois)
+
+
 def frame_transform_at(params: ComputeParams, timestamp_ms: float, frame: int) -> FrameTransform:
     """FrameTransform::at_timestamp (frame_transform.rs:165-350), vectorized."""
     kf = params.keyframes
@@ -261,71 +367,18 @@ def frame_transform_at(params: ComputeParams, timestamp_ms: float, frame: int) -
 
     image_rotation = _image_rotation_matrix(video_rotation)
 
-    quat1 = quat.inverse(gyro.org_quat_at_timestamp(ts))
-    smoothed_quat1 = gyro.smoothed_quat_at_timestamp(ts)
-
     rows = row_count if abs(frame_readout_time) > 0.0 else 1
+    stab = fm.camera_stab_data[frame] if frame < len(fm.camera_stab_data) else None
 
     with trace.span("gf.ft.rows"):
-        # ---- vectorized per-row matrices (reference: rayon par_iter :249-308) ---
-        ys = np.arange(rows, dtype=np.float64)
-        quat_times = start_ts + row_readout_time * ys if abs(frame_readout_time) > 0.0 \
-            else np.full(rows, start_ts)
-        row_quats = gyro.org_quat_at_timestamp(quat_times)          # (rows, 4)
-        q = quat.multiply(smoothed_quat1, quat.multiply(quat1, row_quats))
-        r = np.einsum("ij,njk->nik", image_rotation, quat.to_rotation_matrix(q))
-        r = _sign_fixup(r, params.framebuffer_inverted)
-
-    with trace.span("gf.ft.lens"):
-        ibis = np.zeros((rows, 5), dtype=np.float64)
-        stab = fm.camera_stab_data[frame] if frame < len(fm.camera_stab_data) else None
-        if stab is not None:
-            is_scale = (
-                params.width / stab.crop_area[2] / stab.pixel_pitch[0],
-                params.height / stab.crop_area[3] / stab.pixel_pitch[1] *
-                (-1.0 if params.framebuffer_inverted else 1.0),
-            )
-            y_sensor = stab.crop_area[1] + (ys / params.height) * stab.crop_area[3]
-            if params.framebuffer_inverted:
-                y_sensor = stab.sensor_size[1] - y_sensor
-            s = stab.ibis_spline.interpolate(y_sensor + stab.offset)
-            o = stab.ois_spline.interpolate(y_sensor + stab.offset)
-            ibis[:, 0] = s[:, 0] * is_scale[0]
-            ibis[:, 1] = s[:, 1] * is_scale[1]
-            ibis[:, 2] = np.radians(s[:, 2] / 1000.0 * (-1.0 if params.framebuffer_inverted else 1.0))
-            ibis[:, 3] = o[:, 0] * is_scale[0]
-            ibis[:, 4] = o[:, 1] * is_scale[1]
-
-    with trace.span("gf.ft.rows"):
-        if params.suppress_rotation:
-            r = np.broadcast_to(np.eye(3), r.shape).copy()
-            if params.frame_readout_time == 0.0:
-                ibis[:] = 0.0
-
-        # (new_k @ r)^-1 == r.T @ new_k^-1 (rotation x intrinsics, always
-        # invertible): ONE tiny 3x3 inverse + a batched matmul instead of a
-        # per-row SVD — np.linalg.pinv on (2160, 3, 3) costs 5.4 ms/frame of
-        # host time (73% of the per-frame FrameTransform build), the analytic
-        # form 0.7 ms, max |diff| 7e-16 (f64; both cast to f32 below)
-        # near-singular new_k (degenerate fov/focal keyframe): the reference
-        # uses (new_k*r).pseudo_inverse(1e-6) (frame_transform.rs:296), which
-        # truncates singular values <= 1e-6 instead of blowing up; mirror that
-        # with an SVD-based absolute-epsilon pseudo-inverse whenever the plain
-        # inverse is non-finite or new_k is ill-conditioned
-        inv_k = None
-        try:
-            inv_k = np.linalg.inv(new_k)
-            if not np.isfinite(inv_k).all() or np.linalg.cond(new_k) > 1e12:
-                inv_k = None
-        except np.linalg.LinAlgError:
-            inv_k = None
-        if inv_k is None:
-            u, s, vt = np.linalg.svd(new_k)
-            s_inv = np.where(s > 1e-6, 1.0 / np.where(s > 1e-6, s, 1.0), 0.0)
-            inv_k = (vt.T * s_inv) @ u.T                 # pinv(new_k), eps=1e-6
-        # (new_k @ r)^+ == r.T @ new_k^+ (r orthonormal)
-        i_r = np.einsum("nij,jk->nik", r.transpose(0, 2, 1), inv_k)  # (rows,3,3)
-        matrices = np.concatenate([i_r.reshape(rows, 9), ibis], axis=1).astype(np.float32)
+        inv_k = _inverse_k(new_k)
+        table = (params, gyro, stab, rows, ts, start_ts, row_readout_time, frame_readout_time,
+                 image_rotation, inv_k)
+        if _native.available():
+            matrices = _rows_native(*table)
+            trace.count("gf.ft.native_rows", rows)
+        else:
+            matrices = _rows_numpy(*table)
 
     az_cy_eff = -az_cy if params.framebuffer_inverted else az_cy
 

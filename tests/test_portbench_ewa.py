@@ -10,7 +10,9 @@
 - a traced stretch (``torch.profiler``, CPU activity) through
   ``remap_plane_cuda``: ``gf.ewa.stack`` and ``gf.ewa.sample`` are recorded
   on EWA planes only, and ``gf.coords.points`` reads 1x, 2x and 3x the
-  frame's points on the GoPro, Sony and EWA routes, as the new readers do;
+  frame's points on the GoPro, Sony and EWA routes, as the new readers do
+  (and ``gf.ft.native_rows`` a frame's rows, where the native library
+  builds);
 - ``portbench/ewa_work.py`` against a hand count, and the EWA roofline
   reader's arithmetic;
 - every new reader reads None from a program whose tracer has no named
@@ -28,6 +30,7 @@ import numpy as np
 import pytest
 import torch
 
+from gyroflow_torch import native
 from portbench import deploy, ewa_control, ewa_readers, ewa_work, harness, roofline, trace
 from portbench.loops import PreviewLoop, Sample
 
@@ -198,6 +201,9 @@ def test_traced_route_spans_and_coords_points(monkeypatch, tmp_path, name):
     counts = {"gf.coords.points": POINTS[name] * frame_points * data.frames}
     if name == CELL:    # each plane's stacked evals on the gen kernel's EWA form
         counts["gf.coords.gen_ewa_planes"] = 2 * data.frames
+    launches = dict(counts)     # the coords launches' counts alone
+    if native.available():      # each frame's table, built by the native pass
+        counts["gf.ft.native_rows"] = H * data.frames
     assert program_trace.counts() == counts
     values = {m: harness.load_reader(m)(data) for m in NEW_READERS}
     assert values["coords_points_per_frame.preview"] == pytest.approx(
@@ -215,7 +221,7 @@ def test_traced_route_spans_and_coords_points(monkeypatch, tmp_path, name):
             if r.name == "gf.ewa.sample":
                 assert recs[r.parent].name == "gf.process_pixels"
         # the stacked launch's counts sit on the span open around it
-        assert totals["gf.ewa.stack"].counts == counts
+        assert totals["gf.ewa.stack"].counts == launches
     else:
         assert not {"gf.ewa.stack", "gf.ewa.sample"} & set(totals)
         assert values["ewa_stack_ms.preview"] is None and values["ewa_sample_ms.preview"] is None

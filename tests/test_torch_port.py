@@ -48,6 +48,9 @@ MEANT_TO_DIFFER = {
                       "device (the coords kernel on a card)",
     "render/dng_seq.py": "bounds every IFD count and offset by the file and raises only "
                          "ValueError (DNGError) on a damaged file",
+    "ops/frame_transform.py": "builds the per-row table in one pass of native/ft_rows.cpp, with "
+                              "the numpy build as its fallback (tests/test_torch_ft_rows.py "
+                              "holds it to the JAX frame transform)",
 }
 
 # port modules rewritten from a script of the repository outside the JAX
